@@ -1,0 +1,94 @@
+// Plain C interface shared by the kernels and their Python wrappers.
+//
+// The wrappers (altro_tpu_torch/ops/_build.py) mirror these structs field
+// for field with ctypes; altro_abi_sizes() lets them check the layout before
+// the first launch.  Problem data travel in one AltroProblem that the
+// wrapper copies to device memory once per parameter set; every thread reads
+// the same entries, so the loads are broadcast and stay in L1.
+#pragma once
+
+#define ALTRO_MAX_FAMS 4  // cost families, and constraint families, per problem
+#define ALTRO_NMAX 8      // largest state dimension a descriptor holds
+
+// A quadratic cost family ½xᵀQx + xᵀHu + ½uᵀRu + qᵀx + rᵀu + c over the
+// knots k0..k1, its params shared by every lane.  They sit in the cost
+// table (`cost_tab` of the launch, in its scalar type) from element
+// `offset` on, one row per knot k0..k1 when `stacked` and one row for all
+// knots otherwise.  A row is Q [n*n], R [m*m], H [n*m], q [n], r [m], c,
+// matrices row-major with the model's n and m as strides.
+struct AltroCostFam {
+  int k0, k1, stacked, offset;
+};
+
+enum { ALTRO_GOAL = 0, ALTRO_CONTROL_BOUND = 1 };
+enum { ALTRO_CONE_ZERO = 0, ALTRO_CONE_NEGATIVE_ORTHANT = 1 };
+
+// A structured constraint family over the knots k0..k1 with p rows.
+//   goal:          c = x - a                      (p = n)
+//   control_bound: c = [a[j] - u[j] for j in lo, u[j] - b[j] for j in hi]
+// where lo and hi are the bits of lo_mask and hi_mask, ascending.
+// Its multipliers sit in the packed AL buffers: stage rows
+// stage_row..stage_row+p-1 of lam [N, Ps, B] and row stage_fam of
+// lam_rho [N, Fs, B]; the terminal knot's in lamT [Pt, B] / lamT_rho
+// [Ft, B] at term_row / term_fam.  -1 marks a family without stage (or
+// terminal) knots.
+struct AltroConFam {
+  int kind, cone;
+  int k0, k1, p;
+  int stage_row, stage_fam, term_row, term_fam;
+  int lo_mask, hi_mask;
+  double a[ALTRO_NMAX];
+  double b[ALTRO_NMAX];
+};
+
+struct AltroProblem {
+  int N;
+  int method;  // 0: RK4, 1: explicit Euler
+  int n_cost, n_con;
+  double gain_limit;    // SolverOptions.bp_gain_limit
+  double state_max2;    // SolverOptions.state_max squared
+  double control_max2;  // SolverOptions.control_max squared
+  AltroCostFam cost[ALTRO_MAX_FAMS];
+  AltroConFam con[ALTRO_MAX_FAMS];
+};
+
+// Device pointers to tensors of the launch's scalar type, batch last.
+struct AltroBackwardArgs {
+  const void *cost_tab;          // cost rows, see AltroCostFam
+  const void *t, *h;             // [N+1], [N]
+  const void *X, *U;             // [N+1, n, B], [N, m, B]
+  const void *rho;               // [B] regularization
+  const void *lam, *lam_rho;     // [N, Ps, B], [N, Fs, B]
+  const void *lamT, *lamT_rho;   // [Pt, B], [Ft, B]
+  void *K, *d;                   // out: [N, m, n, B], [N, m, B]
+  void *dV1, *dV2, *J0;          // out: [B]
+  void *failed;                  // out: [B] int32
+  int B, Ps, Fs, Pt, Ft;
+};
+
+struct AltroForwardArgs {
+  const void *cost_tab;          // cost rows, see AltroCostFam
+  const void *t, *h;             // [N+1], [N]
+  const void *x0, *alpha;        // [n, B], [B]
+  const void *X, *U, *K, *d;     // [N+1, n, B], [N, m, B], [N, m, n, B], [N, m, B]
+  const void *lam, *lam_rho;     // [N, Ps, B], [N, Fs, B]
+  const void *lamT, *lamT_rho;   // [Pt, B], [Ft, B]
+  void *Xn, *Ubar;               // out: [N, n, B], [N, m, B]
+  void *J;                       // out: [B]
+  void *valid, *status;          // out: [B] int32
+  int B, Ps, Fs, Pt, Ft, check_bounds;
+};
+
+#ifdef __cplusplus
+extern "C" {
+#endif
+// sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs
+void altro_abi_sizes(int* out);
+// Each entry point launches on `stream` and returns cudaGetLastError().
+int altro_backward_fused_unicycle_f32(const AltroBackwardArgs* args, const AltroProblem* prob, void* stream);
+int altro_backward_fused_unicycle_f64(const AltroBackwardArgs* args, const AltroProblem* prob, void* stream);
+int altro_forward_unicycle_f32(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
+int altro_forward_unicycle_f64(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
+#ifdef __cplusplus
+}
+#endif

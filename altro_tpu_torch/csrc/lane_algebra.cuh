@@ -1,0 +1,147 @@
+// Per-lane small-matrix algebra for the fused kernels: one thread owns one
+// batch lane and keeps its matrices in registers.
+//
+// Counterpart of the unrolled tile helpers _mm, _mv, _mT, _chol and
+// _chol_solve_mat of altro_tpu/ops/riccati_pallas.py:37-108.  Matrices are
+// row-major arrays whose sizes are template constants, so every loop below
+// unrolls and every entry lives in a register.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace altro {
+
+// ------------------------------------------------------------ rounding
+// Kahan summation only works if the compiler neither contracts nor
+// reorders its adds; the _rn intrinsics are never contracted into FMAs or
+// reassociated, whatever the flags.
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// J += term with compensation `comp` (forward_pallas.py:576-580)
+template <typename T>
+__device__ __forceinline__ void kahan_add(T& J, T& comp, T term) {
+  const T y = sub_rn(term, comp);
+  const T t = add_rn(J, y);
+  comp = sub_rn(sub_rn(t, J), y);
+  J = t;
+}
+
+// max(s, lo) that keeps a NaN s, like jnp.maximum
+template <typename T>
+__device__ __forceinline__ T nan_max(T s, T lo) {
+  return (s >= lo || s != s) ? s : lo;
+}
+
+// ------------------------------------------------------------ products
+// out[I][K] = a[I][J] b[J][K]
+template <typename T, int I, int J, int K>
+__device__ __forceinline__ void mm(const T* a, const T* b, T* out) {
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T acc = a[i * J] * b[k];
+#pragma unroll
+      for (int j = 1; j < J; ++j) acc += a[i * J + j] * b[j * K + k];
+      out[i * K + k] = acc;
+    }
+  }
+}
+
+// out[I][K] = aᵀ b with a stored [J][I]
+template <typename T, int I, int J, int K>
+__device__ __forceinline__ void mtm(const T* a, const T* b, T* out) {
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      T acc = a[i] * b[k];
+#pragma unroll
+      for (int j = 1; j < J; ++j) acc += a[j * I + i] * b[j * K + k];
+      out[i * K + k] = acc;
+    }
+  }
+}
+
+// out[I] = a[I][J] v[J]
+template <typename T, int I, int J>
+__device__ __forceinline__ void mv(const T* a, const T* v, T* out) {
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    T acc = a[i * J] * v[0];
+#pragma unroll
+    for (int j = 1; j < J; ++j) acc += a[i * J + j] * v[j];
+    out[i] = acc;
+  }
+}
+
+// out[I] = aᵀ v with a stored [J][I]
+template <typename T, int I, int J>
+__device__ __forceinline__ void mtv(const T* a, const T* v, T* out) {
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    T acc = a[i] * v[0];
+#pragma unroll
+    for (int j = 1; j < J; ++j) acc += a[j * I + i] * v[j];
+    out[i] = acc;
+  }
+}
+
+// ------------------------------------------------------------ Cholesky
+// Lower factor of M + diag_add·I in L (row-major, upper part unused).
+// NaN-safe failure flag as in riccati_pallas._chol: NaN > 0 is false, so a
+// non-finite pivot fails too; the pivot is floored at 1e-30 so a failed
+// lane still produces finite numbers.
+template <typename T, int M>
+__device__ __forceinline__ bool chol(const T* Mat, T diag_add, T* L) {
+  bool failed = false;
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    T s = Mat[j * M + j] + diag_add;
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - L[j * M + k] * L[j * M + k];
+    failed |= !(s > T(0));
+    const T dj = sqrt(nan_max(s, T(1e-30)));
+    L[j * M + j] = dj;
+    const T inv = T(1) / dj;
+#pragma unroll
+    for (int i = j + 1; i < M; ++i) {
+      T r = Mat[i * M + j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) r = r - L[i * M + k] * L[j * M + k];
+      L[i * M + j] = r * inv;
+    }
+  }
+  return failed;
+}
+
+// X[M][R] solving (L Lᵀ) X = Rhs[M][R]
+template <typename T, int M, int R>
+__device__ __forceinline__ void chol_solve(const T* L, const T* Rhs, T* X) {
+  T y[M * R];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      T acc = Rhs[i * R + c];
+#pragma unroll
+      for (int k = 0; k < i; ++k) acc = acc - L[i * M + k] * y[k * R + c];
+      y[i * R + c] = acc / L[i * M + i];
+    }
+  }
+#pragma unroll
+  for (int i = M - 1; i >= 0; --i) {
+#pragma unroll
+    for (int c = 0; c < R; ++c) {
+      T acc = y[i * R + c];
+#pragma unroll
+      for (int k = i + 1; k < M; ++k) acc = acc - L[k * M + i] * X[k * R + c];
+      X[i * R + c] = acc / L[i * M + i];
+    }
+  }
+}
+
+}  // namespace altro

@@ -1,0 +1,82 @@
+"""Fused closed-loop rollout + cost kernel (CUDA, `csrc/forward.cu`).
+
+Replaces the TPU kernel `altro_tpu/ops/forward_pallas.py:ForwardKernel`
+(body `_make_kernel(check_bounds)`, :534-685).  One thread per batch lane
+runs a whole line-search try: the feedback control, the stage cost and AL
+terms, the RK4 step and the divergence guard at each knot, then the
+terminal terms, with the state carry in registers and J Kahan-summed.  With
+α = 0 and K = d = 0 (and `check_bounds=False`) it is the open-loop rollout
+that starts each inner solve.  What bounds it on the H100 is per-lane
+arithmetic and latency (numbers in `csrc/forward.cu`); the streamed bytes
+are small.
+
+Eligibility, the problem descriptor and `pad_al` are shared with the
+backward kernel (`ops/backward_fused.py:FusedKernel`).  Beside the kernel:
+its plain PyTorch version (`plain`: `closed_loop_rollout` + `total_cost`),
+which the wrapper runs only for CPU tensors, and a launch counter.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .backward_fused import FusedKernel, Ineligible, PaddedAL, _ptr
+
+__all__ = ["ForwardKernel", "Ineligible"]
+
+
+class ForwardKernel(FusedKernel):
+    """`__call__(params, al_pad, Z, K, d, alpha, check_bounds=)` returns
+    `(Xnext [N,n,B], Ubar [N,m,B], J [B], valid [B] bool, status [B] int32)`,
+    equal to `closed_loop_rollout` + `total_cost` up to rounding."""
+
+    @staticmethod
+    def _alpha(alpha, Z) -> torch.Tensor:
+        alpha = torch.as_tensor(alpha, dtype=Z.X.dtype, device=Z.X.device)
+        return alpha.expand(Z.X.shape[-1]).contiguous() if alpha.ndim == 0 else alpha
+
+    def plain(self, params, al_pad: PaddedAL, Z, K, d, alpha, *, check_bounds=True):
+        """The plain PyTorch version of the kernel."""
+        ev = self._eager_solver(check_bounds)
+        Zbar, valid, status = ev.closed_loop_rollout(params, Z, K, d, self._alpha(alpha, Z))
+        J = ev.total_cost(params, al_pad.al, Zbar)
+        return Zbar.X[1:], Zbar.U, J, valid, status
+
+    def __call__(self, params, al_pad: PaddedAL, Z, K, d, alpha, *, check_bounds=True):
+        if self._use_plain(Z.X):
+            return self.plain(params, al_pad, Z, K, d, alpha, check_bounds=check_bounds)
+        N, n, m = self.N, self.n, self.m
+        B = Z.X.shape[-1]
+        x0 = params.x0
+        if x0.ndim == 1:
+            x0 = x0[:, None].expand(n, B)
+        x0 = x0.to(Z.X.dtype).contiguous()
+        alpha = self._alpha(alpha, Z)
+        self._check("t", Z.t, (N + 1,))
+        self._check("h", Z.h, (N,))
+        self._check("x0", x0, (n, B))
+        self._check("alpha", alpha, (B,))
+        self._check("X", Z.X, (N + 1, n, B))
+        self._check("U", Z.U, (N, m, B))
+        self._check("K", K, (N, m, n, B))
+        self._check("d", d, (N, m, B))
+        self._check_al(al_pad, B)
+        lib = _build.load()
+        desc, table = self._problem_desc(params)
+        new = Z.X.new_empty
+        Xn, Ubar, J = new((N, n, B)), new((N, m, B)), new((B,))
+        valid = torch.empty((B,), dtype=torch.int32, device=Z.X.device)
+        status = torch.empty((B,), dtype=torch.int32, device=Z.X.device)
+        args = _build.ForwardArgs(
+            cost_tab=_ptr(table), t=_ptr(Z.t), h=_ptr(Z.h), x0=_ptr(x0), alpha=_ptr(alpha),
+            X=_ptr(Z.X), U=_ptr(Z.U), K=_ptr(K), d=_ptr(d),
+            lam=_ptr(al_pad.lam), lam_rho=_ptr(al_pad.rho),
+            lamT=_ptr(al_pad.lamT), lamT_rho=_ptr(al_pad.rhoT),
+            Xn=_ptr(Xn), Ubar=_ptr(Ubar), J=_ptr(J), valid=_ptr(valid), status=_ptr(status),
+            B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
+            check_bounds=int(bool(check_bounds)),
+        )
+        with torch.cuda.device(Z.X.device):
+            lib.launch(self._entry("forward"), args, desc.data_ptr(), self._stream(Z.X))
+        self.launches += 1
+        return Xn, Ubar, J, valid != 0, status

@@ -1,0 +1,1044 @@
+"""Batch-native AL-iLQR on PyTorch: thousands of solves in lockstep, batch last.
+
+The counterpart of `altro_tpu/solver/batched.py`.  Every state is
+`[..., n, B]`; the tiny per-knot algebra is broadcast-multiply-reduce over
+the small axes, elementwise over the batch, and the m×m Cholesky is
+unrolled over static indices.  Each batch element follows the iteration
+path it would take alone: per-instance regularization, line-search α, dual
+and penalty state, and convergence masks that freeze finished instances.
+
+Each lockstep `lax.while_loop` of the JAX package is a Python `while` over
+device masks here, so every exit test is one host synchronisation;
+`ALSolverBatched.host_syncs` counts them per solve.
+
+The eager passes (`expand` + `riccati_scan`, `closed_loop_rollout` +
+`total_cost`) are the parity oracle and the plain versions of the two CUDA
+kernels (`ops/backward_fused.py`, `ops/forward.py`), which
+`backward_pass="fused"` and `forward_pass="cuda"` select.
+
+Layout convention: batch axis LAST.
+  X [N+1, n, B]   U [N, m, B]   K [N, m, n, B]   d [N, m, B]
+  lam [nk, p, B]  rho [nk, B]   scalars [B]
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+from torch.func import jacfwd, vmap
+
+from ..options import LogLevel, SolverOptions
+from ..problem.constraints import Cone, dual_cone
+from ..problem.costs import _quadcost_eval, ad_expansion
+from ..problem.problem import CompiledProblem, ProblemParams
+from ..types import SolverStatus
+
+# SolverOptions.matmul_precision="highest": float32 matrix products stay in
+# full float32 on CUDA, so TF32 is off for matmuls and for cuDNN alike.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# ----------------------------------------------------------------- helpers
+
+
+def mm(a, b):
+    """[..., i, j, B] @ [..., j, k, B] -> [..., i, k, B]."""
+    return (a[..., :, :, None, :] * b[..., None, :, :, :]).sum(dim=-3)
+
+
+def mv(a, v):
+    """[..., i, j, B] @ [..., j, B] -> [..., i, B]."""
+    return (a * v[..., None, :, :]).sum(dim=-2)
+
+
+def mT(a):
+    return a.transpose(-3, -2)
+
+
+def dotv(a, b):
+    """[..., i, B] · [..., i, B] -> [..., B]."""
+    return (a * b).sum(dim=-2)
+
+
+def chol_unrolled(M):
+    """Cholesky of [..., m, m, B] unrolled over static indices.
+
+    Returns the lower-triangular entries [i][j] as [..., B] tensors, NaN
+    where the matrix is not PD (the batched analog of an Eigen LLT failure,
+    `knot_point_function_type.hpp:197-211`).
+    """
+    m = M.shape[-3]
+    cols = [[None] * m for _ in range(m)]
+    for j in range(m):
+        s = M[..., j, j, :]
+        for k in range(j):
+            s = s - cols[j][k] * cols[j][k]
+        dj = torch.sqrt(s)
+        cols[j][j] = dj
+        inv_dj = 1.0 / dj
+        for i in range(j + 1, m):
+            s = M[..., i, j, :]
+            for k in range(j):
+                s = s - cols[i][k] * cols[j][k]
+            cols[i][j] = s * inv_dj
+    return cols
+
+
+def chol_solve_mat(L, R):
+    """Solve (L Lᵀ) X = R with R [..., m, r, B], L from chol_unrolled."""
+    m = len(L)
+    y = [None] * m
+    for i in range(m):
+        acc = R[..., i, :, :]
+        for k in range(i):
+            acc = acc - L[i][k][..., None, :] * y[k]
+        y[i] = acc / L[i][i][..., None, :]
+    x = [None] * m
+    for i in reversed(range(m)):
+        acc = y[i]
+        for k in range(i + 1, m):
+            acc = acc - L[k][i][..., None, :] * x[k]
+        x[i] = acc / L[i][i][..., None, :]
+    return torch.stack(x, dim=-3)
+
+
+def chol_solve_vec(L, v):
+    """Solve (L Lᵀ) x = v with v [..., m, B]."""
+    return chol_solve_mat(L, v[..., :, None, :])[..., :, 0, :]
+
+
+def chol_failed(L):
+    """Per-instance failure mask [..., B]: any non-finite factor entry."""
+    bad = None
+    for i, row in enumerate(L):
+        for j in range(i + 1):
+            b = ~torch.isfinite(row[j])
+            bad = b if bad is None else bad | b
+    return bad
+
+
+def _tree_map(fn: Callable, tree):
+    """Map `fn` over the tensor leaves of nested dicts / tuples / lists."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def al_select(mask, a, b):
+    """Masked select over two AL-state tuples of {lam, rho} dicts."""
+    return tuple(
+        dict(lam=torch.where(mask, sa["lam"], sb["lam"]),
+             rho=torch.where(mask, sa["rho"], sb["rho"]))
+        for sa, sb in zip(a, b)
+    )
+
+
+# ----------------------------------------------------------------- state
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedStats:
+    """Per-instance counters and convergence scalars, shapes [B]
+    (`altro_tpu.solver.batched.BatchedStats` without its history rows)."""
+
+    iterations_inner: torch.Tensor
+    iterations_outer: torch.Tensor
+    iterations_total: torch.Tensor
+    initial_cost: torch.Tensor
+    cost: torch.Tensor
+    cost_decrease: torch.Tensor
+    gradient: torch.Tensor
+    alpha: torch.Tensor
+    improvement_ratio: torch.Tensor
+    violations: torch.Tensor
+    max_penalty: torch.Tensor
+    regularization: torch.Tensor
+
+    def replace(self, **updates) -> "BatchedStats":
+        return dataclasses.replace(self, **updates)
+
+
+def batched_stats_init(B: int, dtype, device) -> BatchedStats:
+    z = torch.zeros((B,), dtype=dtype, device=device)
+    i = torch.zeros((B,), dtype=torch.int32, device=device)
+    return BatchedStats(
+        iterations_inner=i, iterations_outer=i, iterations_total=i,
+        initial_cost=z, cost=z, cost_decrease=z, gradient=z, alpha=z,
+        improvement_ratio=z, violations=z, max_penalty=z, regularization=z,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedTrajectory:
+    """Batch-last trajectory: X [N+1, n, B], U [N, m, B]; shared t, h."""
+
+    X: torch.Tensor
+    U: torch.Tensor
+    t: torch.Tensor  # [N+1]
+    h: torch.Tensor  # [N]
+
+    def replace(self, **updates) -> "BatchedTrajectory":
+        return dataclasses.replace(self, **updates)
+
+
+def to_batch_last(Z) -> BatchedTrajectory:
+    """Convert a batch-leading Trajectory (leaves [B, ...]) to batch-last."""
+    return BatchedTrajectory(
+        X=torch.movedim(Z.X, 0, -1).contiguous(),
+        U=torch.movedim(Z.U, 0, -1).contiguous(),
+        t=Z.t[0] if Z.t.ndim == 2 else Z.t,
+        h=Z.h[0] if Z.h.ndim == 2 else Z.h,
+    )
+
+
+def zselect(mask, Za: BatchedTrajectory, Zb: BatchedTrajectory) -> BatchedTrajectory:
+    """Masked select on BatchedTrajectory (t, h carry no batch axis)."""
+    return Za.replace(X=torch.where(mask, Za.X, Zb.X), U=torch.where(mask, Za.U, Zb.U))
+
+
+# ----------------------------------------------------------------- solver
+
+
+class ALSolverBatched:
+    """Throughput-oriented batched AL-iLQR.
+
+    `x0` may vary per instance as [n, B]; the other problem data are shared
+    by the batch.  One shared dynamics family (the shipped problems) is
+    supported.  `backward_pass="fused"` and `forward_pass="cuda"` run the
+    CUDA kernels when the problem's structure is one they take (decided
+    once, here); other problems run the eager passes.
+    """
+
+    def __init__(self, prob: CompiledProblem, opts: SolverOptions = None):
+        self.prob = prob
+        self.opts = opts or SolverOptions()
+        o = self.opts
+        if o.line_search_parallel != 1:
+            raise NotImplementedError("line_search_parallel > 1 is not ported yet")
+        if o.iteration_history_capacity != 0:
+            raise NotImplementedError("iteration history is not ported yet")
+        if o.verbose != LogLevel.SILENT:
+            raise NotImplementedError("live solver logging is not ported yet")
+        fams = prob.dynamics_families
+        if len(fams) != 1 or not fams[0].shared:
+            raise NotImplementedError(
+                "heterogeneous dynamics (several families or per-knot "
+                "params) are not ported yet"
+            )
+        self._dyn = fams[0]
+        x0 = prob.params.x0
+        self.dtype = x0.dtype
+        self.device = x0.device
+        self._fwd = None
+        if o.forward_pass == "cuda":
+            from ..ops.forward import ForwardKernel, Ineligible
+
+            try:
+                self._fwd = ForwardKernel(prob, o, dtype=self.dtype, device=self.device)
+            except Ineligible:
+                self._fwd = None
+        self._bwd = None
+        if o.backward_pass == "fused":
+            from ..ops.backward_fused import BackwardFusedKernel, Ineligible
+
+            try:
+                self._bwd = BackwardFusedKernel(
+                    prob, o, dtype=self.dtype, device=self.device
+                )
+            except Ineligible:
+                self._bwd = None
+        self._knot_idx: dict[int, torch.Tensor] = {}
+        # host synchronisations of the last `solve` (one per loop exit test)
+        self.host_syncs = 0
+
+    def _any(self, mask: torch.Tensor) -> bool:
+        self.host_syncs += 1
+        return bool(mask.any())
+
+    # -------------------------------------------------------- model kernels
+    def _x0(self, params: ProblemParams, Bsz: int, dtype) -> torch.Tensor:
+        x0 = params.x0
+        if x0.ndim == 1:
+            x0 = x0[:, None].expand(self.prob.n, Bsz)
+        return x0.to(dtype)
+
+    def _knots(self, fam) -> torch.Tensor:
+        """A family's knot indices as a device tensor (cached)."""
+        ks = self._knot_idx.get(id(fam))
+        if ks is None:
+            ks = torch.as_tensor(fam.knots, dtype=torch.long, device=self.device)
+            self._knot_idx[id(fam)] = ks
+        return ks
+
+    def dyn_step(self, fp, x, u, t, h):
+        """One discrete step of the shared family (params `fp`), batch-last:
+        the model takes x [n, B] as it takes x [n] (see problem/dynamics)."""
+        model = self._dyn.model
+        if model is not None and model.method == "rk4":
+            f = model.continuous_fn
+            k1 = f(fp, x, u, t)
+            k2 = f(fp, x + 0.5 * h * k1, u, t + 0.5 * h)
+            k3 = f(fp, x + 0.5 * h * k2, u, t + 0.5 * h)
+            k4 = f(fp, x + h * k3, u, t + h)
+            return x + h * (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
+        if model is not None and model.method == "euler":
+            return x + h * model.continuous_fn(fp, x, u, t)
+        return self._dyn.fn(fp, x, u, t, h)
+
+    def dyn_jacobian_all(self, params: ProblemParams, Z: "BatchedTrajectory"):
+        """Discrete Jacobians A [N,n,n,B], Bd [N,n,m,B] for all segments.
+
+        Explicit RK4/Euler chain rule over continuous Jacobians taken by
+        `torch.func.jacfwd` (`integration.hpp:132-169`).
+        """
+        fam = self._dyn
+        fp = params.dynamics[0]
+        X, U, t, h = Z.X[:-1], Z.U, Z.t[:-1], Z.h
+        n = X.shape[1]
+        method = fam.model.method if fam.model is not None else None
+        if method not in ("rk4", "euler"):
+            jac = jacfwd(fam.fn, argnums=(1, 2))
+            return vmap(
+                vmap(jac, in_dims=(None, -1, -1, None, None), out_dims=-1),
+                in_dims=(None, 0, 0, 0, 0), out_dims=0,
+            )(fp, X, U, t, h)
+        # knots outer, batch inner
+        cfn = fam.model.continuous_fn
+        cf = vmap(
+            vmap(cfn, in_dims=(None, -1, -1, None), out_dims=-1),
+            in_dims=(None, 0, 0, 0), out_dims=0,
+        )
+        cj = vmap(
+            vmap(jacfwd(cfn, argnums=(1, 2)), in_dims=(None, -1, -1, None), out_dims=-1),
+            in_dims=(None, 0, 0, 0), out_dims=0,
+        )
+        hk = h[:, None, None]
+        hm = h[:, None, None, None]
+        eye = torch.eye(n, dtype=X.dtype, device=X.device)[None, :, :, None]
+        if method == "euler":
+            Ac, Bc = cj(fp, X, U, t)
+            return eye + Ac * hm, Bc * hm
+        k1 = cf(fp, X, U, t)
+        k2 = cf(fp, X + 0.5 * hk * k1, U, t + 0.5 * h)
+        k3 = cf(fp, X + 0.5 * hk * k2, U, t + 0.5 * h)
+        A1, B1 = cj(fp, X, U, t)
+        A2, B2 = cj(fp, X + 0.5 * hk * k1, U, t + 0.5 * h)
+        A3, B3 = cj(fp, X + 0.5 * hk * k2, U, t + 0.5 * h)
+        A4, B4 = cj(fp, X + hk * k3, U, t + h)
+        dA1 = A1 * hm
+        dA2 = mm(A2, eye + 0.5 * dA1) * hm
+        dA3 = mm(A3, eye + 0.5 * dA2) * hm
+        dA4 = mm(A4, eye + dA3) * hm
+        A = eye + (dA1 + 2 * dA2 + 2 * dA3 + dA4) / 6.0
+        dB1 = B1 * hm
+        dB2 = B2 * hm + 0.5 * mm(A2, dB1) * hm
+        dB3 = B3 * hm + 0.5 * mm(A3, dB2) * hm
+        dB4 = B4 * hm + mm(A4, dB3) * hm
+        Bd = (dB1 + 2 * dB2 + 2 * dB3 + dB4) / 6.0
+        return A, Bd
+
+    # ------------------------------------------------------- cost kernels
+    def _upad(self, Z: BatchedTrajectory):
+        return torch.cat([Z.U, torch.zeros_like(Z.U[:1])], dim=0)
+
+    def _family_xu(self, fam, Z: BatchedTrajectory):
+        ks = self._knots(fam)
+        return Z.X[ks], self._upad(Z)[ks]
+
+    def _quad_terms(self, fam, fp, Xk, Uk, want_expansion):
+        """Closed-form quadratic cost family, batch-last
+        (`quadratic_cost.cpp:8-28`).  Params are shared ([n,n]) or stacked
+        per knot ([nk,n,n])."""
+        nk, n, Bsz = Xk.shape
+
+        def norm(name):
+            leaf = fp[name].to(Xk.dtype)[..., None]  # shared by the batch
+            if fam.shared:
+                leaf = leaf[None]
+            return leaf
+
+        Q, R, H = norm("Q"), norm("R"), norm("H")
+        q, r, c = norm("q"), norm("r"), norm("c")
+
+        def matvec(Mat, V):
+            return (Mat * V[:, None, :, :]).sum(dim=2)
+
+        def vdot(vec, V):
+            return (vec * V).sum(dim=1)
+
+        Qx = matvec(Q, Xk)
+        Ru = matvec(R, Uk)
+        Hu = matvec(H, Uk)
+        Htx = matvec(H.transpose(1, 2), Xk)
+        J = (
+            0.5 * dotv(Xk, Qx)
+            + dotv(Xk, Hu)
+            + 0.5 * dotv(Uk, Ru)
+            + vdot(q, Xk)
+            + vdot(r, Uk)
+            + c
+        )
+        if not want_expansion:
+            return J, None
+
+        def bc(Mat):
+            return Mat.expand((nk,) + tuple(Mat.shape[1:3]) + (Bsz,))
+
+        lx = Qx + Hu + q
+        lu = Ru + Htx + r
+        return J, (lx, lu, bc(Q), bc(H), bc(R))
+
+    def _generic_cost_terms(self, fam, fp, Xk, Uk, want_expansion):
+        """Arbitrary cost fns: AD expansion, mapped over knots and batch."""
+
+        def one(p, x, u):
+            if want_expansion:
+                t = (
+                    fam.expand_fn(p, x, u)
+                    if fam.expand_fn is not None
+                    else ad_expansion(fam.fn, p, x, u)
+                )
+                return t.J, t.lx, t.lu, t.lxx, t.lxu, t.luu
+            return (fam.fn(p, x, u),)
+
+        inner = vmap(one, in_dims=(None, -1, -1), out_dims=-1)
+        outer = vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)
+        out = outer(fp, Xk, Uk)
+        if want_expansion:
+            J, lx, lu, lxx, lxu, luu = out
+            return J, (lx, lu, lxx, lxu, luu)
+        return out[0], None
+
+    def _con_values(self, fam, fp, Xk, Uk):
+        """Constraint values [nk, p, B]."""
+        inner = vmap(fam.fn, in_dims=(None, -1, -1), out_dims=-1)
+        return vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)(
+            fp, Xk, Uk
+        )
+
+    def _con_jacs(self, fam, fp, Xk, Uk):
+        """Constraint Jacobians ([nk,p,n,B], [nk,p,m,B])."""
+        jfn = fam.jac_fn
+        if jfn is None:
+            jfn = jacfwd(fam.fn, argnums=(1, 2))
+        inner = vmap(jfn, in_dims=(None, -1, -1), out_dims=-1)
+        return vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)(
+            fp, Xk, Uk
+        )
+
+    def _al_terms(self, fam, c, Cx, Cu, lam, rho, want_expansion):
+        """AL value/grad/Gauss-Newton Hessian, batch-last
+        (`constraint_values.hpp:111-177`); lam [nk, p, B], rho [nk, B]."""
+        dual = dual_cone(fam.cone)
+        s = lam - rho[:, None, :] * c
+        if dual is Cone.ZERO:
+            lam_proj = torch.zeros_like(s)
+            dproj = torch.zeros_like(s)
+        elif dual is Cone.IDENTITY:
+            lam_proj = s
+            dproj = torch.ones_like(s)
+        else:
+            lam_proj = torch.minimum(s, torch.zeros_like(s))
+            dproj = torch.where(s > 0, 0.0, 1.0).to(s.dtype)
+        J = ((lam_proj * lam_proj).sum(dim=1) - (lam * lam).sum(dim=1)) / (2.0 * rho)
+        if not want_expansion:
+            return J, None
+        Jpx = dproj[:, :, None, :] * Cx
+        Jpu = dproj[:, :, None, :] * Cu
+        gx = -(lam_proj[:, :, None, :] * Jpx).sum(dim=1)
+        gu = -(lam_proj[:, :, None, :] * Jpu).sum(dim=1)
+        rb = rho[:, None, None, :]
+
+        def gram(Ja, Jb):
+            return (Ja[:, :, :, None, :] * Jb[:, :, None, :, :]).sum(dim=1)
+
+        return J, (gx, gu, rb * gram(Jpx, Jpx), rb * gram(Jpx, Jpu), rb * gram(Jpu, Jpu))
+
+    # --------------------------------------------------------- assembled ops
+    def _cost_family_terms(self, fam, fp, Xk, Uk, want_expansion):
+        if fam.fn is _quadcost_eval:
+            return self._quad_terms(fam, fp, Xk, Uk, want_expansion)
+        return self._generic_cost_terms(fam, fp, Xk, Uk, want_expansion)
+
+    def cost_terms(self, params: ProblemParams, al, Z: BatchedTrajectory):
+        """Per-knot AL cost [N+1, B]."""
+        N = self.prob.N
+        costs = Z.X.new_zeros((N + 1, Z.X.shape[-1]))
+        for fam, fp in zip(self.prob.cost_families, params.costs):
+            Xk, Uk = self._family_xu(fam, Z)
+            J, _ = self._cost_family_terms(fam, fp, Xk, Uk, False)
+            costs[self._knots(fam)] += J
+        for fam, fp, st in zip(self.prob.constraint_families, params.constraints, al):
+            Xk, Uk = self._family_xu(fam, Z)
+            c = self._con_values(fam, fp, Xk, Uk)
+            J, _ = self._al_terms(fam, c, None, None, st["lam"], st["rho"], False)
+            costs[self._knots(fam)] += J
+        return costs
+
+    def total_cost(self, params, al, Z):
+        return self.cost_terms(params, al, Z).sum(dim=0)  # [B]
+
+    def expand(self, params: ProblemParams, al, Z: BatchedTrajectory):
+        """All expansions, batch-last."""
+        prob = self.prob
+        N, n, m = prob.N, prob.n, prob.m
+        Bsz = Z.X.shape[-1]
+        z = lambda *shape: Z.X.new_zeros(shape + (Bsz,))  # noqa: E731
+        costs, lx, lu = z(N + 1), z(N + 1, n), z(N + 1, m)
+        lxx, lxu, luu = z(N + 1, n, n), z(N + 1, n, m), z(N + 1, m, m)
+
+        def acc(ks, J, exp):
+            glx, glu, glxx, glxu, gluu = exp
+            costs[ks] += J
+            lx[ks] += glx
+            lu[ks] += glu
+            lxx[ks] += glxx
+            lxu[ks] += glxu
+            luu[ks] += gluu
+
+        for fam, fp in zip(prob.cost_families, params.costs):
+            Xk, Uk = self._family_xu(fam, Z)
+            acc(self._knots(fam), *self._cost_family_terms(fam, fp, Xk, Uk, True))
+        for fam, fp, st in zip(prob.constraint_families, params.constraints, al):
+            Xk, Uk = self._family_xu(fam, Z)
+            c = self._con_values(fam, fp, Xk, Uk)
+            Cx, Cu = self._con_jacs(fam, fp, Xk, Uk)
+            acc(self._knots(fam), *self._al_terms(fam, c, Cx, Cu, st["lam"], st["rho"], True))
+        A, Bd = self.dyn_jacobian_all(params, Z)
+        return dict(costs=costs, lx=lx, lu=lu, lxx=lxx, lxu=lxu, luu=luu, A=A, B=Bd)
+
+    # ------------------------------------------------------------- backward
+    def riccati_scan(self, exp, rho):
+        """Sequential Riccati sweep, batch-last; rho [B].  Returns
+        (K, d, dV1, dV2, failed)."""
+        A_all = exp["A"]
+        N = A_all.shape[0]
+        m = exp["B"].shape[2]
+        n = A_all.shape[1]
+        Bsz = A_all.shape[-1]
+        eye_m = torch.eye(m, dtype=A_all.dtype, device=A_all.device)[:, :, None]
+        glim = self.opts.bp_gain_limit
+        P = exp["lxx"][N]
+        p = exp["lx"][N]
+        dV1 = A_all.new_zeros((Bsz,))
+        dV2 = A_all.new_zeros((Bsz,))
+        failed = torch.zeros((Bsz,), dtype=torch.bool, device=A_all.device)
+        K_out = A_all.new_empty((N, m, n, Bsz))
+        d_out = A_all.new_empty((N, m, Bsz))
+        for k in reversed(range(N)):
+            A, Bd = A_all[k], exp["B"][k]
+            AtP = mm(mT(A), P)
+            Qxx = exp["lxx"][k] + mm(AtP, A)
+            Qxu = exp["lxu"][k] + mm(AtP, Bd)
+            Quu = exp["luu"][k] + mm(mT(Bd), mm(P, Bd))
+            Qx = exp["lx"][k] + mv(mT(A), p)
+            Qu = exp["lu"][k] + mv(mT(Bd), p)
+            L = chol_unrolled(Quu + eye_m * rho)
+            fail_k = chol_failed(L)
+            safe = [
+                [None if e is None else torch.where(torch.isfinite(e), e, 1.0) for e in row]
+                for row in L
+            ]
+            K = -chol_solve_mat(safe, mT(Qxu))
+            d = -chol_solve_vec(safe, Qu)
+            # gain-magnitude guard (SolverOptions.bp_gain_limit)
+            fail_k = fail_k | ~(K.abs().amax(dim=(0, 1)) <= glim) | ~(
+                d.abs().amax(dim=0) <= glim
+            )
+            KtQuu = mm(mT(K), Quu)
+            p_new = Qx + mv(KtQuu, d) + mv(mT(K), Qu) + mv(Qxu, d)
+            P_new = Qxx + mm(KtQuu, K) + mm(mT(K), mT(Qxu)) + mm(Qxu, K)
+            dV1_new = dV1 + dotv(d, Qu)
+            dV2_new = dV2 + 0.5 * dotv(d, mv(Quu, d))
+            failed = failed | fail_k
+            P = torch.where(failed, P, P_new)
+            p = torch.where(failed, p, p_new)
+            dV1 = torch.where(failed, dV1, dV1_new)
+            dV2 = torch.where(failed, dV2, dV2_new)
+            K_out[k] = K
+            d_out[k] = d
+        return K_out, d_out, dV1, dV2, failed
+
+    def _retry(self, sweep, rho, drho):
+        """Regularization retry loop (`ilqr.hpp:385-445`): re-run `sweep(ρ)`
+        with ρ [B] increased on the failed lanes until every lane passes or
+        gives up.  The sweep is a pure function of ρ, so lanes that passed
+        recompute identical results."""
+        opts = self.opts
+        count = torch.zeros_like(rho, dtype=torch.int32)
+        done = torch.zeros_like(rho, dtype=torch.bool)
+        out = None
+        while out is None or self._any(~done):
+            res = sweep(rho)
+            failed = res[4]
+            rho2, drho2 = _increase_reg(rho, drho, opts)
+            rho = torch.where(failed, rho2, rho)
+            drho = torch.where(failed, drho2, drho)
+            count = count + (failed & (rho >= opts.bp_reg_max)).to(torch.int32)
+            give_up = failed & (count >= opts.bp_reg_fail_threshold)
+            done = (~failed) | give_up
+            out = res
+        return out, rho, drho
+
+    def backward_pass_fused(self, params, al_pad, Z, rho, drho):
+        """Backward pass through the fused expansion+Riccati kernel
+        (`ops/backward_fused.py`), with the retry semantics of
+        :meth:`backward_pass`; the trajectory's AL cost J0 comes out of the
+        same pass."""
+        (K, d, dV1, dV2, failed, J0), rho, drho = self._retry(
+            lambda r: self._bwd(params, al_pad, Z, r), rho, drho
+        )
+        return dict(K=K, d=d, dV1=dV1, dV2=dV2, failed=failed, J0=J0, rho=rho, drho=drho)
+
+    def backward_pass(self, exp, rho, drho):
+        """Retry loop with per-instance regularization over the eager sweep."""
+        (K, d, dV1, dV2, failed), rho, drho = self._retry(
+            lambda r: self.riccati_scan(exp, r), rho, drho
+        )
+        return dict(K=K, d=d, dV1=dV1, dV2=dV2, failed=failed, rho=rho, drho=drho)
+
+    # ------------------------------------------------------------- forward
+    def rollout(self, params: ProblemParams, Z: BatchedTrajectory):
+        """Open-loop rollout from x0 under the trajectory's controls."""
+        N = Z.U.shape[0]
+        x = self._x0(params, Z.X.shape[-1], Z.X.dtype)
+        X = [x]
+        for k in range(N):
+            x = self.dyn_step(params.dynamics[0], x, Z.U[k], Z.t[k], Z.h[k])
+            X.append(x)
+        return Z.replace(X=torch.stack(X, dim=0))
+
+    def closed_loop_rollout(self, params, Z: BatchedTrajectory, K, d, alpha):
+        """Feedback rollout with per-instance alpha [B] (`ilqr.hpp:468-499`).
+        Returns (Zbar, valid, status)."""
+        opts = self.opts
+        Bsz = Z.X.shape[-1]
+        xbar = self._x0(params, Bsz, Z.X.dtype)
+        valid = torch.ones((Bsz,), dtype=torch.bool, device=Z.X.device)
+        unsolved = torch.full(
+            (Bsz,), int(SolverStatus.UNSOLVED), dtype=torch.int32, device=Z.X.device
+        )
+        status = unsolved
+        Xs, Us = [xbar], []
+        for k in range(Z.U.shape[0]):
+            ubar = Z.U[k] + mv(K[k], xbar - Z.X[k]) + alpha * d[k]
+            xnext = self.dyn_step(params.dynamics[0], xbar, ubar, Z.t[k], Z.h[k])
+            if opts.check_forwardpass_bounds:
+                state_ok = torch.sqrt((xnext * xnext).sum(dim=0)) <= opts.state_max
+                ctrl_ok = torch.sqrt((ubar * ubar).sum(dim=0)) <= opts.control_max
+            else:
+                state_ok = torch.ones_like(valid)
+                ctrl_ok = state_ok
+            step_ok = state_ok & ctrl_ok
+            fail_now = valid & ~step_ok
+            status = torch.where(
+                fail_now,
+                torch.where(
+                    ~state_ok,
+                    int(SolverStatus.STATE_LIMIT),
+                    int(SolverStatus.CONTROL_LIMIT),
+                ).to(torch.int32),
+                status,
+            )
+            valid = valid & step_ok
+            xbar = torch.where(valid, xnext, xbar)
+            Xs.append(xbar)
+            Us.append(ubar)
+        status = torch.where(valid, unsolved, status)
+        Zb = Z.replace(X=torch.stack(Xs, dim=0), U=torch.stack(Us, dim=0))
+        return Zb, valid, status
+
+    def _fwd_rollout_cost(self, params, al_pad, Z, K, d, alpha, check_bounds):
+        """Fused rollout + cost through the forward kernel; returns
+        (Zbar, valid, status, J)."""
+        x0 = self._x0(params, Z.X.shape[-1], Z.X.dtype)
+        Xn, Ubar, J, valid, status = self._fwd(
+            params, al_pad, Z, K, d, alpha, check_bounds=check_bounds
+        )
+        Zbar = Z.replace(X=torch.cat([x0[None], Xn], dim=0), U=Ubar)
+        return Zbar, valid, status, J
+
+    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None):
+        """Per-instance backtracking line search (`ilqr.hpp:512-558`).
+
+        `rho`/`drho` are the post-decrease regularization; a failed search
+        increases them from there.  With `al_pad` (the padded AL state of
+        the inner solve) each try runs the fused forward kernel; without it,
+        the eager rollout + cost.
+        """
+        opts = self.opts
+        dt = Z.X.dtype
+        Bsz = Z.X.shape[-1]
+        dev = Z.X.device
+        rho = bp["rho"] if rho is None else rho
+        drho = bp["drho"] if drho is None else drho
+        max_it = opts.line_search_max_iterations
+        c = dict(
+            it=torch.zeros((Bsz,), dtype=torch.int32, device=dev),
+            alpha=torch.ones((Bsz,), dtype=dt, device=dev),
+            success=torch.zeros((Bsz,), dtype=torch.bool, device=dev),
+            J=J0,
+            z=-torch.ones((Bsz,), dtype=dt, device=dev),
+            status=torch.full((Bsz,), int(SolverStatus.UNSOLVED), dtype=torch.int32, device=dev),
+            Zbar=Z,
+        )
+        more = max_it > 0  # every lane is active on the first try
+        while more:
+            active = (~c["success"]) & (c["it"] < max_it)
+            if al_pad is not None:
+                Zbar, valid, status, J_try = self._fwd_rollout_cost(
+                    params, al_pad, Z, bp["K"], bp["d"], c["alpha"],
+                    opts.check_forwardpass_bounds,
+                )
+            else:
+                Zbar, valid, status = self.closed_loop_rollout(
+                    params, Z, bp["K"], bp["d"], c["alpha"]
+                )
+                J_try = self.total_cost(params, al, Zbar)
+            J = torch.where(valid, J_try, c["J"])
+            expected = -c["alpha"] * (bp["dV1"] + c["alpha"] * bp["dV2"])
+            z = torch.where(expected > 0.0, (J0 - J_try) / expected, -torch.ones_like(J0))
+            ok = (
+                valid
+                & (opts.line_search_lower_bound <= z)
+                & (z <= opts.line_search_upper_bound)
+                & (J_try < J0)
+            )
+            c = dict(
+                it=c["it"] + active.to(torch.int32),
+                success=torch.where(active, ok, c["success"]),
+                alpha=torch.where(
+                    active & ~ok, c["alpha"] / opts.line_search_decrease_factor, c["alpha"]
+                ),
+                J=torch.where(active, J, c["J"]),
+                z=torch.where(active, z, c["z"]),
+                status=torch.where(active, status, c["status"]),
+                Zbar=zselect(active, Zbar, c["Zbar"]),
+            )
+            more = self._any((~c["success"]) & (c["it"] < max_it))
+        Z_out = zselect(c["success"], c["Zbar"], Z)
+        rho_i, drho_i = _increase_reg(rho, drho, opts)
+        rho = torch.where(c["success"], rho, rho_i)
+        drho = torch.where(c["success"], drho, drho_i)
+        J_final = torch.where(c["success"], c["J"], J0)
+        status = torch.where(
+            J_final > J0, int(SolverStatus.COST_INCREASE), c["status"]
+        ).to(torch.int32)
+        return dict(
+            Z=Z_out, J=J_final, alpha=c["alpha"], z=c["z"],
+            success=c["success"], rho=rho, drho=drho, status=status,
+        )
+
+    # ------------------------------------------------------------- inner solve
+    def ilqr_solve(self, params, al, Z, stats: BatchedStats, outer_active):
+        """Masked batched inner solve; `outer_active` [B] gates instances."""
+        opts = self.opts
+        dt = Z.X.dtype
+        dev = Z.X.device
+        Bsz = Z.X.shape[-1]
+        N, n, m = self.prob.N, self.prob.n, self.prob.m
+        fwd, bwd = self._fwd, self._bwd
+        al_pad = None
+        if bwd is not None:
+            al_pad = bwd.pad_al(al)
+        elif fwd is not None:
+            al_pad = fwd.pad_al(al)
+        if fwd is not None:
+            # K=d=α=0 turns the fused kernel into the open-loop rollout + cost
+            # (unguarded, like the reference's Rollout, `ilqr.hpp:453-459`)
+            Zro, _, _, J_init = self._fwd_rollout_cost(
+                params, al_pad, Z, Z.X.new_zeros((N, m, n, Bsz)),
+                Z.X.new_zeros((N, m, Bsz)), Z.X.new_zeros((Bsz,)), False,
+            )
+            Z = zselect(outer_active, Zro, Z)
+        else:
+            Z = zselect(outer_active, self.rollout(params, Z), Z)
+            J_init = self.total_cost(params, al, Z)
+        stats = stats.replace(
+            initial_cost=torch.where(outer_active, J_init, stats.initial_cost),
+            iterations_inner=torch.where(outer_active, 0, stats.iterations_inner).to(torch.int32),
+        )
+        c = dict(
+            Z=Z,
+            rho=torch.full((Bsz,), opts.bp_reg_initial, dtype=dt, device=dev),
+            drho=torch.zeros((Bsz,), dtype=dt, device=dev),
+            stats=stats,
+            cost_last=J_init,
+            status=torch.full((Bsz,), int(SolverStatus.UNSOLVED), dtype=torch.int32, device=dev),
+            done=~outer_active,
+            stall=torch.zeros((Bsz,), dtype=torch.int32, device=dev),
+            K=Z.X.new_zeros((N, m, n, Bsz)),
+            d=Z.X.new_zeros((N, m, Bsz)),
+        )
+        while self._any(~c["done"]):
+            active = ~c["done"]
+            stats = c["stats"]
+            if bwd is not None:
+                # expansions inside the sweep; J0 from the kernel's Kahan sum
+                bp = self.backward_pass_fused(params, al_pad, c["Z"], c["rho"], c["drho"])
+                J0 = bp["J0"]
+            else:
+                exp = self.expand(params, al, c["Z"])
+                J0 = exp["costs"].sum(dim=0)
+                bp = self.backward_pass(exp, c["rho"], c["drho"])
+            rho_d, drho_d = _decrease_reg(bp["rho"], bp["drho"], opts)
+            fp = self.forward_pass(
+                params, al, c["Z"], bp, J0, rho_d, drho_d,
+                al_pad if fwd is not None else None,
+            )
+            status = torch.where(
+                bp["failed"], int(SolverStatus.BACKWARD_PASS_REGULARIZATION_FAILED),
+                fp["status"],
+            ).to(torch.int32)
+            cost_new = torch.where(fp["success"], fp["J"], c["cost_last"])
+            grad = (bp["d"].abs() / (fp["Z"].U.abs() + 1.0)).amax(dim=1).mean(dim=0)
+            dJ = c["cost_last"] - cost_new
+            step = active.to(torch.int32)
+            inner = stats.iterations_inner + step
+            total = stats.iterations_total + step
+
+            small_dj = dJ < opts.cost_tolerance
+            converged = small_dj & (grad < opts.gradient_tolerance)
+            stall = torch.where(
+                active & small_dj, c["stall"] + 1, torch.where(active, 0, c["stall"])
+            ).to(torch.int32)
+            if opts.max_stall_iterations > 0:
+                stalled = (stall >= opts.max_stall_iterations) & ~converged
+            else:
+                stalled = torch.zeros_like(converged)
+            hit_inner = inner >= opts.max_iterations_inner
+            hit_total = total >= opts.max_iterations_total
+            bad = status != int(SolverStatus.UNSOLVED)
+            status = torch.where(
+                converged, int(SolverStatus.SOLVED),
+                torch.where(
+                    stalled, int(SolverStatus.SOLVED_STALLED),
+                    torch.where(
+                        hit_inner, int(SolverStatus.MAX_INNER_ITERATIONS),
+                        torch.where(hit_total, int(SolverStatus.MAX_ITERATIONS), status),
+                    ),
+                ),
+            ).to(torch.int32)
+            done_new = converged | stalled | hit_inner | hit_total | bad
+            stats = stats.replace(
+                iterations_inner=torch.where(active, inner, stats.iterations_inner),
+                iterations_total=torch.where(active, total, stats.iterations_total),
+                cost=torch.where(active, cost_new, stats.cost),
+                cost_decrease=torch.where(active, dJ, stats.cost_decrease),
+                gradient=torch.where(active, grad, stats.gradient),
+                alpha=torch.where(active & fp["success"], fp["alpha"], stats.alpha),
+                improvement_ratio=torch.where(
+                    active & fp["success"], fp["z"], stats.improvement_ratio
+                ),
+                regularization=torch.where(active, bp["rho"], stats.regularization),
+            )
+            c = dict(
+                Z=zselect(active, fp["Z"], c["Z"]),
+                rho=torch.where(active, fp["rho"], c["rho"]),
+                drho=torch.where(active, fp["drho"], c["drho"]),
+                stats=stats,
+                cost_last=torch.where(active, cost_new, c["cost_last"]),
+                status=torch.where(active, status, c["status"]),
+                done=c["done"] | (active & done_new),
+                stall=stall,
+                K=torch.where(active, bp["K"], c["K"]),
+                d=torch.where(active, bp["d"], c["d"]),
+            )
+        return c
+
+    # ------------------------------------------------------------- AL outer
+    def al_state_init(self, Bsz: int, dtype, device=None) -> tuple:
+        device = self.device if device is None else device
+        return tuple(
+            dict(
+                lam=torch.zeros((len(fam.knots), fam.dim, Bsz), dtype=dtype, device=device),
+                rho=torch.full(
+                    (len(fam.knots), Bsz), self.opts.initial_penalty, dtype=dtype, device=device
+                ),
+            )
+            for fam in self.prob.constraint_families
+        )
+
+    def constraint_values(self, params, Z):
+        return tuple(
+            self._con_values(fam, fp, *self._family_xu(fam, Z))
+            for fam, fp in zip(self.prob.constraint_families, params.constraints)
+        )
+
+    def _outer_duals_and_violation(self, params, Z, al, upd):
+        """Dual update λ ← Π_{K*}(λ−ρc) and the max-violation measure of
+        the outer loop; in float64 when `opts.outer_constraints_f64` (the
+        f32 error in c is penalty-amplified exactly here).  Returns
+        (al_new tuple, viol [B])."""
+        dt = Z.X.dtype
+        Bsz = Z.X.shape[-1]
+        cdt = dt
+        if self.opts.outer_constraints_f64 and dt == torch.float32:
+            cdt = torch.float64
+            cast = lambda t: t.to(cdt) if torch.is_floating_point(t) else t  # noqa: E731
+            params = ProblemParams(*(_tree_map(cast, getattr(params, f.name))
+                                     for f in dataclasses.fields(params)))
+            Z = Z.replace(X=Z.X.to(cdt), U=Z.U.to(cdt), t=Z.t.to(cdt), h=Z.h.to(cdt))
+        cvals = self.constraint_values(params, Z)
+        al_new = []
+        for fam, st, cv in zip(self.prob.constraint_families, al, cvals):
+            dual = dual_cone(fam.cone)
+            s = st["lam"].to(cdt) - st["rho"].to(cdt)[:, None, :] * cv
+            if dual is Cone.IDENTITY:
+                lam = s
+            elif dual is Cone.ZERO:
+                lam = torch.zeros_like(s)
+            else:
+                lam = torch.minimum(s, torch.zeros_like(s))
+            al_new.append(dict(lam=torch.where(upd, lam.to(dt), st["lam"]), rho=st["rho"]))
+        viol = self.max_violation(cvals, Bsz, cdt).to(dt)
+        return tuple(al_new), viol
+
+    def max_violation(self, cvals, Bsz, dtype):
+        viol = torch.zeros((Bsz,), dtype=dtype, device=self.device)
+        for fam, c in zip(self.prob.constraint_families, cvals):
+            if fam.cone is Cone.ZERO:
+                v = c.abs()
+            elif fam.cone is Cone.NEGATIVE_ORTHANT:
+                v = torch.clamp(c, min=0.0)
+            else:  # IDENTITY: whole space, never violated
+                continue
+            viol = torch.maximum(viol, v.amax(dim=(0, 1)).to(dtype))
+        return viol
+
+    def solve(self, params: ProblemParams, Z: BatchedTrajectory, al=None, active=None):
+        """Full batched AL solve.  Returns a dict with batch-last results.
+
+        `active` [B] (optional) gates instances: inactive lanes are never
+        iterated and pass their inputs through — used by the compaction
+        tail (`solver/compaction.py`) where padding lanes hold finished
+        instances.
+        """
+        self.host_syncs = 0
+        opts = self.opts
+        dt = Z.X.dtype
+        dev = Z.X.device
+        Bsz = Z.X.shape[-1]
+        N, n, m = self.prob.N, self.prob.n, self.prob.m
+        if active is None:
+            active0 = torch.ones((Bsz,), dtype=torch.bool, device=dev)
+        else:
+            active0 = active.to(torch.bool)
+        if al is None:
+            al = self.al_state_init(Bsz, dt, dev)
+        else:
+            if opts.reset_duals:
+                al = tuple(dict(lam=torch.zeros_like(s["lam"]), rho=s["rho"]) for s in al)
+            if opts.initial_penalty > 0:
+                al = tuple(
+                    dict(lam=s["lam"], rho=torch.full_like(s["rho"], opts.initial_penalty))
+                    for s in al
+                )
+        stats = batched_stats_init(Bsz, dt, dev)
+        if not self.prob.constraint_families:
+            out = self.ilqr_solve(params, al, Z, stats, active0)
+            return dict(
+                Z=out["Z"], al=al, status=out["status"], stats=out["stats"],
+                K=out["K"], d=out["d"],
+            )
+
+        c = dict(
+            Z=Z, al=al, stats=stats,
+            status=torch.full((Bsz,), int(SolverStatus.UNSOLVED), dtype=torch.int32, device=dev),
+            done=~active0,
+            K=Z.X.new_zeros((N, m, n, Bsz)),
+            d=Z.X.new_zeros((N, m, Bsz)),
+        )
+        while self._any(~c["done"]):
+            active = ~c["done"]
+            res = self.ilqr_solve(params, c["al"], c["Z"], c["stats"], active)
+            Z2 = res["Z"]
+            stats = res["stats"]
+            inner_solved = res["status"] == int(SolverStatus.SOLVED)
+            # a stall-exited inner solve continues the outer loop but
+            # taints the final status to SOLVED_STALLED
+            inner_ok = inner_solved | (res["status"] == int(SolverStatus.SOLVED_STALLED))
+            upd = active if opts.update_duals_on_failed_inner else (active & inner_ok)
+            al_new, viol = self._outer_duals_and_violation(params, Z2, c["al"], upd)
+            pen = Z.X.new_zeros((Bsz,))
+            for st in al_new:
+                pen = torch.maximum(pen, st["rho"].amax(dim=0))
+            outer = stats.iterations_outer + active.to(torch.int32)
+            stats = stats.replace(
+                iterations_outer=torch.where(active, outer, stats.iterations_outer),
+                violations=torch.where(active, viol, stats.violations),
+                max_penalty=torch.where(active, pen, stats.max_penalty),
+            )
+            sat = viol < opts.constraint_tolerance
+            pen_hi = pen > opts.maximum_penalty
+            outer_hi = outer >= opts.max_iterations_outer
+            total_hi = stats.iterations_total >= opts.max_iterations_total
+            # stalled_feasible_exits=False: a feasible-but-stalled instance
+            # keeps escalating the penalty until its inner solve converges
+            sat_done = sat if opts.stalled_feasible_exits else (sat & inner_solved)
+            status = torch.where(
+                ~inner_ok, res["status"],
+                torch.where(
+                    sat_done,
+                    torch.where(
+                        inner_solved, int(SolverStatus.SOLVED),
+                        int(SolverStatus.SOLVED_STALLED),
+                    ),
+                    torch.where(
+                        pen_hi, int(SolverStatus.MAX_PENALTY),
+                        torch.where(
+                            outer_hi, int(SolverStatus.MAX_OUTER_ITERATIONS),
+                            torch.where(
+                                total_hi, int(SolverStatus.MAX_ITERATIONS),
+                                int(SolverStatus.UNSOLVED),
+                            ),
+                        ),
+                    ),
+                ),
+            ).to(torch.int32)
+            if not opts.stalled_feasible_exits:
+                # a cap ending a continuing feasible-stalled instance keeps
+                # the SOLVED_STALLED label
+                capped = pen_hi | outer_hi | total_hi
+                status = torch.where(
+                    inner_ok & sat & ~sat_done & capped,
+                    int(SolverStatus.SOLVED_STALLED), status,
+                ).to(torch.int32)
+            done_new = (~inner_ok) | sat_done | pen_hi | outer_hi | total_hi
+            # scale penalties only for continuing instances
+            cont = active & ~done_new
+            al_next = tuple(
+                dict(lam=st["lam"], rho=torch.where(cont, st["rho"] * opts.penalty_scaling, st["rho"]))
+                for st in al_new
+            )
+            c = dict(
+                Z=zselect(active, Z2, c["Z"]),
+                al=al_select(active, al_next, c["al"]),
+                stats=stats,
+                status=torch.where(active, status, c["status"]),
+                done=c["done"] | (active & done_new),
+                K=torch.where(active, res["K"], c["K"]),
+                d=torch.where(active, res["d"], c["d"]),
+            )
+        return dict(
+            Z=c["Z"], al=c["al"], status=c["status"], stats=c["stats"], K=c["K"], d=c["d"],
+        )
+
+
+def _increase_reg(rho, drho, opts: SolverOptions):
+    drho = torch.clamp(drho * opts.bp_reg_increase_factor, min=opts.bp_reg_increase_factor)
+    rho = torch.clamp(rho * drho, opts.bp_reg_min, opts.bp_reg_max)
+    return rho, drho
+
+
+def _decrease_reg(rho, drho, opts: SolverOptions):
+    drho = torch.clamp(
+        drho / opts.bp_reg_increase_factor, max=1.0 / opts.bp_reg_increase_factor
+    )
+    rho = torch.clamp(rho * drho, opts.bp_reg_min, opts.bp_reg_max)
+    return rho, drho
