@@ -62,3 +62,9 @@ def trajectory(Z, device, dtype) -> BatchedTrajectory:
         t=tensor(Z.t, device, dtype),
         h=tensor(Z.h, device, dtype),
     )
+
+
+def expansions(exp, device, dtype) -> dict:
+    """A batch-last expansion dict (A, B, lxx, lxu, luu, lx, lu, and costs
+    where present), as `riccati_pallas` and `riccati_scan` take it."""
+    return {key: tensor(val, device, dtype).contiguous() for key, val in exp.items()}

@@ -79,16 +79,38 @@ struct AltroForwardArgs {
   int B, Ps, Fs, Pt, Ft, check_bounds;
 };
 
+// The stand-alone Riccati sweep over materialized expansions (riccati.cu).
+// Knot N of lxx and lx is the terminal cost-to-go P_N, p_N.
+struct AltroRiccatiArgs {
+  const void *A, *Bd;            // [N, n, n, B], [N, n, m, B]
+  const void *lxx, *lxu, *luu;   // [N+1, n, n, B], [N+1, n, m, B], [N+1, m, m, B]
+  const void *lx, *lu;           // [N+1, n, B], [N+1, m, B]
+  const void *rho;               // [B] regularization
+  void *K, *d;                   // out: [N, m, n, B], [N, m, B]
+  void *dV1, *dV2;               // out: [B]
+  void *failed;                  // out: [B] int32
+  double gain_limit;             // SolverOptions.bp_gain_limit
+  int N, B;
+};
+
 #ifdef __cplusplus
 extern "C" {
 #endif
-// sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs
+// sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs
 void altro_abi_sizes(int* out);
 // Each entry point launches on `stream` and returns cudaGetLastError().
 int altro_backward_fused_unicycle_f32(const AltroBackwardArgs* args, const AltroProblem* prob, void* stream);
 int altro_backward_fused_unicycle_f64(const AltroBackwardArgs* args, const AltroProblem* prob, void* stream);
 int altro_forward_unicycle_f32(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
 int altro_forward_unicycle_f64(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
+// altro_riccati_n{n}m{m}_{f32,f64} for (n, m) in (3,2), (4,1), (6,2), (13,4)
+#define ALTRO_RICCATI_DECL(NN, MM, S) \
+  int altro_riccati_n##NN##m##MM##_##S(const AltroRiccatiArgs* args, void* stream);
+ALTRO_RICCATI_DECL(3, 2, f32) ALTRO_RICCATI_DECL(3, 2, f64)
+ALTRO_RICCATI_DECL(4, 1, f32) ALTRO_RICCATI_DECL(4, 1, f64)
+ALTRO_RICCATI_DECL(6, 2, f32) ALTRO_RICCATI_DECL(6, 2, f64)
+ALTRO_RICCATI_DECL(13, 4, f32) ALTRO_RICCATI_DECL(13, 4, f64)
+#undef ALTRO_RICCATI_DECL
 #ifdef __cplusplus
 }
 #endif

@@ -28,6 +28,7 @@
 #include "altro_abi.h"
 #include "fused_common.cuh"
 #include "models.cuh"
+#include "riccati_step.cuh"
 
 namespace altro {
 
@@ -132,94 +133,9 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ pr) 
     T A[n * n], Bd[n * m];
     dyn_jacobian<T, Model>(pr->method, x, u, t_k, h_k, A, Bd);
 
-    // ---- Riccati step (riccati_pallas._kernel)
-    constexpr int w = n > m ? n : m;
-    T AtP[n * n], Qxx[n * n], Qxu[n * m], Quu[m * m], Qx[n], Qu[m], tmp[w * w];
-    mtm<T, n, n, n>(A, P, AtP);
-    mm<T, n, n, n>(AtP, A, tmp);
-#pragma unroll
-    for (int i = 0; i < n * n; ++i) Qxx[i] = lxx[i] + tmp[i];
-    mm<T, n, n, m>(AtP, Bd, tmp);
-#pragma unroll
-    for (int i = 0; i < n * m; ++i) Qxu[i] = lxu[i] + tmp[i];
-    {
-      T PB[n * m];
-      mm<T, n, n, m>(P, Bd, PB);
-      mtm<T, m, n, m>(Bd, PB, tmp);
-    }
-#pragma unroll
-    for (int i = 0; i < m * m; ++i) Quu[i] = luu[i] + tmp[i];
-    mtv<T, n, n>(A, p, tmp);
-#pragma unroll
-    for (int i = 0; i < n; ++i) Qx[i] = lx[i] + tmp[i];
-    mtv<T, m, n>(Bd, p, tmp);
-#pragma unroll
-    for (int i = 0; i < m; ++i) Qu[i] = lu[i] + tmp[i];
-
-    T L[m * m], K[m * n], d[m];
-    bool fail_k = chol<T, m>(Quu, rho, L);
-    {
-      T QxuT[m * n];
-#pragma unroll
-      for (int i = 0; i < m; ++i) {
-#pragma unroll
-        for (int j = 0; j < n; ++j) QxuT[i * n + j] = Qxu[j * m + i];
-      }
-      chol_solve<T, m, n>(L, QxuT, K);
-      chol_solve<T, m, 1>(L, Qu, d);
-    }
-    bool big = false;
-#pragma unroll
-    for (int i = 0; i < m * n; ++i) {
-      K[i] = -K[i];
-      big |= !(fabs(K[i]) <= glim);
-    }
-#pragma unroll
-    for (int i = 0; i < m; ++i) {
-      d[i] = -d[i];
-      big |= !(fabs(d[i]) <= glim);
-    }
-    fail_k |= big;
-
-    // cost-to-go (knot_point_function_type.hpp:220-230)
-    T KtQuu[n * m], Pn[n * n], pn[n], QK[n * n];
-    mtm<T, n, m, m>(K, Quu, KtQuu);
-    {
-      T v1[n], v2[n], v3[n];
-      mv<T, n, m>(KtQuu, d, v1);
-      mtv<T, n, m>(K, Qu, v2);
-      mv<T, n, m>(Qxu, d, v3);
-#pragma unroll
-      for (int i = 0; i < n; ++i) pn[i] = Qx[i] + v1[i] + v2[i] + v3[i];
-    }
-    mm<T, n, m, n>(Qxu, K, QK);
-    mm<T, n, m, n>(KtQuu, K, tmp);
-#pragma unroll
-    for (int i = 0; i < n; ++i) {
-#pragma unroll
-      for (int j = 0; j < n; ++j) {
-        Pn[i * n + j] = Qxx[i * n + j] + tmp[i * n + j] + QK[j * n + i] + QK[i * n + j];
-      }
-    }
-    T dV1 = d[0] * Qu[0];
-#pragma unroll
-    for (int i = 1; i < m; ++i) dV1 += d[i] * Qu[i];
-    T Qd[m];
-    mv<T, m, m>(Quu, d, Qd);
-    T dV2 = d[0] * Qd[0];
-#pragma unroll
-    for (int i = 1; i < m; ++i) dV2 += d[i] * Qd[i];
-    dV2 = T(0.5) * dV2;
-
-    failed = failed || fail_k;
-    if (!failed) {
-#pragma unroll
-      for (int i = 0; i < n * n; ++i) P[i] = Pn[i];
-#pragma unroll
-      for (int i = 0; i < n; ++i) p[i] = pn[i];
-      dv1 = dv1 + dV1;
-      dv2 = dv2 + dV2;
-    }
+    // ---- Riccati step (riccati_pallas._kernel, csrc/riccati_step.cuh)
+    T K[m * n], d[m];
+    riccati_step<T, n, m>(A, Bd, lxx, lxu, luu, lx, lu, rho, glim, P, p, dv1, dv2, failed, K, d);
 
     T* Ko = static_cast<T*>(a.K);
     T* dout = static_cast<T*>(a.d);
@@ -253,6 +169,7 @@ void altro_abi_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(AltroProblem));
   out[1] = static_cast<int>(sizeof(AltroBackwardArgs));
   out[2] = static_cast<int>(sizeof(AltroForwardArgs));
+  out[3] = static_cast<int>(sizeof(AltroRiccatiArgs));
 }
 
 int altro_backward_fused_unicycle_f32(const AltroBackwardArgs* args, const AltroProblem* prob,

@@ -1,8 +1,12 @@
 """Canned benchmark problems (`altro_tpu/models/problems.py`).
 
 `UnicycleProblem`, turn-90 parking scenario (`examples/problems/unicycle.cpp:
-11-89`), with the reference's horizon, weights, bounds and initial guess so
-its golden values apply.  The three-obstacle scenario is not ported yet.
+11-89`), and `TripleIntegratorProblem` (`examples/problems/
+triple_integrator.hpp:22-105`), with the reference's horizon, weights,
+bounds and initial guess so its golden values apply; and the model zoo's
+fleet problems `zoo_quadrotor` and `zoo_cartpole` (`perf/benchmark_zoo.py:
+54-97`).  All build their tensors on the card unless `device` says
+otherwise.  The three-obstacle scenario is not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +18,10 @@ import torch
 from ..problem.constraints import control_bound, goal_constraint
 from ..problem.costs import lqr_cost
 from ..problem.problem import Problem
-from ..types import Trajectory, initial_trajectory
+from ..types import Trajectory, default_device, initial_trajectory
+from .cartpole import cartpole_rk4
+from .quadrotor import hover_controls, hover_state, quadrotor_rk4
+from .triple_integrator import triple_integrator_rk4
 from .unicycle import unicycle_rk4
 
 TURN90 = "turn90"
@@ -27,9 +34,10 @@ class UnicycleProblem:
     scenario: str = TURN90
     N: int = 100
     dtype: torch.dtype = torch.float64
-    device: torch.device | str = "cpu"
+    device: torch.device | str | None = None
 
     def __post_init__(self):
+        self.device = default_device(self.device)
         if self.scenario != TURN90:
             raise ValueError(f"Unknown or unported scenario {self.scenario!r}")
         self.n = 3
@@ -79,3 +87,98 @@ class UnicycleProblem:
             self.n, self.m, self.N, self.h, u0=self.u0,
             dtype=self.dtype, device=self.device,
         )
+
+
+@dataclasses.dataclass
+class TripleIntegratorProblem:
+    """Triple-integrator benchmark (`examples/problems/triple_integrator.hpp:22-105`)."""
+
+    dof: int = 2
+    N: int = 10
+    h: float = 0.1
+    dtype: torch.dtype = torch.float64
+    device: torch.device | str | None = None
+
+    def __post_init__(self):
+        self.device = default_device(self.device)
+        dof = self.dof
+        self.n = 3 * dof
+        self.m = dof
+        self.Q = np.eye(self.n) * 1.0
+        self.R = np.eye(self.m) * 0.001
+        self.Qf = np.eye(self.n) * 1e5
+        self.xf = np.zeros(self.n)
+        self.x0 = np.zeros(self.n)
+        self.ubnd = np.zeros(dof)
+        for i in range(dof):
+            self.xf[i] = i + 1
+            self.x0[i] = -(i + 1)
+            self.ubnd[i] = 100 * (i + 1)
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=self.dtype, device=self.device)
+
+    def make_problem(self, add_constraints: bool = False) -> Problem:
+        N, m = self.N, self.m
+        prob = Problem(N)
+        stage = lqr_cost(self._t(self.Q), self._t(self.R), self._t(self.xf), self._t(np.zeros(m)))
+        term = lqr_cost(
+            self._t(self.Qf), self._t(np.zeros((m, m))), self._t(self.xf), self._t(np.zeros(m)),
+            terminal=True,
+        )
+        prob.set_cost(stage, range(N))
+        prob.set_cost(term, N)
+        prob.set_dynamics(triple_integrator_rk4(self.dof), range(N))
+        if add_constraints:
+            prob.set_constraint(control_bound(self._t(-self.ubnd), self._t(self.ubnd)), range(N))
+            prob.set_constraint(goal_constraint(self._t(self.xf)), N)
+        prob.set_initial_state(self._t(self.x0))
+        return prob
+
+    def initial_trajectory(self) -> Trajectory:
+        return initial_trajectory(
+            self.n, self.m, self.N, self.h, dtype=self.dtype, device=self.device
+        )
+
+
+def zoo_quadrotor(N: int = 50, tf: float = 2.5, *, dtype=torch.float32, device=None):
+    """The zoo's quadrotor (n=13, m=4): hover at (0, 0, 1) to hover at
+    (1.5, 1, 2), thrusts bounded to [0, 4] (`perf/benchmark_zoo.py:54-74`).
+    Returns (compiled problem, initial trajectory at hover thrust, x0, xf)."""
+    dev = default_device(device)
+    n, m = 13, 4
+    h = tf / N
+    x0 = hover_state((0.0, 0.0, 1.0), dtype=dtype, device=dev)
+    xf = hover_state((1.5, 1.0, 2.0), dtype=dtype, device=dev)
+    uh = hover_controls(dtype=dtype, device=dev)
+    kw = dict(dtype=dtype, device=dev)
+    prob = Problem(N)
+    prob.set_initial_state(x0)
+    prob.set_dynamics(quadrotor_rk4(**kw), range(N))
+    prob.set_cost(lqr_cost(torch.eye(n, **kw) * 1e-2 * h, torch.eye(m, **kw) * 1e-1 * h, xf, uh), range(N))
+    prob.set_cost(lqr_cost(torch.eye(n, **kw) * 100.0, torch.zeros((m, m), **kw), xf, uh, terminal=True), N)
+    prob.set_constraint(control_bound(torch.zeros(m, **kw), torch.full((m,), 4.0, **kw)), range(N))
+    Z0 = initial_trajectory(n, m, N, h, u0=uh, dtype=dtype, device=dev)
+    return prob.compile(), Z0, x0, xf
+
+
+def zoo_cartpole(N: int = 60, tf: float = 2.0, *, dtype=torch.float32, device=None):
+    """The zoo's cartpole swing-up (n=4, m=1): from rest to θ = π, force
+    bounded to ±10 (`perf/benchmark_zoo.py:77-97`).  Returns (compiled
+    problem, initial trajectory at u = 0.01, x0, xf)."""
+    dev = default_device(device)
+    n, m = 4, 1
+    h = tf / N
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=dev)  # noqa: E731
+    x0 = t(np.zeros(n))
+    xf = t([0.0, np.pi, 0.0, 0.0])
+    prob = Problem(N)
+    prob.set_initial_state(x0)
+    prob.set_dynamics(cartpole_rk4(dtype=dtype, device=dev), range(N))
+    prob.set_cost(lqr_cost(t(np.eye(n) * 1e-2 * h), t(np.eye(m) * 1e-1 * h), xf, t(np.zeros(m))), range(N))
+    prob.set_cost(
+        lqr_cost(t(np.eye(n) * 100.0), t(np.zeros((m, m))), xf, t(np.zeros(m)), terminal=True), N
+    )
+    prob.set_constraint(control_bound(t([-10.0]), t([10.0])), range(N))
+    Z0 = initial_trajectory(n, m, N, h, u0=np.full(m, 0.01), dtype=dtype, device=dev)
+    return prob.compile(), Z0, x0, xf

@@ -1,8 +1,9 @@
 """Build the CUDA kernels of `csrc/` with nvcc and load them with ctypes.
 
 `load()` compiles every `csrc/*.cu` into `_build/libaltro_kernels.so` on
-first use and again whenever a source (or the flags) change, then loads the
-library and checks that the ctypes structs below match the C layout of
+first use and again whenever a source (or the flags) change, one nvcc per
+source, all started together, then one link.  It loads the library and
+checks that the ctypes structs below match the C layout of
 `csrc/altro_abi.h`.  Nothing here runs at import: the tests import every
 module on machines without nvcc or a card.
 
@@ -23,9 +24,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 LIB_NAME = "libaltro_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # register and spill report, kept in KernelLibrary.build_log
 )
 
@@ -77,12 +78,24 @@ class ForwardArgs(ctypes.Structure):
     ] + [(name, _int) for name in ("B", "Ps", "Fs", "Pt", "Ft", "check_bounds")]
 
 
-ENTRY_POINTS = (
-    "altro_backward_fused_unicycle_f32",
-    "altro_backward_fused_unicycle_f64",
-    "altro_forward_unicycle_f32",
-    "altro_forward_unicycle_f64",
-)
+class RiccatiArgs(ctypes.Structure):
+    _fields_ = [
+        (name, _ptr) for name in (
+            "A", "Bd", "lxx", "lxu", "luu", "lx", "lu", "rho", "K", "d", "dV1", "dV2", "failed",
+        )
+    ] + [("gain_limit", _dbl), ("N", _int), ("B", _int)]
+
+
+# (n, m) of the Riccati sweep's instantiations in csrc/riccati.cu
+RICCATI_SHAPES = ((3, 2), (4, 1), (6, 2), (13, 4))
+
+# entry point -> pointer arguments: (args, problem, stream) for the fused
+# kernels, (args, stream) for the Riccati sweep
+ENTRY_POINTS = {
+    **{f"altro_{kind}_unicycle_{s}": 3
+       for kind in ("backward_fused", "forward") for s in ("f32", "f64")},
+    **{f"altro_riccati_n{n}m{m}_{s}": 2 for n, m in RICCATI_SHAPES for s in ("f32", "f64")},
+}
 
 
 class KernelLibrary:
@@ -94,9 +107,10 @@ class KernelLibrary:
         self.build_seconds = build_seconds
         self.build_log = build_log
 
-    def launch(self, name: str, args: ctypes.Structure, prob_ptr: int, stream: int) -> None:
-        """Call one entry point; raise on a refused launch."""
-        err = getattr(self.lib, name)(ctypes.addressof(args), prob_ptr, stream)
+    def launch(self, name: str, args: ctypes.Structure, *ptrs: int) -> None:
+        """Call one entry point with its args struct and the device
+        pointers and stream that follow it; raise on a refused launch."""
+        err = getattr(self.lib, name)(ctypes.addressof(args), *ptrs)
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
@@ -127,6 +141,20 @@ def _digest() -> str:
     return h.hexdigest()
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands in parallel; raise on the first that fails, after
+    every one has ended.  Returns their joined output."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=CSRC)
+        for cmd in cmds
+    ]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")
+    return "".join(out + err for out, err in outs)
+
+
 def build() -> tuple[Path, float, str]:
     """Compile the library unless an up-to-date one exists; returns
     (path, seconds spent compiling, nvcc's output)."""
@@ -136,18 +164,24 @@ def build() -> tuple[Path, float, str]:
     digest = _digest()
     if lib_path.exists() and stamp.exists() and stamp.read_text().strip() == digest:
         return lib_path, 0.0, ""
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    tmp = BUILD_DIR / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, cwd=CSRC)
+    try:
+        log = _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
     os.replace(tmp, lib_path)
     stamp.write_text(digest + "\n")
-    return lib_path, seconds, proc.stdout + proc.stderr
+    return lib_path, seconds, log
 
 
 @functools.lru_cache(maxsize=1)
@@ -157,13 +191,16 @@ def load() -> KernelLibrary:
     lib = ctypes.CDLL(str(path))
     lib.altro_abi_sizes.argtypes = [_ptr]
     lib.altro_abi_sizes.restype = None
-    for name in ENTRY_POINTS:
+    for name, nargs in ENTRY_POINTS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [_ptr, _ptr, _ptr]  # args (host), problem (device), stream
+        fn.argtypes = [_ptr] * nargs  # args (host), [problem (device),] stream
         fn.restype = _int
-    sizes = (ctypes.c_int * 3)()
+    sizes = (ctypes.c_int * 4)()
     lib.altro_abi_sizes(ctypes.addressof(sizes))
-    want = (ctypes.sizeof(Problem), ctypes.sizeof(BackwardArgs), ctypes.sizeof(ForwardArgs))
+    want = (
+        ctypes.sizeof(Problem), ctypes.sizeof(BackwardArgs), ctypes.sizeof(ForwardArgs),
+        ctypes.sizeof(RiccatiArgs),
+    )
     if tuple(sizes) != want:
         raise RuntimeError(f"ABI mismatch: C sizes {tuple(sizes)} vs ctypes {want}")
     return KernelLibrary(lib, seconds, log)

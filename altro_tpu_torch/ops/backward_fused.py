@@ -40,7 +40,7 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
 class Ineligible(Exception):
-    """Problem structure not supported by the fused kernels."""
+    """A problem structure, shape or scalar type that a kernel does not take."""
 
 
 def _contiguous(knots: np.ndarray) -> tuple[int, int]:

@@ -3,8 +3,9 @@
 Two selections differ from the JAX package:
   * `forward_pass` takes "scan" or "cuda"; the JAX value "pallas" names the
     fused forward kernel there and maps to "cuda" here.
-  * `backward_pass` takes "scan" or "fused"; "pallas" (the stand-alone
-    Riccati kernel) is not ported yet, and "pscan" stays retired.
+  * `backward_pass` takes "scan", "riccati" or "fused"; the JAX value
+    "pallas" names the stand-alone Riccati kernel there and maps to
+    "riccati" here, and "pscan" stays retired.
 The TPU tile knob `kernel_sublanes` is not carried: a CUDA launch's block
 size takes its place.
 """
@@ -25,7 +26,7 @@ class LogLevel(enum.IntEnum):
     DEBUG = 5
 
 
-_BACKWARD = ("scan", "fused")
+_BACKWARD = ("scan", "riccati", "fused")
 _FORWARD = ("scan", "cuda")
 
 
@@ -94,9 +95,11 @@ class SolverOptions:
     # Python loops or kernels, so it is accepted and has no effect
     scan_unroll: int = 1
 
-    # "scan" (eager Riccati recursion, the parity oracle) or "fused"
-    # (expansions and Riccati sweep in one CUDA kernel,
-    # `ops/backward_fused.py`)
+    # "scan" (eager Riccati recursion, the parity oracle), "riccati" (the
+    # Riccati sweep as a CUDA kernel over the eager expansions,
+    # `ops/riccati.py`; "pallas" is accepted as the JAX name for it) or
+    # "fused" (expansions and Riccati sweep in one CUDA kernel,
+    # `ops/backward_fused.py`, with "riccati" as its fallback)
     backward_pass: str = "scan"
 
     # "scan" (eager rollout + cost) or "cuda" (fused rollout + cost kernel,
@@ -123,15 +126,17 @@ class SolverOptions:
     def __post_init__(self):
         if self.forward_pass == "pallas":
             object.__setattr__(self, "forward_pass", "cuda")
+        if self.backward_pass == "pallas":
+            object.__setattr__(self, "backward_pass", "riccati")
         if self.backward_pass == "pscan":
             raise ValueError(
                 "backward_pass='pscan' was retired (measured slower than "
-                "the sequential sweep everywhere); use 'scan' or 'fused'"
+                "the sequential sweep everywhere); use 'scan', 'riccati' or 'fused'"
             )
         if self.backward_pass not in _BACKWARD:
             raise ValueError(
                 f"backward_pass={self.backward_pass!r}; expected one of "
-                f"{_BACKWARD}"
+                f"{_BACKWARD} (or 'pallas', the JAX name for 'riccati')"
             )
         if self.forward_pass not in _FORWARD:
             raise ValueError(

@@ -12,9 +12,13 @@ device masks here, so every exit test is one host synchronisation;
 `ALSolverBatched.host_syncs` counts them per solve.
 
 The eager passes (`expand` + `riccati_scan`, `closed_loop_rollout` +
-`total_cost`) are the parity oracle and the plain versions of the two CUDA
-kernels (`ops/backward_fused.py`, `ops/forward.py`), which
-`backward_pass="fused"` and `forward_pass="cuda"` select.
+`total_cost`) are the parity oracle and the plain versions of the CUDA
+kernels: `backward_pass="fused"` selects the fused backward kernel
+(`ops/backward_fused.py`), `backward_pass="riccati"` (the JAX name
+"pallas") the stand-alone Riccati sweep over the eager expansions
+(`ops/riccati.py`), which is also the fused path's fallback for problems
+the fused kernel does not take, and `forward_pass="cuda"` the forward
+kernel (`ops/forward.py`).
 
 Layout convention: batch axis LAST.
   X [N+1, n, B]   U [N, m, B]   K [N, m, n, B]   d [N, m, B]
@@ -211,7 +215,12 @@ class ALSolverBatched:
     by the batch.  One shared dynamics family (the shipped problems) is
     supported.  `backward_pass="fused"` and `forward_pass="cuda"` run the
     CUDA kernels when the problem's structure is one they take (decided
-    once, here); other problems run the eager passes.
+    once, here); other problems run the eager passes.  The backward pass
+    of a problem the fused kernel refuses, and of `backward_pass="riccati"`,
+    runs the Riccati kernel over the eager expansions when its (n, m) and
+    scalar type have an instantiation, else the eager `riccati_scan`.  The
+    JAX package runs `riccati_scan` whenever B % 1024 != 0; the port's
+    kernel takes any B, which changes which code runs, not what is computed.
     """
 
     def __init__(self, prob: CompiledProblem, opts: SolverOptions = None):
@@ -252,9 +261,23 @@ class ALSolverBatched:
                 )
             except Ineligible:
                 self._bwd = None
+        self._ric = None
+        if o.backward_pass == "riccati" or (o.backward_pass == "fused" and self._bwd is None):
+            from ..ops.riccati import Ineligible, RiccatiKernel
+
+            try:
+                self._ric = RiccatiKernel(
+                    prob.n, prob.m, gain_limit=o.bp_gain_limit, dtype=self.dtype
+                )
+            except Ineligible:
+                self._ric = None
         self._knot_idx: dict[int, torch.Tensor] = {}
         # host synchronisations of the last `solve` (one per loop exit test)
         self.host_syncs = 0
+        # optional callback(stats, active), called after every inner
+        # iteration: a per-iteration trace for diagnostics (the JAX
+        # package's iteration history is not ported)
+        self.on_iteration: Callable | None = None
 
     def _any(self, mask: torch.Tensor) -> bool:
         self.host_syncs += 1
@@ -596,9 +619,12 @@ class ALSolverBatched:
         return dict(K=K, d=d, dV1=dV1, dV2=dV2, failed=failed, J0=J0, rho=rho, drho=drho)
 
     def backward_pass(self, exp, rho, drho):
-        """Retry loop with per-instance regularization over the eager sweep."""
+        """Retry loop with per-instance regularization over the Riccati
+        kernel (`ops/riccati.py`) where one was built, else the eager
+        sweep."""
+        sweep = self.riccati_scan if self._ric is None else self._ric
         (K, d, dV1, dV2, failed), rho, drho = self._retry(
-            lambda r: self.riccati_scan(exp, r), rho, drho
+            lambda r: sweep(exp, r), rho, drho
         )
         return dict(K=K, d=d, dV1=dV1, dV2=dV2, failed=failed, rho=rho, drho=drho)
 
@@ -837,6 +863,8 @@ class ALSolverBatched:
                 ),
                 regularization=torch.where(active, bp["rho"], stats.regularization),
             )
+            if self.on_iteration is not None:
+                self.on_iteration(stats, active)
             c = dict(
                 Z=zselect(active, fp["Z"], c["Z"]),
                 rho=torch.where(active, fp["rho"], c["rho"]),

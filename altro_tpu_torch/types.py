@@ -59,6 +59,17 @@ class Trajectory:
         return dataclasses.replace(self, **updates)
 
 
+def default_device(device: torch.device | str | None = None) -> torch.device:
+    """`device`, or the card when none is given.  The port's entry points
+    run on the card unless the caller asks for the CPU; without CUDA, asking
+    for the default raises instead of quietly making CPU tensors."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
 def initial_trajectory(
     n: int,
     m: int,
@@ -68,10 +79,12 @@ def initial_trajectory(
     x0=None,
     *,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Trajectory:
     """Uniform-step initial trajectory with constant controls
-    (`altro_tpu.types.initial_trajectory`)."""
+    (`altro_tpu.types.initial_trajectory`), on the card unless `device`
+    says otherwise."""
+    device = default_device(device)
     X = torch.zeros((N + 1, n), dtype=dtype, device=device)
     if x0 is not None:
         X = X + torch.as_tensor(x0, dtype=dtype, device=device)[None, :]

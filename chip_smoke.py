@@ -3,17 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from `altro_tpu_torch/csrc/`, then:
-  1. checks each kernel against its plain PyTorch version at the main
-     path's shapes (turn-90 parking problem, N=100, B=4096, warm random AL
-     state) in float64 and float32, and times both;
+Builds the CUDA kernels from `altro_tpu_torch/csrc/` (one nvcc per source,
+in parallel), then:
+  1. checks the fused backward and forward kernels against their plain
+     PyTorch versions at the main path's shapes (turn-90 parking problem,
+     N=100, B=4096, warm random AL state) in float64 and float32, and times
+     both;
   2. drives the main path — `CompactedALSolver` with the fused backward and
      forward kernels over a B=4096 perturbed parking fleet in float32 — and
      checks that both kernels ran, lane 0 and >= 99% of lanes SOLVED;
   3. checks parity: float32 control parity against the f64 reference solve
      at constraint tolerance 1e-6 (<= 1e-3), and the float64 kernels
      against the reference golden (14 total / 5 outer iterations,
-     J = 0.03893465058924039).
+     J = 0.03893465058924039);
+  4. checks the Riccati kernel against its plain version on the parking
+     expansions (N=100, B=4096 and B=1000) and at the model zoo's shapes
+     (quadrotor n=13 N=50, cartpole n=4 N=60, B=2048), float64 and float32;
+  5. drives `backward_pass="pallas"` (the Riccati kernel over the eager
+     expansions) through `CompactedALSolver` on the B=4096 parking fleet,
+     and the float64 golden through the Riccati kernel;
+  6. drives the fused path's fallback on the model zoo: quadrotor and
+     cartpole fleets (B=2048), which the fused kernel refuses, solved
+     through the Riccati kernel and held against the plain path (the four
+     solves, host-bound, run concurrently in four processes).
 Each phase prints one JSON line.  The last lines are the card's name and
 power limit (nvidia-smi), the kernel summary, and
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or when any check
@@ -45,6 +57,15 @@ BENCH_OPT_KW = dict(
 PHASE1_ITERS = 14
 TAIL_BATCH = 1024
 PARITY_BATCH = 1024
+ZOO_BATCH = 2048
+ZOO_PLAIN_LANES = 512  # lanes are independent; the plain path solves these
+ZOO_N = dict(quadrotor=50, cartpole=60)  # the zoo's horizons (perf/benchmark_zoo.py)
+ZOO_TIMEOUT_S = 700  # the zoo solves run concurrently; none may take longer
+# the zoo's overrides of the bench options (perf/benchmark_zoo.py:108-111)
+ZOO_OPT_KW = dict(
+    initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
+    outer_constraints_f64=True,
+)
 GOLDEN_J = 0.03893465058924039  # auglag_test.cpp:346-349 (tol 1e-6 solve)
 # kernel-vs-plain bounds.  float64: algorithmic (the two differ only in
 # rounding order): elementwise |Δ| <= 1e-10 + rtol·|plain| for gains, cost
@@ -58,6 +79,24 @@ F64_SCALED = ("Xn", "Ubar")
 # observed on an H100 (700 W): K 5.9e-5, d 4.3e-5, dV1 9.4e-7, dV2 1.0e-6,
 # J0 3.8e-7, Xn 3.8e-7, Ubar 4.0e-7, J 6.3e-7
 F32_REL = dict(K=3e-4, d=3e-4, dV1=8e-6, dV2=8e-6, J0=2e-6, Xn=2e-6, Ubar=2e-6, J=5e-6)
+# the Riccati kernel's float32 bounds, per problem, on the same scale.
+# Observed on an H100 (700 W), largest over the cases: parking K 7.3e-5,
+# d 4.3e-5, dV1 1.0e-6, dV2 9.4e-7; quadrotor (ρ=1e3) K 1.3e-2, d 1.9e-3,
+# dV1 9.9e-6, dV2 1.0e-5; cartpole K 1.6e-5, d 1.8e-5, dV1 2.1e-6, dV2 1.8e-6
+RICCATI_F32_REL = dict(
+    parking=dict(K=5e-4, d=3e-4, dV1=8e-6, dV2=8e-6),
+    quadrotor=dict(K=1e-1, d=1.5e-2, dV1=8e-5, dV2=8e-5),
+    cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=1.5e-5, dV2=1.5e-5),
+)
+# regularizations of the Riccati checks.  The quadrotor's open-loop hover
+# sweep is so ill-conditioned at small ρ that the plain version itself moves
+# its gains by 1e-2..1e1 under 1-ulp input noise and lanes flip between
+# failing and passing, so it is held at ρ=0 (every lane fails, flags only)
+# and at ρ=1e3, where no lane fails.
+RICCATI_RHOS = dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37))
+# H100 SXM peaks (NVIDIA data sheet): memory, and non-tensor-core FP rates
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 
 
 def emit(obj) -> None:
@@ -89,9 +128,13 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def fleet_trajectory(defn, B):
+    return replicate(defn.initial_trajectory(), B)
+
+
+def replicate(Z0, B):
+    """A trajectory replicated over B lanes, batch last."""
     from altro_tpu_torch.solver.batched import BatchedTrajectory
 
-    Z0 = defn.initial_trajectory()
     return BatchedTrajectory(
         X=Z0.X[..., None].expand(-1, -1, B).contiguous(),
         U=Z0.U[..., None].expand(-1, -1, B).contiguous(),
@@ -99,9 +142,90 @@ def fleet_trajectory(defn, B):
     )
 
 
-def compare(name, got, want, dtype, mask=None) -> dict:
+def warm_al(ev, B, dtype, dev, rng):
+    """A random AL state: λ in [-0.5, 0], ρ in [1, 10] (as
+    perf/verify_kernels.py draws it)."""
+    import torch
+
+    return tuple(
+        dict(
+            lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
+            rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
+        )
+        for st in ev.al_state_init(B, dtype)
+    )
+
+
+def bound(nbytes: float, flops: float, tag: str) -> tuple[float, str]:
+    """(ms, what sets it): the least time the card could take to move
+    `nbytes` and do `flops` in the scalar type `tag`."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[tag] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _mm_flops(i, j, k):
+    return i * k * (2 * j - 1)
+
+
+def riccati_step_flops(n, m) -> int:
+    """Floating-point operations of one knot of the Riccati step
+    (csrc/riccati_step.cuh), per lane."""
+    f = 2 * _mm_flops(n, n, n) + n * n  # AᵀP, AᵀP·A, + lxx
+    f += 2 * _mm_flops(n, n, m) + n * m  # AᵀP·B, P·B, + lxu
+    f += _mm_flops(m, n, m) + m * m  # Bᵀ(PB) + luu
+    f += _mm_flops(n, n, 1) + n + _mm_flops(m, n, 1) + m  # Qx, Qu
+    f += sum(3 + 2 * j + (m - 1 - j) * (2 * j + 1) for j in range(m))  # Cholesky of Quu + ρI
+    f += 2 * m * m * (n + 1) + m * (n + 1)  # the solves for K and d, negated
+    f += _mm_flops(n, m, m) + 3 * _mm_flops(n, m, 1) + 3 * n  # KᵀQuu, p update
+    f += 2 * _mm_flops(n, m, n) + 3 * n * n  # Qxu·K, KᵀQuu·K, P update
+    f += 2 * (2 * m - 1) + _mm_flops(m, m, 1) + 4  # ΔV1, ΔV2
+    return f
+
+
+def riccati_work(N, n, m, B, itemsize) -> tuple[float, float]:
+    """(bytes, flops) of one Riccati sweep: per knot and lane it reads A, B,
+    lxx, lxu, luu, lx, lu and writes K, d; P_N, p_N and ρ once, ΔV1, ΔV2 and
+    the int32 flags once."""
+    read = N * (2 * n * n + 2 * n * m + m * m + n + m) + n * n + n + 1
+    write = N * (m * n + m) + 2
+    return B * ((read + write) * itemsize + 4), float(N * B * riccati_step_flops(n, m))
+
+
+def fused_work(prob, B, itemsize, Ps, Fs, Pt, Ft) -> tuple[float, float]:
+    """(bytes, flops) of one fused backward launch: per lane it reads X, U,
+    the packed AL state and ρ and writes K, d, ΔV1, ΔV2, J0 and the flags;
+    per knot it builds the quadratic-cost and AL expansions and the RK4
+    chain rule, then one Riccati step.  The model's own function and
+    Jacobian evaluations are not counted, so the operations bound is a
+    lower bound."""
+    N, n, m = prob.N, prob.n, prob.m
+    read = (N + 1) * n + N * m + N * (Ps + Fs) + Pt + Ft + 1
+    write = N * (m * n + m) + 3
+    quad = 2 * _mm_flops(n, n, 1) + 2 * _mm_flops(n, m, 1) + 2 * _mm_flops(m, m, 1) + 6 * (n + m)
+    hess = n * n + n * m + m * m
+    al = 8 * Ps
+    rk4 = 3 * (_mm_flops(n, n, n) + _mm_flops(n, n, m)) + 12 * (n * n + n * m)
+    per_knot = quad + hess + al + rk4 + riccati_step_flops(n, m)
+    return B * ((read + write) * itemsize + 4), float(N * B * per_knot)
+
+
+def forward_work(prob, B, itemsize, Ps, Fs, Pt, Ft) -> tuple[float, float]:
+    """(bytes, flops) of one forward launch: per lane it reads x0, α, X, U,
+    K, d and the packed AL state and writes X̄, Ū, J and two int32 flags;
+    per knot the feedback law, the RK4 combination, the cost and AL value
+    and the guard.  The model's own evaluations are not counted."""
+    N, n, m = prob.N, prob.n, prob.m
+    read = n + 1 + (N + 1) * n + N * m + N * (m * n + m) + N * (Ps + Fs) + Pt + Ft
+    write = N * (n + m) + 1
+    per_knot = (_mm_flops(m, n, 1) + n + 3 * m + 14 * n
+                + 2 * (n * n + n * m + m * m) + 4 * (n + m) + 6 * Ps + 2 * (n + m))
+    return B * ((read + write) * itemsize + 8), float(N * B * per_knot)
+
+
+def compare(name, got, want, dtype, mask=None, f32_rel=None) -> dict:
     """Assert kernel output `got` against plain output `want`; returns the
-    observed max abs and relative error."""
+    observed max abs and relative error.  `f32_rel` overrides F32_REL."""
     import torch
 
     g, w = got.double(), want.double()
@@ -118,7 +242,8 @@ def compare(name, got, want, dtype, mask=None) -> dict:
         ok = bool((err <= F64_ATOL + F64_RTOL[name] * w.abs()).all())
         assert ok, f"{name} f64: max abs err {max_abs:.3e} beyond rtol {F64_RTOL[name]}"
     else:
-        assert rel <= F32_REL[name], f"{name} f32: rel err {rel:.3e} > {F32_REL[name]}"
+        bound = (f32_rel or F32_REL)[name]
+        assert rel <= bound, f"{name} f32: rel err {rel:.3e} > {bound}"
     return dict(max_abs=max_abs, rel=rel)
 
 
@@ -146,13 +271,7 @@ def phase_kernels(dev) -> dict:
             x0=torch.as_tensor(rng.uniform(-0.1, 0.1, (3, B)), device=dev).to(dtype)
         )
         Zb = ev.rollout(params, fleet_trajectory(defn, B))
-        al = tuple(
-            dict(
-                lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
-                rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
-            )
-            for st in ev.al_state_init(B, dtype)
-        )
+        al = warm_al(ev, B, dtype, dev, rng)
         bk = BackwardFusedKernel(prob, opts, dtype=dtype, device=dev)
         fk = ForwardKernel(prob, opts, dtype=dtype, device=dev)
         ap = bk.pad_al(al)
@@ -198,13 +317,17 @@ def phase_kernels(dev) -> dict:
         )
         emit({"phase": "kernel_vs_plain", "dtype": tag, "N": N, "B": B,
               "backward_fused": errs_b, "forward": errs_f, **times})
+        item = torch.finfo(dtype).bits // 8
+        pack = (bk.Ps, bk.Fs, bk.Pt, bk.Ft)
         summary["backward_fused"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_b.values() for k in ("K", "d")),
             ms=times["backward_ms"], plain_ms=times["backward_plain_ms"],
+            work=fused_work(prob, B, item, *pack),
         )
         summary["forward"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_f.values() for k in ("Xn", "Ubar")),
             ms=times["forward_ms"], plain_ms=times["forward_plain_ms"],
+            work=forward_work(prob, B, item, *pack),
         )
     return summary
 
@@ -333,6 +456,328 @@ def phase_parity(dev) -> None:
     assert fb._bwd.launches > 0 and fb._fwd.launches > 0
 
 
+def riccati_inputs(prob, Z0, x0s, dtype, dev, rng):
+    """Eager expansions of a fleet (x0s [n, B]) rolled out from Z0, under a
+    warm random AL state."""
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    ev = ALSolverBatched(prob, SolverOptions())
+    B = x0s.shape[-1]
+    params = prob.params.replace(x0=x0s)
+    Zb = ev.rollout(params, replicate(Z0, B))
+    return ev.expand(params, warm_al(ev, B, dtype, dev, rng), Zb)
+
+
+def riccati_check(kern, exp, dtype, rhos, f32_rel) -> dict:
+    """The Riccati kernel against its plain version at each ρ, and with luu
+    poisoned negative definite at knot 3 (ρ=0), which must fail every lane.
+    Flags must be equal everywhere; K, d, ΔV are compared on the lanes that
+    did not fail."""
+    import torch
+
+    B, m = exp["A"].shape[-1], exp["B"].shape[2]
+    poisoned = dict(exp, luu=exp["luu"].clone())
+    poisoned["luu"][3] = -torch.eye(m, dtype=dtype, device=exp["A"].device)[:, :, None]
+    cases = [(f"rho={r}", exp, r) for r in rhos] + [("poisoned", poisoned, 0.0)]
+    out = {}
+    for case, e, r in cases:
+        rho = torch.full((B,), r, dtype=dtype, device=exp["A"].device)
+        got = kern(e, rho)
+        want = kern.plain(e, rho)
+        _sync()
+        assert torch.equal(got[4], want[4]), f"riccati {case}: failed flags differ"
+        if case == "poisoned":
+            assert bool(want[4].all()), "riccati: the poisoned luu did not fail every lane"
+        ok = ~want[4]
+        res = {
+            name: compare(name, g, w, dtype, mask=ok, f32_rel=f32_rel)
+            for name, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
+        }
+        res["n_failed"] = int(want[4].sum())
+        out[case] = res
+    return out
+
+
+def phase_riccati_vs_plain(dev) -> dict:
+    """The Riccati kernel against its plain version: parking expansions
+    (N=100, B=4096 and B=1000, as phase_kernels builds them), and the zoo's
+    quadrotor (N=50) and cartpole (N=60) at B=2048; f64 and f32."""
+    import torch
+
+    from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.ops.riccati import RiccatiKernel
+
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        item = torch.finfo(dtype).bits // 8
+        setups = []
+        for B in (B_FLEET, 1000):
+            defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+            rng = np.random.default_rng(42)
+            x0s = torch.as_tensor(rng.uniform(-0.1, 0.1, (3, B)), device=dev).to(dtype)
+            setups.append(("parking", defn.make_problem().compile(), defn.initial_trajectory(), x0s, rng))
+        rng = np.random.default_rng(0)
+        for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole)):
+            prob, Z0, x0, _ = build(dtype=dtype, device=dev)
+            x0s = torch.as_tensor(
+                x0.double().cpu().numpy()[:, None] + 0.05 * rng.standard_normal((prob.n, ZOO_BATCH)),
+                device=dev,
+            ).to(dtype)
+            setups.append((name, prob, Z0, x0s, rng))
+        for name, prob, Z0, x0s, rng_s in setups:
+            exp = riccati_inputs(prob, Z0, x0s, dtype, dev, rng_s)
+            Nk, n, m, B = prob.N, prob.n, prob.m, x0s.shape[-1]
+            kern = RiccatiKernel(n, m, dtype=dtype)
+            errs = riccati_check(kern, exp, dtype, RICCATI_RHOS[name], RICCATI_F32_REL[name])
+            rho = torch.full((B,), RICCATI_RHOS[name][-1], dtype=dtype, device=dev)
+            ms = cuda_ms(lambda: kern(exp, rho), 20)
+            plain_ms = cuda_ms(lambda: kern.plain(exp, rho), 3)
+            work = riccati_work(Nk, n, m, B, item)
+            bound_ms, bound_by = bound(*work, tag)
+            emit({"phase": "riccati_vs_plain", "problem": name, "dtype": tag, "n": n, "m": m,
+                  "N": Nk, "B": B, "cases": errs, "timed_rho": float(rho[0]), "ms": ms,
+                  "plain_ms": plain_ms, "bytes": work[0], "flops": work[1],
+                  "bound_ms": bound_ms, "bound_by": bound_by})
+            if (name, B) == ("parking", B_FLEET):
+                summary[tag] = dict(
+                    max_abs_err=max(c[k]["max_abs"] for c in errs.values() for k in ("K", "d")),
+                    ms=ms, plain_ms=plain_ms, work=work,
+                )
+    return summary
+
+
+def _launches(kerns) -> int:
+    return sum(k.launches for k in kerns if k is not None)
+
+
+def phase_riccati_path(dev) -> dict:
+    """`backward_pass="pallas"` (the JAX name of the Riccati kernel) through
+    CompactedALSolver with the bench options, on the main path's B=4096
+    parking fleet in f32: eager expansions, the Riccati kernel in the retry
+    loop, the forward kernel in the line search."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions, SolverStatus
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.solver.compaction import CompactedALSolver
+
+    dtype = torch.float32
+    defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    opts = SolverOptions(**BENCH_OPT_KW).replace(backward_pass="pallas")
+    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH)
+    rng = np.random.default_rng(0)
+    x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(3, B_FLEET)), device=dev).to(dtype)
+    x0[:, 0] = 0.0
+    params = prob.params.replace(x0=x0)
+    Zb = fleet_trajectory(defn, B_FLEET)
+    sub = (solver._p1, solver._tail)
+    assert all(s._ric is not None and s._bwd is None for s in sub), "the Riccati kernel was not selected"
+    t0 = time.perf_counter()
+    res = solver.solve(params, Zb)
+    _sync()
+    warm_s = time.perf_counter() - t0
+    kerns = dict(
+        riccati=[s._ric for s in sub], forward=[s._fwd for s in sub], backward_fused=[s._bwd for s in sub],
+    )
+    for ks in kerns.values():
+        for k in ks:
+            if k is not None:
+                k.launches = 0
+    walls, syncs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = solver.solve(params, Zb)
+        _sync()
+        walls.append(time.perf_counter() - t0)
+        syncs.append(solver.host_syncs)
+    launches = {name: _launches(ks) for name, ks in kerns.items()}
+    status = res["status"].cpu().numpy()
+    hist = {SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))}
+    it = res["stats"].iterations_total.cpu().numpy()
+    solved = hist.get("SOLVED", 0)
+    wall = float(np.median(walls))
+    emit(dict(
+        phase="riccati_path", B=B_FLEET, N=N, dtype="f32", backward_pass=opts.backward_pass,
+        status_hist=hist, solved_frac=solved / B_FLEET,
+        iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)),
+        iters_max=int(it.max()), host_syncs_per_solve=syncs, tail_rounds=solver.telemetry["tail_rounds"],
+        warmup_s=warm_s, wall_s_reps=walls, wall_s_median=wall, solves_per_s=B_FLEET / wall,
+        launches_3_solves=launches,
+    ))
+    U, X = res["Z"].U, res["Z"].X
+    assert bool(torch.isfinite(U).all()) and bool(torch.isfinite(X).all()), "non-finite result"
+    assert launches["riccati"] > 0 and launches["forward"] > 0, launches
+    assert launches["backward_fused"] == 0, launches
+    assert int(status[0]) == int(SolverStatus.SOLVED), "lane 0 not SOLVED"
+    assert solved >= 0.99 * B_FLEET, f"only {solved}/{B_FLEET} SOLVED"
+    return launches
+
+
+def phase_golden_f64_riccati(dev) -> None:
+    """The float64 reference golden through the Riccati kernel (B=8, ctol
+    1e-6): SOLVED, 14 total / 5 outer iterations, J within 1e-9."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions, SolverStatus
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    defn = UnicycleProblem(dtype=torch.float64, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    fb = ALSolverBatched(
+        prob, SolverOptions(constraint_tolerance=1e-6, backward_pass="pallas", forward_pass="cuda")
+    )
+    assert fb._ric is not None and fb._bwd is None
+    B = 8
+    params = prob.params.replace(x0=torch.zeros((3, B), dtype=torch.float64, device=dev))
+    res = fb.solve(params, fleet_trajectory(defn, B))
+    J = float(fb.total_cost(params, res["al"], res["Z"])[0])
+    out = dict(
+        status=SolverStatus(int(res["status"][0])).name,
+        iterations_total=int(res["stats"].iterations_total[0]),
+        iterations_outer=int(res["stats"].iterations_outer[0]),
+        J=J, J_rel_err=abs(J - GOLDEN_J) / GOLDEN_J,
+        launches=dict(riccati=fb._ric.launches, forward=fb._fwd.launches),
+    )
+    emit(dict(phase="golden_f64_riccati", B=B, **out))
+    assert out["status"] == "SOLVED" and out["iterations_total"] == 14 and out["iterations_outer"] == 5, out
+    assert out["J_rel_err"] <= 1e-9, out
+    assert fb._ric.launches > 0 and fb._fwd.launches > 0
+
+
+def zoo_solve(name: str, path: str, x0s: np.ndarray, lanes: int, out) -> None:
+    """One zoo fleet solve in its own process: `path` "fallback" is
+    `backward_pass="fused"` with the bench options and the zoo's overrides
+    (the fused kernel refuses the model, so the Riccati kernel runs over the
+    eager expansions), "plain" the same options with the eager passes.  Puts
+    a dict on `out`: statuses, iterations, raw trajectory cost of the first
+    `lanes` lanes, terminal errors, Riccati launches, wall time."""
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+
+        from altro_tpu_torch import SolverOptions
+        from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
+        from altro_tpu_torch.solver.batched import ALSolverBatched
+
+        torch.set_num_threads(1)  # four of these share the host's cores
+        dev, dtype = torch.device("cuda", 0), torch.float32
+        prob, Z0, _, xf = (zoo_quadrotor if name == "quadrotor" else zoo_cartpole)(dtype=dtype, device=dev)
+        opts = SolverOptions(**BENCH_OPT_KW).replace(**ZOO_OPT_KW)
+        if path == "plain":
+            opts = opts.replace(backward_pass="scan", forward_pass="scan")
+        s = ALSolverBatched(prob, opts)
+        if path == "fallback":
+            assert s._bwd is None, f"{name}: the fused kernel took the problem"
+            assert s._ric is not None, f"{name}: the Riccati kernel was not selected"
+            s._ric.launches = 0
+        B = x0s.shape[1]
+        params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).to(dtype))
+        t0 = time.perf_counter()
+        res = s.solve(params, replicate(Z0, B))
+        _sync()
+        wall = time.perf_counter() - t0
+        Z = res["Z"]
+        first = Z.replace(X=Z.X[..., :lanes].contiguous(), U=Z.U[..., :lanes].contiguous())
+        params_l = params.replace(x0=params.x0[:, :lanes].contiguous())
+        J = s.total_cost(params_l, s.al_state_init(lanes, dtype), first)
+        out.put(dict(
+            ok=True, name=name, path=path, wall_s=wall, host_syncs=s.host_syncs,
+            launches=s._ric.launches if s._ric is not None else 0,
+            finite=bool(torch.isfinite(Z.X).all() and torch.isfinite(Z.U).all()),
+            status=res["status"].cpu().numpy(), iterations=res["stats"].iterations_total.cpu().numpy(),
+            J=J.double().cpu().numpy(),
+            terminal_err=(Z.X[-1].double() - xf.double()[:, None]).abs().amax(dim=0).cpu().numpy(),
+        ))
+    except Exception:  # noqa: BLE001 - the parent reports it and fails the phase
+        out.put(dict(ok=False, name=name, path=path, error=traceback.format_exc()))
+
+
+def phase_zoo_fallback(dev) -> int:
+    """The fused path's fallback on the model zoo (perf/benchmark_zoo.py):
+    quadrotor and cartpole fleets of ZOO_BATCH lanes, x0 spread 0.05 from
+    seed 0, f32, bench options with the zoo's overrides and
+    `backward_pass="fused"`, which the fused kernel refuses, so the Riccati
+    kernel runs over the eager expansions.  Held to benchmark_zoo's
+    contract against the plain path (`backward_pass="scan"`) on the first
+    ZOO_PLAIN_LANES lanes: SOLVED rate within 2 points, median relative cost
+    difference on jointly solved lanes < 2e-2, all results finite.
+
+    The zoo models have no device functor, so every line-search try is an
+    eager rollout, thousands of small launches each: the host bounds these
+    solves whatever B is.  The four solves (two models, two paths) run
+    concurrently, one process each; their wall times overlap.  Returns the
+    Riccati launches."""
+    import multiprocessing as mp
+
+    from altro_tpu_torch import SolverStatus
+
+    from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
+
+    del dev  # each process opens the card itself
+    rng = np.random.default_rng(0)
+    x0 = {name: build(device="cpu")[2].numpy() for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole))}
+    x0s = {name: x0[name][:, None] + 0.05 * rng.standard_normal((x0[name].size, ZOO_BATCH)) for name in x0}
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    jobs = [
+        (name, path, x0s[name] if path == "fallback" else x0s[name][:, :ZOO_PLAIN_LANES])
+        for name in x0s for path in ("fallback", "plain")
+    ]
+    procs = [ctx.Process(target=zoo_solve, args=(*job, ZOO_PLAIN_LANES, out)) for job in jobs]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        results = {}
+        for _ in procs:
+            r = out.get(timeout=ZOO_TIMEOUT_S)
+            assert r["ok"], f"zoo {r['name']} {r['path']}:\n{r['error']}"
+            results[r["name"], r["path"]] = r
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    solved = int(SolverStatus.SOLVED)
+    total = 0
+    for name in x0s:
+        rk, rs = results[name, "fallback"], results[name, "plain"]
+        L = ZOO_PLAIN_LANES
+        st_all, st_s = rk["status"], rs["status"]
+        st_k = st_all[:L]
+        rate_k, rate_s = float((st_k == solved).mean()), float((st_s == solved).mean())
+        both = (st_k == solved) & (st_s == solved)
+        relj = np.abs(rk["J"] - rs["J"])[both] / np.maximum(np.abs(rs["J"])[both], 1e-9)
+        it = rk["iterations"]
+        emit(dict(
+            phase="zoo_fallback", problem=name, N=ZOO_N[name], B=ZOO_BATCH, dtype="f32",
+            riccati_launches=rk["launches"], wall_s=rk["wall_s"], solves_per_s=ZOO_BATCH / rk["wall_s"],
+            host_syncs=rk["host_syncs"], iters_p50=float(np.percentile(it, 50)),
+            iters_p99=float(np.percentile(it, 99)), iters_max=int(it.max()),
+            solved_frac_all=float((st_all == solved).mean()),
+            status_hist={SolverStatus(int(c)).name: int((st_all == c).sum()) for c in sorted(set(st_all.tolist()))},
+            median_terminal_err=float(np.median(rk["terminal_err"])),
+            plain_lanes=L, plain_wall_s=rs["wall_s"], plain_launches=rs["launches"],
+            solved_rate_kernel=rate_k, solved_rate_plain=rate_s,
+            status_agreement=float((st_k == st_s).mean()), jointly_solved=int(both.sum()),
+            cost_rel_diff_p50=float(np.median(relj)) if both.any() else None,
+            cost_rel_diff_p99=float(np.percentile(relj, 99)) if both.any() else None,
+            phase_wall_s=wall,
+        ))
+        assert rk["finite"] and rs["finite"], f"{name}: non-finite result"
+        assert rk["launches"] > 0, f"{name}: the Riccati kernel was never launched"
+        assert rs["launches"] == 0, f"{name}: the plain path launched the Riccati kernel"
+        assert abs(rate_k - rate_s) <= 0.02, (name, rate_k, rate_s)
+        assert both.any() and float(np.median(relj)) < 2e-2, (name, float(np.median(relj)) if both.any() else None)
+        total += rk["launches"]
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -355,30 +800,59 @@ def main() -> int:
         t0 = time.perf_counter()
         lib = _build.load()
         load_s = time.perf_counter() - t0
-        ptxas = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln or "spill" in ln]
+        ptxas = [
+            ln.strip() for ln in lib.build_log.splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln
+        ]
         emit(dict(
             phase="env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
             device=torch.cuda.get_device_name(0), build_s=lib.build_seconds, load_s=load_s,
             ptxas=ptxas,
         ))
-        kern = phase_kernels(dev)
-        launches = phase_main_path(dev)
-        phase_parity(dev)
+        seconds = {}
+
+        def timed(fn):
+            t0 = time.perf_counter()
+            out = fn(dev)
+            seconds[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+            return out
+
+        kern = timed(phase_kernels)
+        main_launches = timed(phase_main_path)
+        timed(phase_parity)
+        kern["riccati"] = timed(phase_riccati_vs_plain)
+        ric_launches = timed(phase_riccati_path)
+        timed(phase_golden_f64_riccati)
+        zoo_launches = timed(phase_zoo_fallback)
+        emit(dict(phase="seconds", **seconds))
     except Exception:  # noqa: BLE001 - report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
     print(card)
+    # each kernel's launches on the path that runs it: the fused kernels on
+    # the main path, the Riccati kernel on backward_pass="pallas"
+    by_path = dict(
+        backward_fused=dict(main_path=main_launches["backward_fused"],
+                            riccati_path=ric_launches["backward_fused"]),
+        forward=dict(main_path=main_launches["forward"], riccati_path=ric_launches["forward"]),
+        riccati=dict(riccati_path=ric_launches["riccati"], zoo_fallback=zoo_launches),
+    )
     sources = dict(
         backward_fused=("altro_tpu_torch/csrc/backward_fused.cu",
-                        "altro_tpu/ops/backward_fused_pallas.py:546"),
-        forward=("altro_tpu_torch/csrc/forward.cu", "altro_tpu/ops/forward_pallas.py:699"),
+                        "altro_tpu/ops/backward_fused_pallas.py:546", "main_path"),
+        forward=("altro_tpu_torch/csrc/forward.cu", "altro_tpu/ops/forward_pallas.py:699", "main_path"),
+        riccati=("altro_tpu_torch/csrc/riccati.cu", "altro_tpu/ops/riccati_pallas.py:268", "riccati_path"),
     )
-    emit({"kernels": [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=launches[name],
-             max_abs_err=kern[name]["f32"]["max_abs_err"], ms=kern[name]["f32"]["ms"],
-             plain_ms=kern[name]["f32"]["plain_ms"])
-        for name, (src, rep) in sources.items()
-    ]})
+    rows = []
+    for name, (src, rep, path) in sources.items():
+        k = kern[name]["f32"]
+        bound_ms, bound_by = bound(*k["work"], "f32")
+        rows.append(dict(
+            name=name, route="cuda", source=src, replaces=rep, launches=by_path[name][path],
+            launches_by_path=by_path[name], max_abs_err=k["max_abs_err"], ms=k["ms"],
+            plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ))
+    emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -88,7 +88,7 @@ def test_pad_al_matches_jax(fleet, jax_kernel):
 def _unicycle_builder():
     from altro_tpu_torch.models.problems import UnicycleProblem as TUnicycle
 
-    return TUnicycle(dtype=F64, N=10).make_problem()
+    return TUnicycle(dtype=F64, N=10, device="cpu").make_problem()
 
 
 def _opaque_constraint(builder):

@@ -15,9 +15,10 @@ import pytest
 import torch
 
 from altro_tpu_torch import SolverOptions, SolverStatus
-from altro_tpu_torch.models.problems import UnicycleProblem
+from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
 from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
 from altro_tpu_torch.ops.forward import ForwardKernel
+from altro_tpu_torch.ops.riccati import RiccatiKernel
 from altro_tpu_torch.solver.batched import ALSolverBatched, BatchedTrajectory
 from altro_tpu_torch.solver.compaction import CompactedALSolver
 
@@ -25,6 +26,14 @@ N, B = 12, 1000
 STATE_MAX = 5.0
 DTYPES = [torch.float64, torch.float32]
 F32_REL = dict(K=3e-4, d=3e-4, dV1=8e-6, dV2=8e-6, J0=2e-6, Xn=2e-6, Ubar=2e-6, J=5e-6)
+# the Riccati kernel's float32 bounds per problem, and the regularizations
+# it is held at (chip_smoke.py's RICCATI_F32_REL and RICCATI_RHOS)
+RICCATI_F32_REL = dict(
+    parking=dict(K=5e-4, d=3e-4, dV1=8e-6, dV2=8e-6),
+    quadrotor=dict(K=1e-1, d=1.5e-2, dV1=8e-5, dV2=8e-5),
+    cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=1.5e-5, dV2=1.5e-5),
+)
+RICCATI_RHOS = dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37))
 
 pytestmark = pytest.mark.gpu
 
@@ -62,13 +71,13 @@ def _setup(dtype, dev):
     return prob, params, Z, al
 
 
-def _close(name, got, want, dtype, rtol64):
+def _close(name, got, want, dtype, rtol64, f32_rel=F32_REL):
     g, w = got.double().cpu(), want.double().cpu()
     if dtype == torch.float64:
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol64, atol=1e-10, err_msg=name)
     else:
-        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1.0)
-        assert rel <= F32_REL[name], f"{name}: {rel:.3e}"
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1.0) if w.numel() else 0.0
+        assert rel <= f32_rel[name], f"{name}: {rel:.3e}"
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
@@ -151,3 +160,106 @@ def test_compaction_kernels_match_eager_path_f64():
     np.testing.assert_allclose(
         out["kernels"]["Z"].U.cpu().numpy(), out["eager"]["Z"].U.cpu().numpy(), rtol=0, atol=1e-9
     )
+
+
+def _riccati_expansions(problem, dtype, dev):
+    """Eager expansions of a B=1000 fleet of `problem` under a warm random AL
+    state: the parking problem at N=12 (x0 in ±0.3), the zoo's quadrotor
+    (N=50) and cartpole (N=60) with x0 spread 0.05 about the zoo's start.
+    At the quadrotor's full horizon the unregularized sweep fails on every
+    lane; a shorter one leaves lanes on the edge, where rounding alone
+    decides the flag."""
+    rng = np.random.default_rng(0)
+    if problem == "parking":
+        prob, params, Z, al = _setup(dtype, dev)
+        return ALSolverBatched(prob, SolverOptions()).expand(params, al, Z)
+    build = zoo_quadrotor if problem == "quadrotor" else zoo_cartpole
+    prob, Z0, x0, _ = build(dtype=dtype, device=dev)
+    ev = ALSolverBatched(prob, SolverOptions())
+    x0s = x0.double().cpu().numpy()[:, None] + 0.05 * rng.standard_normal((prob.n, B))
+    params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).to(dtype))
+    Z = ev.rollout(params, BatchedTrajectory(
+        X=Z0.X[..., None].expand(-1, -1, B).contiguous(),
+        U=Z0.U[..., None].expand(-1, -1, B).contiguous(), t=Z0.t, h=Z0.h,
+    ))
+    al = tuple(
+        dict(
+            lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
+            rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
+        )
+        for st in ev.al_state_init(B, dtype)
+    )
+    return ev.expand(params, al, Z)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem", ["parking", "quadrotor", "cartpole"])
+def test_riccati_kernel_matches_plain(dtype, problem):
+    """At each of the problem's ρ, and with luu poisoned negative definite at
+    knot 3 (every lane fails): flags equal, K, d, ΔV close on the lanes that
+    did not fail."""
+    dev = _device()
+    exp = _riccati_expansions(problem, dtype, dev)
+    n, m = exp["A"].shape[1], exp["B"].shape[2]
+    kern = RiccatiKernel(n, m, dtype=dtype)
+    poisoned = dict(exp, luu=exp["luu"].clone())
+    poisoned["luu"][3] = -torch.eye(m, dtype=dtype, device=dev)[:, :, None]
+    cases = [(exp, r) for r in RICCATI_RHOS[problem]] + [(poisoned, 0.0)]
+    for i, (e, r) in enumerate(cases):
+        rho = torch.full((B,), r, dtype=dtype, device=dev)
+        got = kern(e, rho)
+        torch.cuda.synchronize()
+        assert kern.launches == i + 1
+        want = kern.plain(e, rho)
+        assert torch.equal(got[4], want[4])
+        if e is poisoned:
+            assert bool(got[4].all())
+        ok = ~want[4]
+        for name, g, w, rt in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4], (1e-9, 1e-9, 1e-8, 1e-8)):
+            _close(name, g[..., ok], w[..., ok], dtype, rt, RICCATI_F32_REL[problem])
+
+
+def test_golden_f64_through_the_riccati_kernel():
+    """backward_pass="pallas" (the Riccati kernel over the eager expansions)
+    reproduces the reference golden in float64: SOLVED, 14 / 5, J."""
+    dev = _device()
+    defn = UnicycleProblem(dtype=torch.float64, device=dev)
+    prob = defn.make_problem().compile()
+    fb = ALSolverBatched(
+        prob, SolverOptions(constraint_tolerance=1e-6, backward_pass="pallas", forward_pass="cuda")
+    )
+    assert fb._bwd is None and fb._ric is not None
+    params = prob.params.replace(x0=torch.zeros((3, 3), dtype=torch.float64, device=dev))
+    res = fb.solve(params, _fleet_Z(defn, 3))
+    assert fb._ric.launches > 0 and fb._fwd.launches > 0
+    assert (res["status"] == int(SolverStatus.SOLVED)).all()
+    assert (res["stats"].iterations_total == 14).all() and (res["stats"].iterations_outer == 5).all()
+    J = fb.total_cost(params, res["al"], res["Z"]).cpu().numpy()
+    np.testing.assert_allclose(J, 0.03893465058924039, rtol=1e-9)
+
+
+def test_fused_fallback_runs_the_riccati_kernel_on_the_quadrotor():
+    """backward_pass="fused" on the zoo's quadrotor (float64, N=20, B=8):
+    the fused kernel refuses the model, the Riccati kernel is launched, and
+    every lane SOLVES at the eager path's cost: median relative difference
+    below 1e-3, every lane below 2e-2 (perf/benchmark_zoo.py's contract; the
+    quadrotor's iteration path follows rounding, and two paths may stop at
+    points of the tolerance region that differ by a few 1e-3)."""
+    dev = _device()
+    prob, Z0, x0, _ = zoo_quadrotor(N=20, tf=1.0, dtype=torch.float64, device=dev)
+    Bq = 8
+    rng = np.random.default_rng(2)
+    x0s = x0.cpu().numpy()[:, None] + 0.05 * rng.standard_normal((13, Bq))
+    params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev))
+    Z = BatchedTrajectory(X=Z0.X[..., None].expand(-1, -1, Bq).contiguous(),
+                          U=Z0.U[..., None].expand(-1, -1, Bq).contiguous(), t=Z0.t, h=Z0.h)
+    J = {}
+    for kind, kw in (("eager", {}), ("fallback", dict(backward_pass="fused", forward_pass="cuda"))):
+        s = ALSolverBatched(prob, SolverOptions(**kw))
+        res = s.solve(params, Z)
+        if kind == "fallback":
+            assert s._bwd is None and s._ric is not None and s._ric.launches > 0
+        assert (res["status"] == int(SolverStatus.SOLVED)).all(), kind
+        J[kind] = s.total_cost(params, s.al_state_init(Bq, torch.float64), res["Z"]).cpu().numpy()
+    rel = np.abs(J["fallback"] - J["eager"]) / np.abs(J["eager"])
+    assert np.median(rel) < 1e-3 and rel.max() < 2e-2, rel

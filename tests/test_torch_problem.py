@@ -48,7 +48,7 @@ def test_batched_chain_rule_jacobian_matches_jax():
     equals JAX's AD Jacobian of the step, knot by knot and lane by lane."""
     rng = np.random.default_rng(3)
     N, B = 6, 5
-    defn = TUnicycle(N=N)
+    defn = TUnicycle(N=N, device="cpu")
     prob = defn.make_problem().compile()
     X = rng.uniform(-1, 1, (N + 1, 3, B))
     U = rng.uniform(-1, 1, (N, 2, B))
@@ -136,7 +136,7 @@ def test_goal_values_and_jacobian():
 @pytest.mark.parametrize("constrained", [True, False])
 def test_compile_families_match_jax(constrained):
     pj = JUnicycle(dtype=jnp.float64).make_problem(add_constraints=constrained).compile()
-    pt = TUnicycle(dtype=F64).make_problem(add_constraints=constrained).compile()
+    pt = TUnicycle(dtype=F64, device="cpu").make_problem(add_constraints=constrained).compile()
     assert (pt.N, pt.n, pt.m) == (pj.N, pj.n, pj.m)
     assert pt.num_constraint_rows == pj.num_constraint_rows
     for fams_t, fams_j in (

@@ -29,6 +29,9 @@ F64 = torch.float64
 GOLDENS = Path(__file__).parent / "goldens"
 REPO = Path(__file__).resolve().parent.parent
 KERNELS = dict(backward_pass="fused", forward_pass="cuda")
+# the solver options of each path: the eager passes, the fused kernels, and
+# the Riccati kernel over the eager expansions (the JAX name "pallas")
+PASSES = dict(scan={}, kernels=KERNELS, riccati=dict(backward_pass="pallas", forward_pass="cuda"))
 
 
 def _fleet_Z(defn, B):
@@ -40,21 +43,21 @@ def _fleet_Z(defn, B):
 
 
 def _canonical_solve(opts, B=4):
-    defn = UnicycleProblem(dtype=F64)
+    defn = UnicycleProblem(dtype=F64, device="cpu")
     prob = defn.make_problem().compile()
     solver = ALSolverBatched(prob, opts)
     params = prob.params.replace(x0=torch.zeros((3, B), dtype=F64))
     return solver, params, solver.solve(params, _fleet_Z(defn, B))
 
 
-@pytest.mark.parametrize("passes", ["scan", "kernels"])
+@pytest.mark.parametrize("passes", sorted(PASSES))
 def test_control_parity_golden(passes):
     """As tests/test_control_parity.py:74-84 does for JAX: the f64 batched
     solve equals the f64 reference solve (U to 1e-10, same iterations)."""
     g = np.load(GOLDENS / "unicycle_turn90_refsolve_f64.npz")
-    opts = SolverOptions(**KERNELS) if passes == "kernels" else SolverOptions()
-    solver, _, res = _canonical_solve(opts)
+    solver, _, res = _canonical_solve(SolverOptions(**PASSES[passes]))
     assert (solver._bwd is not None) == (passes == "kernels")
+    assert (solver._ric is not None) == (passes == "riccati")
     U = res["Z"].U.numpy()
     for b in range(U.shape[-1]):
         np.testing.assert_allclose(U[..., b], g["U"], rtol=0, atol=1e-10)
@@ -62,12 +65,11 @@ def test_control_parity_golden(passes):
     assert (res["stats"].iterations_total.numpy() == int(g["iterations_total"])).all()
 
 
-@pytest.mark.parametrize("passes", ["scan", "kernels"])
+@pytest.mark.parametrize("passes", sorted(PASSES))
 def test_al_golden_14_5(passes):
     """Constraint tolerance 1e-6: 14 total / 5 outer iterations and
     J = 0.03893465058924039 (`auglag_test.cpp:325-351`)."""
-    kw = KERNELS if passes == "kernels" else {}
-    solver, params, res = _canonical_solve(SolverOptions(constraint_tolerance=1e-6, **kw))
+    solver, params, res = _canonical_solve(SolverOptions(constraint_tolerance=1e-6, **PASSES[passes]))
     assert (res["status"].numpy() == int(SolverStatus.SOLVED)).all()
     assert (res["stats"].iterations_total.numpy() == 14).all()
     assert (res["stats"].iterations_outer.numpy() == 5).all()
@@ -84,7 +86,7 @@ def test_generic_cost_path_matches_golden():
     from altro_tpu_torch.problem.costs import _quadcost_eval
 
     g = np.load(GOLDENS / "unicycle_turn90_refsolve_f64.npz")
-    defn = UnicycleProblem(dtype=F64)
+    defn = UnicycleProblem(dtype=F64, device="cpu")
     builder = defn.make_problem()
     stage = builder._costs[0]
     builder.set_cost(Cost(params=stage.params, fn=lambda p, x, u: _quadcost_eval(p, x, u)), range(defn.N))
@@ -118,17 +120,17 @@ def jax_compacted():
     return params, Zb, numpy_tree(solver.solve(params, Zb))
 
 
-@pytest.mark.parametrize("passes", ["scan", "kernels"])
+@pytest.mark.parametrize("passes", sorted(PASSES))
 def test_compaction_matches_jax_device_tail(jax_compacted, passes):
     """phase1_iters=5, tail_batch=8: the tail gathers real stragglers over
     two rounds (as tests/test_compaction.py:145-154); lane by lane the
-    same status, iteration count and U (1e-9)."""
+    same status, iteration count and U (1e-9).  With "riccati" the phase-1
+    and tail solvers inherit the option and each builds the wrapper."""
     params_j, Z_j, ref = jax_compacted
-    prob = UnicycleProblem(dtype=F64, N=30).make_problem().compile()
-    comp = CompactedALSolver(
-        prob, SolverOptions(**(KERNELS if passes == "kernels" else {})),
-        phase1_iters=5, tail_batch=8,
-    )
+    prob = UnicycleProblem(dtype=F64, N=30, device="cpu").make_problem().compile()
+    comp = CompactedALSolver(prob, SolverOptions(**PASSES[passes]), phase1_iters=5, tail_batch=8)
+    if passes == "riccati":
+        assert comp._p1._ric is not None and comp._tail._ric is not None
     res = comp.solve(
         convert.problem_params(numpy_tree(params_j), "cpu", F64),
         convert.trajectory(numpy_tree(Z_j), "cpu", F64),
@@ -160,7 +162,7 @@ def test_outer_constraints_f64_matches_jax():
     al_ref, viol_ref = JSolver(prob_j, JOptions(outer_constraints_f64=True))._outer_duals_and_violation(
         params_j, Z_j, al_j, jnp.asarray(upd)
     )
-    prob = UnicycleProblem(dtype=torch.float32, N=12).make_problem().compile()
+    prob = UnicycleProblem(dtype=torch.float32, N=12, device="cpu").make_problem().compile()
     solver = ALSolverBatched(prob, SolverOptions(outer_constraints_f64=True))
     al, viol = solver._outer_duals_and_violation(
         convert.problem_params(numpy_tree(params_j), "cpu", torch.float32),
@@ -203,13 +205,19 @@ def test_port_never_imports_jax_at_runtime():
         "from altro_tpu_torch.models.problems import UnicycleProblem\n"
         "from altro_tpu_torch.solver.compaction import CompactedALSolver\n"
         "from altro_tpu_torch.solver.batched import BatchedTrajectory\n"
-        "d = UnicycleProblem(N=10)\n"
+        "d = UnicycleProblem(N=10, device='cpu')\n"
         "p = d.make_problem().compile()\n"
         "Z0 = d.initial_trajectory()\n"
         "Z = BatchedTrajectory(Z0.X[..., None].repeat(1, 1, 2), Z0.U[..., None].repeat(1, 1, 2), Z0.t, Z0.h)\n"
         "s = CompactedALSolver(p, SolverOptions(backward_pass='fused', forward_pass='cuda'), phase1_iters=3, tail_batch=2)\n"
         "r = s.solve(p.params.replace(x0=torch.zeros(3, 2, dtype=torch.float64)), Z)\n"
         "assert r['status'].shape == (2,)\n"
+        "s = CompactedALSolver(p, SolverOptions(backward_pass='pallas'), phase1_iters=3, tail_batch=2)\n"
+        "assert s.solve(p.params.replace(x0=torch.zeros(3, 2, dtype=torch.float64)), Z)['status'].shape == (2,)\n"
+        "from altro_tpu_torch.models.problems import TripleIntegratorProblem, zoo_cartpole, zoo_quadrotor\n"
+        "import altro_tpu_torch.ops.riccati, altro_tpu_torch.ops._build\n"
+        "zoo_quadrotor(N=4, device='cpu'); zoo_cartpole(N=4, device='cpu')\n"
+        "TripleIntegratorProblem(device='cpu').make_problem(add_constraints=True).compile()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
         "print('ok')\n"
     )
