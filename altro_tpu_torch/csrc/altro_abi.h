@@ -8,7 +8,8 @@
 #pragma once
 
 #define ALTRO_MAX_FAMS 4  // cost families, and constraint families, per problem
-#define ALTRO_NMAX 8      // largest state dimension a descriptor holds
+#define ALTRO_NMAX 16     // largest state dimension a descriptor holds
+#define ALTRO_NDYN 8      // dynamics parameters per problem (csrc/models.cuh)
 
 // A quadratic cost family ½xᵀQx + xᵀHu + ½uᵀRu + qᵀx + rᵀu + c over the
 // knots k0..k1, its params shared by every lane.  They sit in the cost
@@ -48,6 +49,7 @@ struct AltroProblem {
   double gain_limit;    // SolverOptions.bp_gain_limit
   double state_max2;    // SolverOptions.state_max squared
   double control_max2;  // SolverOptions.control_max squared
+  double dyn[ALTRO_NDYN];  // the model's parameters, in its functor's order
   AltroCostFam cost[ALTRO_MAX_FAMS];
   AltroConFam con[ALTRO_MAX_FAMS];
 };
@@ -99,10 +101,16 @@ extern "C" {
 // sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs
 void altro_abi_sizes(int* out);
 // Each entry point launches on `stream` and returns cudaGetLastError().
-int altro_backward_fused_unicycle_f32(const AltroBackwardArgs* args, const AltroProblem* prob, void* stream);
-int altro_backward_fused_unicycle_f64(const AltroBackwardArgs* args, const AltroProblem* prob, void* stream);
-int altro_forward_unicycle_f32(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
-int altro_forward_unicycle_f64(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
+// altro_{backward_fused,forward}_{model}_{f32,f64} for the models of
+// csrc/models.cuh: unicycle, cartpole, quadrotor
+#define ALTRO_FUSED_DECL(MODEL, S)                                                        \
+  int altro_backward_fused_##MODEL##_##S(const AltroBackwardArgs* args, const AltroProblem* prob, \
+                                         void* stream);                                   \
+  int altro_forward_##MODEL##_##S(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
+ALTRO_FUSED_DECL(unicycle, f32) ALTRO_FUSED_DECL(unicycle, f64)
+ALTRO_FUSED_DECL(cartpole, f32) ALTRO_FUSED_DECL(cartpole, f64)
+ALTRO_FUSED_DECL(quadrotor, f32) ALTRO_FUSED_DECL(quadrotor, f64)
+#undef ALTRO_FUSED_DECL
 // altro_riccati_n{n}m{m}_{f32,f64} for (n, m) in (3,2), (4,1), (6,2), (13,4)
 #define ALTRO_RICCATI_DECL(NN, MM, S) \
   int altro_riccati_n##NN##m##MM##_##S(const AltroRiccatiArgs* args, void* stream);

@@ -11,15 +11,21 @@
 // a lane's first failure; J0 is a Kahan sum.  A pure function of its inputs
 // and ρ, so the regularization retry loop can relaunch it.
 //
+// The model is a device functor of csrc/models.cuh, a template parameter;
+// the kernel is instantiated for the unicycle, the cartpole and the
+// quadrotor in f32 and f64 (entry points at the end of this file).
+//
 // What bounds it on the H100: per-lane arithmetic and registers, and the
 // latency of each lane's dependent chain.  Per knot a lane reads x, u, λ, ρ
 // (10 values for the unicycle) and writes K, d (8), about 30 MB per launch
 // in f32 at B=4096, N=100 (9 µs at 3.35 TB/s), against ~1,000-1,500 flops
 // per knot, ~6e8 per launch (9 µs at the 67 TFLOP/s f32 peak).  The carry
-// (P, p, ΔV, J) and the expansion live in registers, so nothing spills to
-// device memory between knots, and loads and stores are coalesced because
-// the batch is the fastest axis.  At B=4096 the grid is 32 blocks of 128
-// threads on 132 SMs: most of the card idles, and each SM's four warps
+// (P, p, ΔV, J) and the expansion live in registers for the unicycle, so
+// nothing spills to device memory between knots, and loads and stores are
+// coalesced because the batch is the fastest axis.  At n=13 the per-lane
+// arrays (P, A, the RK4 chain rule's four n×n products) exceed the
+// registers and live in local memory.  At B=4096 the grid is 32 blocks of
+// 128 threads on 132 SMs: most of the card idles, and each SM's four warps
 // cannot hide the dependent-instruction latency.  Filling the card (smaller
 // blocks, or one lane's work split across threads) is left to a later
 // change.
@@ -54,6 +60,7 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ pr) 
   const T* __restrict__ lamT = static_cast<const T*>(a.lamT);
   const T* __restrict__ lamT_rho = static_cast<const T*>(a.lamT_rho);
   const T glim = T(pr->gain_limit);
+  const DynParams<T, Model> dp(pr);
 
   T x[n], u[m];
   T J = T(0), comp = T(0);
@@ -131,7 +138,7 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ pr) 
     }
 
     T A[n * n], Bd[n * m];
-    dyn_jacobian<T, Model>(pr->method, x, u, t_k, h_k, A, Bd);
+    dyn_jacobian<T, Model>(pr->method, dp.p, x, u, t_k, h_k, A, Bd);
 
     // ---- Riccati step (riccati_pallas._kernel, csrc/riccati_step.cuh)
     T K[m * n], d[m];
@@ -172,14 +179,17 @@ void altro_abi_sizes(int* out) {
   out[3] = static_cast<int>(sizeof(AltroRiccatiArgs));
 }
 
-int altro_backward_fused_unicycle_f32(const AltroBackwardArgs* args, const AltroProblem* prob,
-                                      void* stream) {
-  return altro::launch_backward<float, altro::Unicycle>(args, prob, stream);
-}
-
-int altro_backward_fused_unicycle_f64(const AltroBackwardArgs* args, const AltroProblem* prob,
-                                      void* stream) {
-  return altro::launch_backward<double, altro::Unicycle>(args, prob, stream);
-}
+#define ALTRO_BACKWARD_ENTRY(NAME, MODEL, T)                                                \
+  int altro_backward_fused_##NAME(const AltroBackwardArgs* args, const AltroProblem* prob,  \
+                                  void* stream) {                                           \
+    return altro::launch_backward<T, altro::MODEL>(args, prob, stream);                     \
+  }
+ALTRO_BACKWARD_ENTRY(unicycle_f32, Unicycle, float)
+ALTRO_BACKWARD_ENTRY(unicycle_f64, Unicycle, double)
+ALTRO_BACKWARD_ENTRY(cartpole_f32, Cartpole, float)
+ALTRO_BACKWARD_ENTRY(cartpole_f64, Cartpole, double)
+ALTRO_BACKWARD_ENTRY(quadrotor_f32, Quadrotor, float)
+ALTRO_BACKWARD_ENTRY(quadrotor_f64, Quadrotor, double)
+#undef ALTRO_BACKWARD_ENTRY
 
 }  // extern "C"

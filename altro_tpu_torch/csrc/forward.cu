@@ -10,6 +10,10 @@
 // Kahan sum.  With α = 0 and K = d = 0 it is the open-loop rollout + cost
 // that starts each inner solve (launched with check_bounds = 0).
 //
+// The model is a device functor of csrc/models.cuh, a template parameter;
+// the kernel is instantiated for the unicycle, the cartpole and the
+// quadrotor in f32 and f64 (entry points at the end of this file).
+//
 // What bounds it on the H100: the latency of each lane's dependent chain.
 // Per knot a lane reads x, u, K, d, λ, ρ (18 values for the unicycle) and
 // writes x̄, ū (5), about 38 MB per launch in f32 at B=4096, N=100 (11 µs at
@@ -58,6 +62,7 @@ forward_kernel(AltroForwardArgs a, const AltroProblem* __restrict__ pr) {
   const T smax2 = T(pr->state_max2);
   const T cmax2 = T(pr->control_max2);
   const T alpha = static_cast<const T*>(a.alpha)[b];
+  const DynParams<T, Model> dp(pr);
 
   T x[n];
 #pragma unroll
@@ -104,7 +109,7 @@ forward_kernel(AltroForwardArgs a, const AltroProblem* __restrict__ pr) {
     }
 
     T xn[n];
-    dyn_step<T, Model>(pr->method, x, ub, t_k, h_k, xn);
+    dyn_step<T, Model>(pr->method, dp.p, x, ub, t_k, h_k, xn);
     if (a.check_bounds) {
       T xn2 = xn[0] * xn[0], un2 = ub[0] * ub[0];
 #pragma unroll
@@ -161,14 +166,16 @@ int launch_forward(const AltroForwardArgs* args, const AltroProblem* prob, void*
 
 extern "C" {
 
-int altro_forward_unicycle_f32(const AltroForwardArgs* args, const AltroProblem* prob,
-                               void* stream) {
-  return altro::launch_forward<float, altro::Unicycle>(args, prob, stream);
-}
-
-int altro_forward_unicycle_f64(const AltroForwardArgs* args, const AltroProblem* prob,
-                               void* stream) {
-  return altro::launch_forward<double, altro::Unicycle>(args, prob, stream);
-}
+#define ALTRO_FORWARD_ENTRY(NAME, MODEL, T)                                                   \
+  int altro_forward_##NAME(const AltroForwardArgs* args, const AltroProblem* prob, void* stream) { \
+    return altro::launch_forward<T, altro::MODEL>(args, prob, stream);                          \
+  }
+ALTRO_FORWARD_ENTRY(unicycle_f32, Unicycle, float)
+ALTRO_FORWARD_ENTRY(unicycle_f64, Unicycle, double)
+ALTRO_FORWARD_ENTRY(cartpole_f32, Cartpole, float)
+ALTRO_FORWARD_ENTRY(cartpole_f64, Cartpole, double)
+ALTRO_FORWARD_ENTRY(quadrotor_f32, Quadrotor, float)
+ALTRO_FORWARD_ENTRY(quadrotor_f64, Quadrotor, double)
+#undef ALTRO_FORWARD_ENTRY
 
 }  // extern "C"

@@ -169,12 +169,24 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
 }
 
 // ------------------------------------------------------------ dynamics
+// The model's parameters (AltroProblem.dyn) in the kernel's scalar type;
+// every lane reads the same entries
+template <typename T, class Model>
+struct DynParams {
+  T p[Model::np > 0 ? Model::np : 1];
+  __device__ __forceinline__ explicit DynParams(const AltroProblem* pr) {
+#pragma unroll
+    for (int i = 0; i < Model::np; ++i) p[i] = T(pr->dyn[i]);
+  }
+};
+
 // x_{k+1} of the RK4 (method 0) or explicit Euler (method 1) step
 template <typename T, class Model>
-__device__ __forceinline__ void dyn_step(int method, const T* x, const T* u, T t, T h, T* xn) {
+__device__ __forceinline__ void dyn_step(int method, const T* p, const T* x, const T* u, T t, T h,
+                                         T* xn) {
   constexpr int n = Model::n;
   T k1[n];
-  Model::f(x, u, t, k1);
+  Model::f(p, x, u, t, k1);
   if (method == 1) {
 #pragma unroll
     for (int i = 0; i < n; ++i) xn[i] = x[i] + h * k1[i];
@@ -183,13 +195,13 @@ __device__ __forceinline__ void dyn_step(int method, const T* x, const T* u, T t
   T k2[n], k3[n], k4[n], xs[n];
 #pragma unroll
   for (int i = 0; i < n; ++i) xs[i] = x[i] + T(0.5) * h * k1[i];
-  Model::f(xs, u, t + T(0.5) * h, k2);
+  Model::f(p, xs, u, t + T(0.5) * h, k2);
 #pragma unroll
   for (int i = 0; i < n; ++i) xs[i] = x[i] + T(0.5) * h * k2[i];
-  Model::f(xs, u, t + T(0.5) * h, k3);
+  Model::f(p, xs, u, t + T(0.5) * h, k3);
 #pragma unroll
   for (int i = 0; i < n; ++i) xs[i] = x[i] + h * k3[i];
-  Model::f(xs, u, t + h, k4);
+  Model::f(p, xs, u, t + h, k4);
 #pragma unroll
   for (int i = 0; i < n; ++i) xn[i] = x[i] + h * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]) / T(6);
 }
@@ -198,12 +210,12 @@ __device__ __forceinline__ void dyn_step(int method, const T* x, const T* u, T t
 // continuous Jacobians (integration.hpp:132-169), built stage by stage so
 // that only one continuous Jacobian is live at a time.
 template <typename T, class Model>
-__device__ __forceinline__ void dyn_jacobian(int method, const T* x, const T* u, T t, T h,
-                                             T* A, T* Bd) {
+__device__ __forceinline__ void dyn_jacobian(int method, const T* p, const T* x, const T* u, T t,
+                                             T h, T* A, T* Bd) {
   constexpr int n = Model::n;
   constexpr int m = Model::m;
   T Ac[n * n], Bc[n * m];
-  Model::jac(x, u, t, Ac, Bc);
+  Model::jac(p, x, u, t, Ac, Bc);
   if (method == 1) {
 #pragma unroll
     for (int i = 0; i < n * n; ++i) A[i] = ((i % (n + 1)) == 0 ? T(1) : T(0)) + h * Ac[i];
@@ -221,7 +233,7 @@ __device__ __forceinline__ void dyn_jacobian(int method, const T* x, const T* u,
   for (int i = 0; i < n * n; ++i) A[i] = dA[i];
 #pragma unroll
   for (int i = 0; i < n * m; ++i) Bd[i] = dB[i];
-  Model::f(x, u, t, kk);
+  Model::f(p, x, u, t, kk);
   // stages 2..4: dA_s = h·A_s(I + c·dA_{s-1}), dB_s = h·B_s + c·h·A_s dB_{s-1}
 #pragma unroll
   for (int s = 2; s <= 4; ++s) {
@@ -229,8 +241,8 @@ __device__ __forceinline__ void dyn_jacobian(int method, const T* x, const T* u,
     const T ts = (s == 4) ? t + h : t + T(0.5) * h;
 #pragma unroll
     for (int i = 0; i < n; ++i) xs[i] = x[i] + c * h * kk[i];
-    Model::jac(xs, u, ts, Ac, Bc);
-    if (s < 4) Model::f(xs, u, ts, kk);
+    Model::jac(p, xs, u, ts, Ac, Bc);
+    if (s < 4) Model::f(p, xs, u, ts, kk);
 #pragma unroll
     for (int i = 0; i < n * n; ++i) M[i] = ((i % (n + 1)) == 0 ? T(1) : T(0)) + c * dA[i];
     mm<T, n, n, n>(Ac, M, tmpA);

@@ -2,8 +2,9 @@
 (`altro_tpu/models/cartpole.py`).
 
 State x = [p, θ, ṗ, θ̇] with θ=0 down, θ=π up; control = cart force.  Takes
-x [4] and a batch-last x [4, B] alike; no device functor, so its backward
-pass runs the Riccati kernel over the eager expansions.
+x [4] and a batch-last x [4, B] alike.  The fused CUDA kernels evaluate the
+same model through the device functor `csrc/models.cuh:Cartpole`, named
+here by `CUDA_MODEL`, with its Jacobian by forward-mode differentiation.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from ..types import default_device
 
 NSTATES = 4
 NCONTROLS = 1
+CUDA_MODEL = "cartpole"
 
 
 def _cartpole_dynamics(params, x, u, t):
@@ -53,6 +55,7 @@ def cartpole(
     }
     return ContinuousModel(
         params=params, fn=_cartpole_dynamics, n=NSTATES, m=NCONTROLS, name="cartpole",
+        cuda_model=CUDA_MODEL,
     )
 
 

@@ -4,9 +4,10 @@ State  x = [p(3), q(4, wxyz unit quaternion), v(3, world), ω(3, body)]
 Input  u = [f1..f4] rotor thrusts (N).
 
 Every operation is component-wise in the leading (state) axis, so the
-model takes x [13] and a batch-last x [13, B] alike.  It has no device
-functor (`cuda_model`), so the fused kernels refuse it and the backward pass
-runs the Riccati kernel over the eager expansions.
+model takes x [13] and a batch-last x [13, B] alike.  The fused CUDA
+kernels evaluate the same model through the device functor
+`csrc/models.cuh:Quadrotor`, named here by `CUDA_MODEL`, with its Jacobian
+by forward-mode differentiation.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from ..types import default_device
 
 NSTATES = 13
 NCONTROLS = 4
+CUDA_MODEL = "quadrotor"
 
 
 def _quat_multiply(q, r):
@@ -108,6 +110,7 @@ def quadrotor(
     }
     return ContinuousModel(
         params=params, fn=_quadrotor_dynamics, n=NSTATES, m=NCONTROLS, name="quadrotor",
+        cuda_model=CUDA_MODEL,
     )
 
 

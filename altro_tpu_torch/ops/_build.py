@@ -32,7 +32,8 @@ NVCC_FLAGS = (
 
 # csrc/altro_abi.h
 MAX_FAMS = 4
-NMAX = 8
+NMAX = 16
+NDYN = 8
 GOAL, CONTROL_BOUND = 0, 1
 CONE_ZERO, CONE_NEGATIVE_ORTHANT = 0, 1
 
@@ -56,7 +57,7 @@ class Problem(ctypes.Structure):
     _fields_ = [
         ("N", _int), ("method", _int), ("n_cost", _int), ("n_con", _int),
         ("gain_limit", _dbl), ("state_max2", _dbl), ("control_max2", _dbl),
-        ("cost", CostFam * MAX_FAMS), ("con", ConFam * MAX_FAMS),
+        ("dyn", _dbl * NDYN), ("cost", CostFam * MAX_FAMS), ("con", ConFam * MAX_FAMS),
     ]
 
 
@@ -88,12 +89,15 @@ class RiccatiArgs(ctypes.Structure):
 
 # (n, m) of the Riccati sweep's instantiations in csrc/riccati.cu
 RICCATI_SHAPES = ((3, 2), (4, 1), (6, 2), (13, 4))
+# models with a device functor in csrc/models.cuh, which the fused kernels
+# are instantiated for
+FUSED_MODELS = ("unicycle", "cartpole", "quadrotor")
 
 # entry point -> pointer arguments: (args, problem, stream) for the fused
 # kernels, (args, stream) for the Riccati sweep
 ENTRY_POINTS = {
-    **{f"altro_{kind}_unicycle_{s}": 3
-       for kind in ("backward_fused", "forward") for s in ("f32", "f64")},
+    **{f"altro_{kind}_{model}_{s}": 3
+       for kind in ("backward_fused", "forward") for model in FUSED_MODELS for s in ("f32", "f64")},
     **{f"altro_riccati_n{n}m{m}_{s}": 2 for n, m in RICCATI_SHAPES for s in ("f32", "f64")},
 }
 

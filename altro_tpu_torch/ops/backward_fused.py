@@ -34,8 +34,13 @@ from ..problem.constraints import Cone
 from ..problem.costs import _quadcost_eval
 from . import _build
 
-# models with a device functor in csrc/models.cuh: name -> (n, m)
-CUDA_MODELS = {"unicycle": (3, 2)}
+# models with a device functor in csrc/models.cuh: name -> (n, m, the
+# params that AltroProblem.dyn carries, in the functor's order)
+CUDA_MODELS = {
+    "unicycle": (3, 2, ()),
+    "cartpole": (4, 1, ("mass_cart", "mass_pole", "length", "gravity")),
+    "quadrotor": (13, 4, ("mass", "J", "gravity", "kf", "km", "arm_length")),
+}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -90,9 +95,10 @@ class FusedKernel:
         model = prob.dynamics_families[0].model
         if model is None or model.method not in ("rk4", "euler"):
             raise Ineligible("unknown integrator")
-        if CUDA_MODELS.get(model.cuda_model) != (n, m):
+        if CUDA_MODELS.get(model.cuda_model, (None, None))[:2] != (n, m):
             raise Ineligible(f"no CUDA device functor for model {model.name!r}")
         self.model_name = model.cuda_model
+        self._dyn_names = CUDA_MODELS[model.cuda_model][2]
         self.method = 0 if model.method == "rk4" else 1
         if n > _build.NMAX or m > _build.NMAX:
             raise Ineligible("state or control dimension too large for the descriptor")
@@ -191,6 +197,12 @@ class FusedKernel:
             if size is not None and a.numel() != size:
                 raise ValueError(f"param of {a.numel()} entries where {size} were expected")
             return a
+
+        if self._dyn_names:
+            dyn = torch.cat([host(params.dynamics[0][name]).reshape(-1) for name in self._dyn_names])
+            if dyn.numel() > _build.NDYN:
+                raise ValueError(f"{dyn.numel()} dynamics params; the descriptor holds {_build.NDYN}")
+            d.dyn[: dyn.numel()] = dyn.tolist()
 
         rows, offset = [], 0
         for i, f in enumerate(self._cost_fams):

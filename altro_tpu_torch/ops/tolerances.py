@@ -1,0 +1,110 @@
+"""How closely each CUDA kernel must agree with its plain PyTorch version,
+and how close the float32 parity solve must come to the reference.
+
+One copy of the bounds that `chip_smoke.py` and the tests hold the port
+to, and of the regularizations ρ at which each problem's backward sweep is
+compared.
+
+float64 bounds are algorithmic: kernel and plain version differ only in
+rounding order.  Elementwise, |Δ| <= F64_ATOL + rtol·|plain| for gains, cost
+and ΔV; for the rolled-out trajectories, whose diverging lanes amplify
+rounding along the horizon, max |Δ| <= rtol · max(max |plain|, 1).  Where
+the sweep is ill-conditioned (the quadrotor at small ρ) a lane's bound grows
+by SENS_FACTOR times its sensitivity: how far the plain version's own K, d
+move, relative to 1 + |K|, when every input moves by one unit in the last
+place (the largest over SENS_DRAWS random moves).  A lane whose failure
+flag flips under such a move is on the edge and compared on neither flag
+nor values.  Two float64 sweeps that differ only in rounding order (the JAX
+package's riccati_scan and the port's plain sweep) stay within that bound
+at the quadrotor's ρ=10 and 1e3 (tests/test_torch_riccati.py).
+
+The float32 parity solve (bench.parity_solve's configuration) is held at
+lane 0, from the canonical x0, and over lanes whose x0 moved by at most
+PARITY_SPREAD: its median control parity must stay within 1e-3.  The JAX
+package's own float32 solve spreads that far under such a move (up to
+5.6e-3 over 64 lanes; tests/test_torch_parity_f32.py holds it to
+RICCATI_PARITY_LIMIT), so lane 0 of a path whose rounding differs from the
+fused kernels' is held to RICCATI_PARITY_LIMIT rather than 1e-3.
+
+float32 bounds sit about 5-10x above what an H100 (700 W) showed, relative
+to each output's largest magnitude (floored at 1).  Each float32 sweep is
+also held, with the plain float32 sweep, against the float64 plain sweep of
+the same inputs: the kernel's error must stay within F32_VS_F64_RATIO times
+the plain version's.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+PARITY_SPREAD = 1e-6
+RICCATI_PARITY_LIMIT = 1e-2
+
+F64_RTOL = dict(K=1e-9, d=1e-9, dV1=1e-8, dV2=1e-8, J0=1e-10, Xn=1e-10, Ubar=1e-10, J=1e-10)
+F64_ATOL = 1e-10
+F64_SCALED = ("Xn", "Ubar")
+SENS_FACTOR = 100.0
+SENS_DRAWS = 3
+
+# the fused kernels on the parking problem.  Observed on an H100 (700 W): K
+# 5.9e-5, d 4.3e-5, dV1 9.4e-7, dV2 1.0e-6, J0 3.8e-7, Xn 3.8e-7, Ubar
+# 4.0e-7, J 6.3e-7
+F32_REL = dict(K=3e-4, d=3e-4, dV1=8e-6, dV2=8e-6, J0=2e-6, Xn=2e-6, Ubar=2e-6, J=5e-6)
+
+# the Riccati kernel per problem.  Observed on an H100 (700 W), largest over
+# the cases: parking K 7.3e-5, d 4.3e-5, dV1 1.0e-6, dV2 9.4e-7; quadrotor
+# (ρ=1e3) K 1.3e-2, d 1.9e-3, dV1 9.9e-6, dV2 1.0e-5; cartpole K 1.6e-5, d
+# 1.8e-5, dV1 2.1e-6, dV2 1.8e-6
+RICCATI_F32_REL = dict(
+    parking=dict(K=5e-4, d=3e-4, dV1=8e-6, dV2=8e-6),
+    quadrotor=dict(K=1e-1, d=1.5e-2, dV1=8e-5, dV2=8e-5),
+    cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=1.5e-5, dV2=1.5e-5),
+)
+
+# the fused kernels on the zoo's problems.  Observed on an H100 (700 W),
+# largest over the cases: quadrotor (ρ=1e3) K 1.2e-2, d 1.5e-3, dV1 1.2e-5,
+# dV2 1.3e-5, J0 1.6e-7, Xn 1.4e-6, Ubar 3.7e-7, J 5.7e-7; cartpole K 1.6e-5,
+# d 1.6e-5, dV1 2.1e-6, dV2 2.0e-6, J0 2.2e-7, Xn 5.1e-7, Ubar 1.2e-6, J 1.6e-6
+ZOO_F32_REL = dict(
+    quadrotor=dict(K=1e-1, d=1.5e-2, dV1=1e-4, dV2=1e-4, J0=1.5e-6, Xn=1e-5, Ubar=3e-6, J=5e-6),
+    cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=2e-5, dV2=2e-5, J0=2e-6, Xn=4e-6, Ubar=1e-5, J=1.5e-5),
+)
+
+# observed on an H100 (700 W): the kernel's float32 error against the
+# float64 plain sweep is 0.70-1.37 times the plain float32 sweep's
+F32_VS_F64_RATIO = 4.0
+
+# regularizations of the backward checks.  The quadrotor's open-loop hover
+# sweep is ill-conditioned at small ρ: a one-ulp move of the float64 inputs
+# moves the plain version's gains by about 1e-5 at ρ=10 and 1e-12 at ρ=1e3
+# (relative to 1 + |K|; chip_smoke.py reports this sensitivity for every
+# case), and at ρ=0 every lane fails.  In float32 the same move is 2^29
+# times larger, so float32 is held at ρ=1e3 only (and at ρ=0, flags alone).
+RHOS = dict(
+    f64=dict(parking=(0.0, 0.37), quadrotor=(0.0, 10.0, 1e3), cartpole=(0.0, 0.37)),
+    f32=dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37)),
+)
+
+
+def ulp_moved(t: torch.Tensor, rng: np.random.Generator) -> torch.Tensor:
+    """`t` with every entry moved by one unit in the last place, up or down
+    at random (from `rng`)."""
+    up = torch.as_tensor(rng.random(tuple(t.shape)) < 0.5, device=t.device)
+    inf = torch.full_like(t, float("inf"))
+    return torch.nextafter(t, torch.where(up, inf, -inf))
+
+
+def sensitivity(want, moved) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per lane [B]: how far the gains K, d (the first two outputs, batch
+    last) move, relative to 1 + |K|, between the outputs `want` of a
+    backward sweep and each of `moved`, sweeps whose inputs differ from its
+    own by one ulp (the largest over them); and the lanes whose failure flag
+    (the fifth output) flips in any of them."""
+    s, flips = None, None
+    for out in moved:
+        for w, p in zip(want[:2], out[:2]):
+            r = ((p.double() - w.double()).abs() / (1.0 + w.double().abs())).flatten(0, -2).amax(dim=0)
+            s = r if s is None else s.maximum(r)
+        f = want[4] != out[4]
+        flips = f if flips is None else flips | f
+    return s, flips

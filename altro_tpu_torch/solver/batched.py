@@ -274,10 +274,6 @@ class ALSolverBatched:
         self._knot_idx: dict[int, torch.Tensor] = {}
         # host synchronisations of the last `solve` (one per loop exit test)
         self.host_syncs = 0
-        # optional callback(stats, active), called after every inner
-        # iteration: a per-iteration trace for diagnostics (the JAX
-        # package's iteration history is not ported)
-        self.on_iteration: Callable | None = None
 
     def _any(self, mask: torch.Tensor) -> bool:
         self.host_syncs += 1
@@ -863,8 +859,6 @@ class ALSolverBatched:
                 ),
                 regularization=torch.where(active, bp["rho"], stats.regularization),
             )
-            if self.on_iteration is not None:
-                self.on_iteration(stats, active)
             c = dict(
                 Z=zselect(active, fp["Z"], c["Z"]),
                 rho=torch.where(active, fp["rho"], c["rho"]),

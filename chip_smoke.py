@@ -13,8 +13,9 @@ in parallel), then:
      forward kernels over a B=4096 perturbed parking fleet in float32 — and
      checks that both kernels ran, lane 0 and >= 99% of lanes SOLVED;
   3. checks parity: float32 control parity against the f64 reference solve
-     at constraint tolerance 1e-6 (<= 1e-3), and the float64 kernels
-     against the reference golden (14 total / 5 outer iterations,
+     at constraint tolerance 1e-6, through the fused kernels (<= 1e-3) and
+     through the Riccati kernel, and the float64 kernels against the
+     reference golden (14 total / 5 outer iterations,
      J = 0.03893465058924039);
   4. checks the Riccati kernel against its plain version on the parking
      expansions (N=100, B=4096 and B=1000) and at the model zoo's shapes
@@ -22,10 +23,11 @@ in parallel), then:
   5. drives `backward_pass="pallas"` (the Riccati kernel over the eager
      expansions) through `CompactedALSolver` on the B=4096 parking fleet,
      and the float64 golden through the Riccati kernel;
-  6. drives the fused path's fallback on the model zoo: quadrotor and
-     cartpole fleets (B=2048), which the fused kernel refuses, solved
-     through the Riccati kernel and held against the plain path (the four
-     solves, host-bound, run concurrently in four processes).
+  6. checks the fused kernels against their plain versions at the zoo's
+     shapes, and drives the model zoo (perf/benchmark_zoo.py) through them:
+     quadrotor and cartpole fleets (B=2048) held against the plain path;
+  7. traces one solve of each parking path with torch.profiler: device
+     time, busy share, the largest device events.
 Each phase prints one JSON line.  The last lines are the card's name and
 power limit (nvidia-smi), the kernel summary, and
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or when any check
@@ -60,40 +62,13 @@ PARITY_BATCH = 1024
 ZOO_BATCH = 2048
 ZOO_PLAIN_LANES = 512  # lanes are independent; the plain path solves these
 ZOO_N = dict(quadrotor=50, cartpole=60)  # the zoo's horizons (perf/benchmark_zoo.py)
-ZOO_TIMEOUT_S = 700  # the zoo solves run concurrently; none may take longer
+ZOO_TIMEOUT_S = 700  # the plain zoo solves run in their own processes; none may take longer
 # the zoo's overrides of the bench options (perf/benchmark_zoo.py:108-111)
 ZOO_OPT_KW = dict(
     initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
     outer_constraints_f64=True,
 )
 GOLDEN_J = 0.03893465058924039  # auglag_test.cpp:346-349 (tol 1e-6 solve)
-# kernel-vs-plain bounds.  float64: algorithmic (the two differ only in
-# rounding order): elementwise |Δ| <= 1e-10 + rtol·|plain| for gains, cost
-# and ΔV; for the rolled-out trajectories, whose diverging lanes amplify
-# rounding along the horizon, max |Δ| <= rtol · max(max |plain|, 1).
-# float32: about 5-10x above what was observed on the card, relative to
-# each output's largest magnitude (floored at 1).
-F64_RTOL = dict(K=1e-9, d=1e-9, dV1=1e-8, dV2=1e-8, J0=1e-10, Xn=1e-10, Ubar=1e-10, J=1e-10)
-F64_ATOL = 1e-10
-F64_SCALED = ("Xn", "Ubar")
-# observed on an H100 (700 W): K 5.9e-5, d 4.3e-5, dV1 9.4e-7, dV2 1.0e-6,
-# J0 3.8e-7, Xn 3.8e-7, Ubar 4.0e-7, J 6.3e-7
-F32_REL = dict(K=3e-4, d=3e-4, dV1=8e-6, dV2=8e-6, J0=2e-6, Xn=2e-6, Ubar=2e-6, J=5e-6)
-# the Riccati kernel's float32 bounds, per problem, on the same scale.
-# Observed on an H100 (700 W), largest over the cases: parking K 7.3e-5,
-# d 4.3e-5, dV1 1.0e-6, dV2 9.4e-7; quadrotor (ρ=1e3) K 1.3e-2, d 1.9e-3,
-# dV1 9.9e-6, dV2 1.0e-5; cartpole K 1.6e-5, d 1.8e-5, dV1 2.1e-6, dV2 1.8e-6
-RICCATI_F32_REL = dict(
-    parking=dict(K=5e-4, d=3e-4, dV1=8e-6, dV2=8e-6),
-    quadrotor=dict(K=1e-1, d=1.5e-2, dV1=8e-5, dV2=8e-5),
-    cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=1.5e-5, dV2=1.5e-5),
-)
-# regularizations of the Riccati checks.  The quadrotor's open-loop hover
-# sweep is so ill-conditioned at small ρ that the plain version itself moves
-# its gains by 1e-2..1e1 under 1-ulp input noise and lanes flip between
-# failing and passing, so it is held at ρ=0 (every lane fails, flags only)
-# and at ρ=1e3, where no lane fails.
-RICCATI_RHOS = dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37))
 # H100 SXM peaks (NVIDIA data sheet): memory, and non-tensor-core FP rates
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -223,10 +198,14 @@ def forward_work(prob, B, itemsize, Ps, Fs, Pt, Ft) -> tuple[float, float]:
     return B * ((read + write) * itemsize + 8), float(N * B * per_knot)
 
 
-def compare(name, got, want, dtype, mask=None, f32_rel=None) -> dict:
-    """Assert kernel output `got` against plain output `want`; returns the
-    observed max abs and relative error.  `f32_rel` overrides F32_REL."""
+def compare(name, got, want, dtype, mask=None, f32_rel=None, sens=None) -> dict:
+    """Assert kernel output `got` against plain output `want`
+    (altro_tpu_torch/ops/tolerances.py); returns the observed max abs and
+    relative error.  `f32_rel` overrides F32_REL; `sens` [lanes] widens a
+    float64 lane's bound by SENS_FACTOR times its sensitivity."""
     import torch
+
+    from altro_tpu_torch.ops import tolerances as tol
 
     g, w = got.double(), want.double()
     if mask is not None:  # lanes the comparison covers (batch last)
@@ -236,15 +215,43 @@ def compare(name, got, want, dtype, mask=None, f32_rel=None) -> dict:
     scale = max(float(w.abs().max()) if w.numel() else 0.0, 1.0)
     rel = max_abs / scale
     assert bool(torch.isfinite(g).all()), f"{name}: non-finite kernel output"
-    if dtype == torch.float64 and name in F64_SCALED:
-        assert rel <= F64_RTOL[name], f"{name} f64: rel err {rel:.3e} > {F64_RTOL[name]}"
+    if dtype == torch.float64 and name in tol.F64_SCALED:
+        assert rel <= tol.F64_RTOL[name], f"{name} f64: rel err {rel:.3e} > {tol.F64_RTOL[name]}"
     elif dtype == torch.float64:
-        ok = bool((err <= F64_ATOL + F64_RTOL[name] * w.abs()).all())
-        assert ok, f"{name} f64: max abs err {max_abs:.3e} beyond rtol {F64_RTOL[name]}"
+        bound = tol.F64_ATOL + tol.F64_RTOL[name] * w.abs()
+        if sens is not None:
+            bound = bound + tol.SENS_FACTOR * sens.double() * (1.0 + w.abs())
+        ok = bool((err <= bound).all())
+        assert ok, f"{name} f64: max abs err {max_abs:.3e} beyond rtol {tol.F64_RTOL[name]}"
     else:
-        bound = (f32_rel or F32_REL)[name]
+        bound = (f32_rel or tol.F32_REL)[name]
         assert rel <= bound, f"{name} f32: rel err {rel:.3e} > {bound}"
     return dict(max_abs=max_abs, rel=rel)
+
+
+def witness(sens, flips, held) -> dict:
+    """The sensitivity reported beside a case."""
+    s = sens[held].cpu().numpy()
+    return dict(
+        edge_lanes=int(flips.sum()),
+        sensitivity_p50=float(np.median(s)) if s.size else None,
+        sensitivity_max=float(s.max()) if s.size else None,
+    )
+
+
+def f32_vs_f64(name, got, want, truth, mask) -> dict:
+    """A float32 output `got` of the kernel and `want` of its plain version,
+    both against the float64 plain output `truth` of the same inputs, on
+    the lanes `mask`: the kernel's error relative to max(|truth|, 1) stays
+    within F32_VS_F64_RATIO times the plain version's."""
+    from altro_tpu_torch.ops import tolerances as tol
+
+    t = truth.double()[..., mask]
+    scale = max(float(t.abs().max()) if t.numel() else 0.0, 1.0)
+    ek = float((got.double()[..., mask] - t).abs().max()) / scale if t.numel() else 0.0
+    ep = float((want.double()[..., mask] - t).abs().max()) / scale if t.numel() else 0.0
+    assert ek <= tol.F32_VS_F64_RATIO * ep + 1e-7, f"{name} f32 vs f64: kernel {ek:.3e}, plain {ep:.3e}"
+    return dict(kernel=ek, plain=ep, max_abs_truth=float(t.abs().max()) if t.numel() else 0.0)
 
 
 def phase_kernels(dev) -> dict:
@@ -398,40 +405,60 @@ def phase_main_path(dev) -> dict:
 
 def phase_parity(dev) -> None:
     """f32 control parity at ctol 1e-6 (bench.parity_solve's configuration)
-    and the f64 golden through the kernels' double instantiation."""
+    through the fused kernels and through the Riccati kernel, and the f64
+    golden through the fused kernels' double instantiation.
+
+    Lane 0 starts at the canonical x0 = 0; the other lanes at x0 moved by at
+    most PARITY_SPREAD, which shows the spread of the float32 solve under
+    rounding-sized changes of its input.  Limits (ops/tolerances.py): lane 0
+    within 1e-3 on the fused path, within RICCATI_PARITY_LIMIT on the
+    Riccati path; the median over the lanes within 1e-3 on both."""
     import torch
 
     from altro_tpu_torch import SolverOptions, SolverStatus
     from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.ops.tolerances import PARITY_SPREAD, RICCATI_PARITY_LIMIT
     from altro_tpu_torch.solver.batched import ALSolverBatched
 
     g = np.load(os.path.join(ROOT, "tests", "goldens", "unicycle_turn90_refsolve_f64_tol6.npz"))
     # float32, shipped kernels, reference test tolerances
     defn = UnicycleProblem(dtype=torch.float32, device=dev, N=N)
     prob = defn.make_problem().compile()
-    opts = SolverOptions(**BENCH_OPT_KW).replace(
-        constraint_tolerance=1e-6, line_search_max_iterations=20, max_stall_iterations=0,
-    )
-    fb = ALSolverBatched(prob, opts)
-    params = prob.params.replace(x0=torch.zeros((3, PARITY_BATCH), dtype=torch.float32, device=dev))
+    x0 = np.random.default_rng(0).uniform(-PARITY_SPREAD, PARITY_SPREAD, (3, PARITY_BATCH))
+    x0[:, 0] = 0.0
+    params = prob.params.replace(x0=torch.as_tensor(x0, device=dev).float())
     Zb = fleet_trajectory(defn, PARITY_BATCH)
-    t0 = time.perf_counter()
-    res = fb.solve(params, Zb)
-    _sync()
-    wall = time.perf_counter() - t0
-    U0 = res["Z"].U[..., 0].double().cpu().numpy()
-    X0 = res["Z"].X[..., 0].double().cpu().numpy()
-    control_parity = float(np.abs(U0 - g["U"]).max())
-    f32 = dict(
-        status=SolverStatus(int(res["status"][0])).name,
-        iterations_total=int(res["stats"].iterations_total[0]),
-        control_parity=control_parity, state_parity=float(np.abs(X0 - g["X"]).max()),
-        cost_err_vs_f64=float(res["stats"].cost[0]) - float(g["cost"]), wall_s=wall,
-        launches=dict(backward_fused=fb._bwd.launches, forward=fb._fwd.launches),
-    )
-    emit(dict(phase="parity_f32", B=PARITY_BATCH, **f32))
-    assert control_parity <= 1e-3, f"control parity {control_parity:.3e} > 1e-3"
-    assert fb._bwd.launches > 0 and fb._fwd.launches > 0
+    for path, backward, lane0_limit in (("fused", "fused", 1e-3), ("riccati", "pallas", RICCATI_PARITY_LIMIT)):
+        opts = SolverOptions(**BENCH_OPT_KW).replace(
+            backward_pass=backward, constraint_tolerance=1e-6, line_search_max_iterations=20,
+            max_stall_iterations=0,
+        )
+        fb = ALSolverBatched(prob, opts)
+        kerns = dict(backward_fused=fb._bwd, riccati=fb._ric, forward=fb._fwd)
+        t0 = time.perf_counter()
+        res = fb.solve(params, Zb)
+        _sync()
+        wall = time.perf_counter() - t0
+        U = res["Z"].U.double().cpu().numpy()
+        parity = np.abs(U - g["U"][..., None]).max(axis=(0, 1))
+        status = res["status"].cpu().numpy()
+        X0 = res["Z"].X[..., 0].double().cpu().numpy()
+        control_parity = float(parity[0])
+        f32 = dict(
+            status=SolverStatus(int(status[0])).name,
+            iterations_total=int(res["stats"].iterations_total[0]),
+            control_parity=control_parity, state_parity=float(np.abs(X0 - g["X"]).max()),
+            cost_err_vs_f64=float(res["stats"].cost[0]) - float(g["cost"]), wall_s=wall,
+            spread=PARITY_SPREAD, parity_quantiles=dict(zip(
+                ("min", "p10", "p50", "p90", "max"),
+                (float(np.quantile(parity, q)) for q in (0.0, 0.1, 0.5, 0.9, 1.0)))),
+            solved_frac=float((status == int(SolverStatus.SOLVED)).mean()),
+            launches={name: k.launches for name, k in kerns.items() if k is not None},
+        )
+        emit(dict(phase="parity_f32", path=path, B=PARITY_BATCH, **f32))
+        assert control_parity <= lane0_limit, f"{path}: control parity {control_parity:.3e} > {lane0_limit}"
+        assert f32["parity_quantiles"]["p50"] <= 1e-3, (path, f32["parity_quantiles"])
+        assert all(n > 0 for n in f32["launches"].values()) and len(f32["launches"]) == 2, f32["launches"]
 
     # float64: the reference golden through the double kernels
     defn = UnicycleProblem(dtype=torch.float64, device=dev, N=N)
@@ -456,6 +483,15 @@ def phase_parity(dev) -> None:
     assert fb._bwd.launches > 0 and fb._fwd.launches > 0
 
 
+def zoo_x0s(x0, B, rng):
+    """The zoo's fleet (perf/benchmark_zoo.py:116-119): x0 spread by 0.05
+    standard normal draws from `rng`, float64, on x0's device."""
+    import torch
+
+    spread = 0.05 * rng.standard_normal((x0.shape[0], B))
+    return torch.as_tensor(x0.double().cpu().numpy()[:, None] + spread, device=x0.device)
+
+
 def riccati_inputs(prob, Z0, x0s, dtype, dev, rng):
     """Eager expansions of a fleet (x0s [n, B]) rolled out from Z0, under a
     warm random AL state."""
@@ -469,32 +505,54 @@ def riccati_inputs(prob, Z0, x0s, dtype, dev, rng):
     return ev.expand(params, warm_al(ev, B, dtype, dev, rng), Zb)
 
 
-def riccati_check(kern, exp, dtype, rhos, f32_rel) -> dict:
-    """The Riccati kernel against its plain version at each ρ, and with luu
-    poisoned negative definite at knot 3 (ρ=0), which must fail every lane.
-    Flags must be equal everywhere; K, d, ΔV are compared on the lanes that
-    did not fail."""
+def riccati_check(kern, exp, dtype, name, rng) -> dict:
+    """The Riccati kernel against its plain version at each of the
+    problem's ρ (tolerances.RHOS), and with luu poisoned negative definite
+    at knot 3 (ρ=0), which must fail every lane.  Beside each case, the
+    plain version on inputs moved by one ulp gives every lane's sensitivity
+    (the witness of ill-conditioning); flags must be equal on every lane
+    whose flag does not flip under that move, and K, d, ΔV are compared on
+    those lanes that did not fail.  In float32 K and d are also held, with
+    the plain float32 sweep, against the float64 plain sweep."""
     import torch
 
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.riccati import riccati_plain
+    from altro_tpu_torch.ops.tolerances import sensitivity, ulp_moved
+
+    tag = "f64" if dtype == torch.float64 else "f32"
+    dev = exp["A"].device
     B, m = exp["A"].shape[-1], exp["B"].shape[2]
+    keys = ("A", "B", "lxx", "lxu", "luu", "lx", "lu")
     poisoned = dict(exp, luu=exp["luu"].clone())
-    poisoned["luu"][3] = -torch.eye(m, dtype=dtype, device=exp["A"].device)[:, :, None]
-    cases = [(f"rho={r}", exp, r) for r in rhos] + [("poisoned", poisoned, 0.0)]
+    poisoned["luu"][3] = -torch.eye(m, dtype=dtype, device=dev)[:, :, None]
+    cases = [(f"rho={r}", exp, r) for r in tol.RHOS[tag][name]] + [("poisoned", poisoned, 0.0)]
+    f32_rel = tol.RICCATI_F32_REL[name]
     out = {}
     for case, e, r in cases:
-        rho = torch.full((B,), r, dtype=dtype, device=exp["A"].device)
+        rho = torch.full((B,), r, dtype=dtype, device=dev)
         got = kern(e, rho)
         want = kern.plain(e, rho)
+        moved = [kern.plain({k: ulp_moved(e[k], rng) if k in keys else e[k] for k in e}, rho)
+                 for _ in range(tol.SENS_DRAWS)]
         _sync()
-        assert torch.equal(got[4], want[4]), f"riccati {case}: failed flags differ"
+        sens, flips = sensitivity(want, moved)
+        steady = ~flips
+        assert torch.equal(got[4][steady], want[4][steady]), f"riccati {case}: failed flags differ"
         if case == "poisoned":
             assert bool(want[4].all()), "riccati: the poisoned luu did not fail every lane"
-        ok = ~want[4]
+        ok = ~want[4] & steady
         res = {
-            name: compare(name, g, w, dtype, mask=ok, f32_rel=f32_rel)
-            for name, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
+            key: compare(key, g, w, dtype, mask=ok, f32_rel=f32_rel, sens=sens[ok])
+            for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
         }
-        res["n_failed"] = int(want[4].sum())
+        res.update(n_failed=int(want[4].sum()), **witness(sens, flips, ok),
+                   max_abs_K=float(want[0][..., ok].abs().max()) if bool(ok.any()) else None)
+        if dtype == torch.float32 and bool(ok.any()):
+            truth = riccati_plain({k: e[k].double() for k in keys}, rho.double(), kern.gain_limit)
+            both = ok & ~truth[4]
+            res["vs_f64"] = {key: f32_vs_f64(key, got[i], want[i], truth[i], both)
+                             for i, key in enumerate(("K", "d"))}
         out[case] = res
     return out
 
@@ -506,6 +564,7 @@ def phase_riccati_vs_plain(dev) -> dict:
     import torch
 
     from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.ops import tolerances as tol
     from altro_tpu_torch.ops.riccati import RiccatiKernel
 
     summary = {}
@@ -521,17 +580,13 @@ def phase_riccati_vs_plain(dev) -> dict:
         rng = np.random.default_rng(0)
         for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole)):
             prob, Z0, x0, _ = build(dtype=dtype, device=dev)
-            x0s = torch.as_tensor(
-                x0.double().cpu().numpy()[:, None] + 0.05 * rng.standard_normal((prob.n, ZOO_BATCH)),
-                device=dev,
-            ).to(dtype)
-            setups.append((name, prob, Z0, x0s, rng))
+            setups.append((name, prob, Z0, zoo_x0s(x0, ZOO_BATCH, rng).to(dtype), rng))
         for name, prob, Z0, x0s, rng_s in setups:
             exp = riccati_inputs(prob, Z0, x0s, dtype, dev, rng_s)
             Nk, n, m, B = prob.N, prob.n, prob.m, x0s.shape[-1]
             kern = RiccatiKernel(n, m, dtype=dtype)
-            errs = riccati_check(kern, exp, dtype, RICCATI_RHOS[name], RICCATI_F32_REL[name])
-            rho = torch.full((B,), RICCATI_RHOS[name][-1], dtype=dtype, device=dev)
+            errs = riccati_check(kern, exp, dtype, name, rng_s)
+            rho = torch.full((B,), tol.RHOS[tag][name][-1], dtype=dtype, device=dev)
             ms = cuda_ms(lambda: kern(exp, rho), 20)
             plain_ms = cuda_ms(lambda: kern.plain(exp, rho), 3)
             work = riccati_work(Nk, n, m, B, item)
@@ -648,105 +703,211 @@ def phase_golden_f64_riccati(dev) -> None:
     assert fb._ric.launches > 0 and fb._fwd.launches > 0
 
 
-def zoo_solve(name: str, path: str, x0s: np.ndarray, lanes: int, out) -> None:
-    """One zoo fleet solve in its own process: `path` "fallback" is
-    `backward_pass="fused"` with the bench options and the zoo's overrides
-    (the fused kernel refuses the model, so the Riccati kernel runs over the
-    eager expansions), "plain" the same options with the eager passes.  Puts
-    a dict on `out`: statuses, iterations, raw trajectory cost of the first
-    `lanes` lanes, terminal errors, Riccati launches, wall time."""
+def zoo_solver(name, path, dev):
+    """The zoo's solver (perf/benchmark_zoo.py:108-112): `ALSolverBatched`
+    with the bench options and the zoo's overrides, f32; `path` "kernels"
+    keeps `backward_pass="fused"` and `forward_pass="cuda"`, "plain" runs
+    the eager passes.  Returns (solver, problem, Z0, xf)."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    prob, Z0, _, xf = (zoo_quadrotor if name == "quadrotor" else zoo_cartpole)(dtype=torch.float32, device=dev)
+    opts = SolverOptions(**BENCH_OPT_KW).replace(**ZOO_OPT_KW)
+    if path == "plain":
+        opts = opts.replace(backward_pass="scan", forward_pass="scan")
+    return ALSolverBatched(prob, opts), prob, Z0, xf
+
+
+def zoo_outcome(s, params, res, xf, lanes) -> dict:
+    """Statuses, iterations, raw trajectory cost of the first `lanes` lanes
+    (zero AL state) and terminal errors of a zoo solve, on the host."""
+    import torch
+
+    Z = res["Z"]
+    first = Z.replace(X=Z.X[..., :lanes].contiguous(), U=Z.U[..., :lanes].contiguous())
+    params_l = params.replace(x0=params.x0[:, :lanes].contiguous())
+    J = s.total_cost(params_l, s.al_state_init(lanes, torch.float32), first)
+    return dict(
+        finite=bool(torch.isfinite(Z.X).all() and torch.isfinite(Z.U).all()),
+        status=res["status"].cpu().numpy(), iterations=res["stats"].iterations_total.cpu().numpy(),
+        J=J.double().cpu().numpy(),
+        terminal_err=(Z.X[-1].double() - xf.double()[:, None]).abs().amax(dim=0).cpu().numpy(),
+    )
+
+
+def zoo_plain_solve(name: str, x0s: np.ndarray, lanes: int, out) -> None:
+    """The plain path's zoo solve in its own process; puts zoo_outcome's
+    dict, the wall time and the kernels' launches on `out`."""
     try:
         sys.path.insert(0, ROOT)
         import torch
 
-        from altro_tpu_torch import SolverOptions
-        from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
-        from altro_tpu_torch.solver.batched import ALSolverBatched
-
-        torch.set_num_threads(1)  # four of these share the host's cores
-        dev, dtype = torch.device("cuda", 0), torch.float32
-        prob, Z0, _, xf = (zoo_quadrotor if name == "quadrotor" else zoo_cartpole)(dtype=dtype, device=dev)
-        opts = SolverOptions(**BENCH_OPT_KW).replace(**ZOO_OPT_KW)
-        if path == "plain":
-            opts = opts.replace(backward_pass="scan", forward_pass="scan")
-        s = ALSolverBatched(prob, opts)
-        if path == "fallback":
-            assert s._bwd is None, f"{name}: the fused kernel took the problem"
-            assert s._ric is not None, f"{name}: the Riccati kernel was not selected"
-            s._ric.launches = 0
-        B = x0s.shape[1]
-        params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).to(dtype))
+        torch.set_num_threads(1)  # two of these share the host's cores
+        dev = torch.device("cuda", 0)
+        s, prob, Z0, xf = zoo_solver(name, "plain", dev)
+        params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).float())
         t0 = time.perf_counter()
-        res = s.solve(params, replicate(Z0, B))
+        res = s.solve(params, replicate(Z0, x0s.shape[1]))
         _sync()
         wall = time.perf_counter() - t0
-        Z = res["Z"]
-        first = Z.replace(X=Z.X[..., :lanes].contiguous(), U=Z.U[..., :lanes].contiguous())
-        params_l = params.replace(x0=params.x0[:, :lanes].contiguous())
-        J = s.total_cost(params_l, s.al_state_init(lanes, dtype), first)
-        out.put(dict(
-            ok=True, name=name, path=path, wall_s=wall, host_syncs=s.host_syncs,
-            launches=s._ric.launches if s._ric is not None else 0,
-            finite=bool(torch.isfinite(Z.X).all() and torch.isfinite(Z.U).all()),
-            status=res["status"].cpu().numpy(), iterations=res["stats"].iterations_total.cpu().numpy(),
-            J=J.double().cpu().numpy(),
-            terminal_err=(Z.X[-1].double() - xf.double()[:, None]).abs().amax(dim=0).cpu().numpy(),
-        ))
+        launches = sum(k.launches for k in (s._bwd, s._fwd, s._ric) if k is not None)
+        out.put(dict(ok=True, name=name, wall_s=wall, host_syncs=s.host_syncs, launches=launches,
+                     **zoo_outcome(s, params, res, xf, lanes)))
     except Exception:  # noqa: BLE001 - the parent reports it and fails the phase
-        out.put(dict(ok=False, name=name, path=path, error=traceback.format_exc()))
+        out.put(dict(ok=False, name=name, error=traceback.format_exc()))
 
 
-def phase_zoo_fallback(dev) -> int:
-    """The fused path's fallback on the model zoo (perf/benchmark_zoo.py):
-    quadrotor and cartpole fleets of ZOO_BATCH lanes, x0 spread 0.05 from
-    seed 0, f32, bench options with the zoo's overrides and
-    `backward_pass="fused"`, which the fused kernel refuses, so the Riccati
-    kernel runs over the eager expansions.  Held to benchmark_zoo's
-    contract against the plain path (`backward_pass="scan"`) on the first
-    ZOO_PLAIN_LANES lanes: SOLVED rate within 2 points, median relative cost
-    difference on jointly solved lanes < 2e-2, all results finite.
+def phase_fused_zoo_vs_plain(dev) -> None:
+    """The fused backward and forward kernels against their plain versions
+    at the zoo's shapes (quadrotor n=13 N=50, cartpole n=4 N=60, B=2048),
+    from the rollout of the zoo's fleet under a warm random AL state, f64
+    and f32.  The backward kernel is held at each of tolerances.RHOS, with
+    the sensitivity witness of riccati_check (X and U moved by one ulp); the
+    forward kernel rolls out the plain gains of the largest ρ."""
+    import torch
 
-    The zoo models have no device functor, so every line-search try is an
-    eager rollout, thousands of small launches each: the host bounds these
-    solves whatever B is.  The four solves (two models, two paths) run
-    concurrently, one process each; their wall times overlap.  Returns the
-    Riccati launches."""
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
+    from altro_tpu_torch.ops.forward import ForwardKernel
+    from altro_tpu_torch.ops.tolerances import sensitivity, ulp_moved
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        item = torch.finfo(dtype).bits // 8
+        rng = np.random.default_rng(0)
+        for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole)):
+            prob, Z0, x0, _ = build(dtype=dtype, device=dev)
+            opts = SolverOptions()
+            ev = ALSolverBatched(prob, opts)
+            B = ZOO_BATCH
+            params = prob.params.replace(x0=zoo_x0s(x0, B, rng).to(dtype))
+            Zb = ev.rollout(params, replicate(Z0, B))
+            al = warm_al(ev, B, dtype, dev, rng)
+            bk = BackwardFusedKernel(prob, opts, dtype=dtype, device=dev)
+            fk = ForwardKernel(prob, opts, dtype=dtype, device=dev)
+            ap = bk.pad_al(al)
+            Zms = [Zb.replace(X=ulp_moved(Zb.X, rng), U=ulp_moved(Zb.U, rng)) for _ in range(tol.SENS_DRAWS)]
+            f32_rel = tol.ZOO_F32_REL[name]
+            errs_b, errs_f = {}, {}
+            for r in tol.RHOS[tag][name]:
+                rho = torch.full((B,), r, dtype=dtype, device=dev)
+                got = bk(params, ap, Zb, rho)
+                want = bk.plain(params, ap, Zb, rho)
+                moved = [bk.plain(params, ap, Zm, rho) for Zm in Zms]
+                _sync()
+                sens, flips = sensitivity(want, moved)
+                steady = ~flips
+                assert torch.equal(got[4][steady], want[4][steady]), f"{name} backward rho={r}: flags differ"
+                ok = ~want[4] & steady
+                case = {
+                    key: compare(key, g, w, dtype, mask=ok, f32_rel=f32_rel, sens=sens[ok])
+                    for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
+                }
+                case["J0"] = compare("J0", got[5], want[5], dtype, f32_rel=f32_rel)
+                case.update(n_failed=int(want[4].sum()), **witness(sens, flips, ok),
+                            max_abs_K=float(want[0][..., ok].abs().max()) if bool(ok.any()) else None)
+                errs_b[f"rho={r}"] = case
+                K, d = want[0], want[1]
+            for alpha, cb, KK, dd in (
+                (1.0, True, K, d), (0.5, True, K, d),
+                (0.0, False, torch.zeros_like(K), torch.zeros_like(d)),
+            ):
+                a = torch.full((B,), alpha, dtype=dtype, device=dev)
+                got = fk(params, ap, Zb, KK, dd, a, check_bounds=cb)
+                want = fk.plain(params, ap, Zb, KK, dd, a, check_bounds=cb)
+                _sync()
+                assert torch.equal(got[3], want[3]), f"{name} forward: valid flags differ"
+                assert torch.equal(got[4], want[4]), f"{name} forward: status differs"
+                errs_f[f"alpha={alpha},guarded={cb}"] = {
+                    key: compare(key, g, w, dtype, f32_rel=f32_rel)
+                    for key, g, w in zip(("Xn", "Ubar", "J"), got[:3], want[:3])
+                }
+            rho = torch.full((B,), tol.RHOS[tag][name][-1], dtype=dtype, device=dev)
+            a1 = torch.ones((B,), dtype=dtype, device=dev)
+            times = dict(
+                backward_ms=cuda_ms(lambda: bk(params, ap, Zb, rho), 10),
+                backward_plain_ms=cuda_ms(lambda: bk.plain(params, ap, Zb, rho), 3),
+                forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 10),
+                forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
+            )
+            pack = (bk.Ps, bk.Fs, bk.Pt, bk.Ft)
+            wb, wf = fused_work(prob, B, item, *pack), forward_work(prob, B, item, *pack)
+            emit({"phase": "fused_zoo_vs_plain", "problem": name, "dtype": tag, "n": prob.n, "m": prob.m,
+                  "N": prob.N, "B": B, "backward_fused": errs_b, "forward": errs_f, **times,
+                  "backward_bound": bound(*wb, tag), "forward_bound": bound(*wf, tag)})
+
+
+def phase_zoo(dev) -> dict:
+    """The model zoo (perf/benchmark_zoo.py) through the fused kernels, as
+    the JAX package runs it: quadrotor and cartpole fleets of ZOO_BATCH
+    lanes, x0 spread 0.05 from seed 0, f32, bench options with the zoo's
+    overrides.  Three timed solves of each on the kernels, with the
+    kernels' counts set to 0 before them and read after.  Held to
+    benchmark_zoo's contract against the plain path (eager passes, on the
+    first ZOO_PLAIN_LANES lanes, one process per model, run after the
+    kernel solves so that they do not share the card with them): SOLVED
+    rate within 2 points, median relative cost difference on jointly solved
+    lanes < 2e-2, all results finite.  Returns each kernel's launches per
+    solve, per model."""
     import multiprocessing as mp
+
+    import torch
 
     from altro_tpu_torch import SolverStatus
 
-    from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
-
-    del dev  # each process opens the card itself
     rng = np.random.default_rng(0)
-    x0 = {name: build(device="cpu")[2].numpy() for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole))}
-    x0s = {name: x0[name][:, None] + 0.05 * rng.standard_normal((x0[name].size, ZOO_BATCH)) for name in x0}
+    names = ("quadrotor", "cartpole")
+    x0s, kern = {}, {}
+    for name in names:
+        s, prob, Z0, xf = zoo_solver(name, "kernels", dev)
+        assert s._bwd is not None and s._fwd is not None, f"{name}: the fused kernels refused the model"
+        assert s._ric is None, f"{name}: the Riccati kernel was selected"
+        x0s[name] = zoo_x0s(prob.params.x0, ZOO_BATCH, rng).cpu().numpy()
+        params = prob.params.replace(x0=torch.as_tensor(x0s[name], device=dev).float())
+        s._bwd.launches = s._fwd.launches = 0
+        walls, syncs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = s.solve(params, replicate(Z0, ZOO_BATCH))
+            _sync()
+            walls.append(time.perf_counter() - t0)
+            syncs.append(s.host_syncs)
+        kern[name] = dict(
+            wall_s_reps=walls, wall_s=float(np.median(walls)), host_syncs=syncs,
+            launches=dict(backward_fused=s._bwd.launches / 3, forward=s._fwd.launches / 3),
+            **zoo_outcome(s, params, res, xf, ZOO_PLAIN_LANES),
+        )
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    jobs = [
-        (name, path, x0s[name] if path == "fallback" else x0s[name][:, :ZOO_PLAIN_LANES])
-        for name in x0s for path in ("fallback", "plain")
+    procs = [
+        ctx.Process(target=zoo_plain_solve, args=(name, x0s[name][:, :ZOO_PLAIN_LANES], ZOO_PLAIN_LANES, out))
+        for name in names
     ]
-    procs = [ctx.Process(target=zoo_solve, args=(*job, ZOO_PLAIN_LANES, out)) for job in jobs]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     try:
-        results = {}
+        plain = {}
         for _ in procs:
             r = out.get(timeout=ZOO_TIMEOUT_S)
-            assert r["ok"], f"zoo {r['name']} {r['path']}:\n{r['error']}"
-            results[r["name"], r["path"]] = r
+            assert r["ok"], f"zoo {r['name']} plain:\n{r['error']}"
+            plain[r["name"]] = r
     finally:
         for p in procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
-    wall = time.perf_counter() - t0
+    plain_wall = time.perf_counter() - t0
     solved = int(SolverStatus.SOLVED)
-    total = 0
-    for name in x0s:
-        rk, rs = results[name, "fallback"], results[name, "plain"]
+    launches = {}
+    for name in names:
+        rk, rs = kern[name], plain[name]
         L = ZOO_PLAIN_LANES
         st_all, st_s = rk["status"], rs["status"]
         st_k = st_all[:L]
@@ -755,27 +916,95 @@ def phase_zoo_fallback(dev) -> int:
         relj = np.abs(rk["J"] - rs["J"])[both] / np.maximum(np.abs(rs["J"])[both], 1e-9)
         it = rk["iterations"]
         emit(dict(
-            phase="zoo_fallback", problem=name, N=ZOO_N[name], B=ZOO_BATCH, dtype="f32",
-            riccati_launches=rk["launches"], wall_s=rk["wall_s"], solves_per_s=ZOO_BATCH / rk["wall_s"],
-            host_syncs=rk["host_syncs"], iters_p50=float(np.percentile(it, 50)),
-            iters_p99=float(np.percentile(it, 99)), iters_max=int(it.max()),
-            solved_frac_all=float((st_all == solved).mean()),
+            phase="zoo", problem=name, N=ZOO_N[name], B=ZOO_BATCH, dtype="f32",
+            launches_per_solve=rk["launches"], wall_s_reps=rk["wall_s_reps"], wall_s=rk["wall_s"],
+            solves_per_s=ZOO_BATCH / rk["wall_s"], host_syncs=rk["host_syncs"],
+            iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)),
+            iters_max=int(it.max()), solved_frac_all=float((st_all == solved).mean()),
             status_hist={SolverStatus(int(c)).name: int((st_all == c).sum()) for c in sorted(set(st_all.tolist()))},
             median_terminal_err=float(np.median(rk["terminal_err"])),
             plain_lanes=L, plain_wall_s=rs["wall_s"], plain_launches=rs["launches"],
-            solved_rate_kernel=rate_k, solved_rate_plain=rate_s,
+            plain_phase_wall_s=plain_wall, solved_rate_kernel=rate_k, solved_rate_plain=rate_s,
             status_agreement=float((st_k == st_s).mean()), jointly_solved=int(both.sum()),
             cost_rel_diff_p50=float(np.median(relj)) if both.any() else None,
             cost_rel_diff_p99=float(np.percentile(relj, 99)) if both.any() else None,
-            phase_wall_s=wall,
         ))
         assert rk["finite"] and rs["finite"], f"{name}: non-finite result"
-        assert rk["launches"] > 0, f"{name}: the Riccati kernel was never launched"
-        assert rs["launches"] == 0, f"{name}: the plain path launched the Riccati kernel"
+        assert min(rk["launches"].values()) > 0, (name, rk["launches"])
+        assert rs["launches"] == 0, f"{name}: the plain path launched a kernel"
         assert abs(rate_k - rate_s) <= 0.02, (name, rate_k, rate_s)
         assert both.any() and float(np.median(relj)) < 2e-2, (name, float(np.median(relj)) if both.any() else None)
-        total += rk["launches"]
-    return total
+        launches[name] = rk["launches"]
+    return launches
+
+
+def phase_profile(dev) -> None:
+    """Where the time of one parking-fleet solve goes, on each path: the
+    main path's program (phase_main_path) and the same with
+    `backward_pass="pallas"`.  Two warm-up solves, three without the
+    profiler (median wall), then one traced with torch.profiler (CPU and
+    CUDA activities).  Per path: untraced and traced wall, the device time
+    summed over the trace's device events (kernels and copies), its share
+    of the untraced wall, host syncs, the port's kernel launches, the count
+    of device events and the five largest by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.solver.compaction import CompactedALSolver
+
+    dtype = torch.float32
+    defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    rng = np.random.default_rng(0)
+    x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(3, B_FLEET)), device=dev).to(dtype)
+    x0[:, 0] = 0.0
+    params = prob.params.replace(x0=x0)
+    Zb = fleet_trajectory(defn, B_FLEET)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    for path, kw in (("main", {}), ("riccati", dict(backward_pass="pallas"))):
+        opts = SolverOptions(**BENCH_OPT_KW).replace(**kw)
+        solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH)
+        kerns = {
+            name: [getattr(sub, attr) for sub in (solver._p1, solver._tail) if getattr(sub, attr) is not None]
+            for name, attr in (("backward_fused", "_bwd"), ("forward", "_fwd"), ("riccati", "_ric"))
+        }
+
+        def solve():
+            t0 = time.perf_counter()
+            solver.solve(params, Zb)
+            _sync()
+            return time.perf_counter() - t0
+
+        for _ in range(2):
+            solve()
+        walls = [solve() for _ in range(3)]
+        for ks in kerns.values():
+            for k in ks:
+                k.launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced = solve()
+        # device events only (kernels, copies, sets): a host op's entry
+        # repeats the device time of the kernels it launched
+        rows = sorted(
+            (e for e in prof.key_averages() if e.device_type != DeviceType.CPU), key=dev_us, reverse=True
+        )
+        device_s = sum(dev_us(e) for e in rows) / 1e6
+        wall = float(np.median(walls))
+        emit(dict(
+            phase="profile", path=path, B=B_FLEET, N=N, wall_s_reps=walls, wall_s_median=wall,
+            traced_wall_s=traced, device_s=device_s, device_busy_of_untraced=device_s / wall,
+            host_syncs=solver.host_syncs,
+            kernel_launches={name: _launches(ks) for name, ks in kerns.items()},
+            device_events=sum(e.count for e in rows),
+            top=[dict(name=e.key[:80], device_ms=dev_us(e) / 1e3, count=e.count) for e in rows[:5]],
+        ))
+        assert device_s > 0, f"{path}: the trace holds no device time"
 
 
 def main() -> int:
@@ -823,20 +1052,23 @@ def main() -> int:
         kern["riccati"] = timed(phase_riccati_vs_plain)
         ric_launches = timed(phase_riccati_path)
         timed(phase_golden_f64_riccati)
-        zoo_launches = timed(phase_zoo_fallback)
+        timed(phase_fused_zoo_vs_plain)
+        zoo_launches = timed(phase_zoo)
+        timed(phase_profile)
         emit(dict(phase="seconds", **seconds))
     except Exception:  # noqa: BLE001 - report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
     print(card)
-    # each kernel's launches on the path that runs it: the fused kernels on
-    # the main path, the Riccati kernel on backward_pass="pallas"
-    by_path = dict(
-        backward_fused=dict(main_path=main_launches["backward_fused"],
-                            riccati_path=ric_launches["backward_fused"]),
-        forward=dict(main_path=main_launches["forward"], riccati_path=ric_launches["forward"]),
-        riccati=dict(riccati_path=ric_launches["riccati"], zoo_fallback=zoo_launches),
-    )
+    # each kernel's launches on the paths that run it: the fused kernels on
+    # the main path (5 solves) and the zoo (per solve), the Riccati kernel
+    # on backward_pass="pallas" (3 solves)
+    by_path = {
+        name: dict(main_path=main_launches[name], riccati_path=ric_launches[name],
+                   **{f"zoo_{z}_per_solve": zoo_launches[z][name] for z in zoo_launches})
+        for name in ("backward_fused", "forward")
+    }
+    by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])
     sources = dict(
         backward_fused=("altro_tpu_torch/csrc/backward_fused.cu",
                         "altro_tpu/ops/backward_fused_pallas.py:546", "main_path"),

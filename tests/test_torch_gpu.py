@@ -7,8 +7,8 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
 
 (`--noconftest` skips tests/conftest.py, which configures JAX.)  Inputs are
 made from a numpy seed; B=1000 is not a multiple of the 128-thread block,
-so the ragged edge of the grid is covered.  float64 bounds are algorithmic;
-float32 bounds are those of chip_smoke.py.
+so the ragged edge of the grid is covered.  The bounds and the
+regularizations are chip_smoke.py's, from altro_tpu_torch/ops/tolerances.py.
 """
 import numpy as np
 import pytest
@@ -16,6 +16,7 @@ import torch
 
 from altro_tpu_torch import SolverOptions, SolverStatus
 from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+from altro_tpu_torch.ops import tolerances as tol
 from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
 from altro_tpu_torch.ops.forward import ForwardKernel
 from altro_tpu_torch.ops.riccati import RiccatiKernel
@@ -25,15 +26,7 @@ from altro_tpu_torch.solver.compaction import CompactedALSolver
 N, B = 12, 1000
 STATE_MAX = 5.0
 DTYPES = [torch.float64, torch.float32]
-F32_REL = dict(K=3e-4, d=3e-4, dV1=8e-6, dV2=8e-6, J0=2e-6, Xn=2e-6, Ubar=2e-6, J=5e-6)
-# the Riccati kernel's float32 bounds per problem, and the regularizations
-# it is held at (chip_smoke.py's RICCATI_F32_REL and RICCATI_RHOS)
-RICCATI_F32_REL = dict(
-    parking=dict(K=5e-4, d=3e-4, dV1=8e-6, dV2=8e-6),
-    quadrotor=dict(K=1e-1, d=1.5e-2, dV1=8e-5, dV2=8e-5),
-    cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=1.5e-5, dV2=1.5e-5),
-)
-RICCATI_RHOS = dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37))
+F32_REL = tol.F32_REL
 
 pytestmark = pytest.mark.gpu
 
@@ -71,9 +64,14 @@ def _setup(dtype, dev):
     return prob, params, Z, al
 
 
-def _close(name, got, want, dtype, rtol64, f32_rel=F32_REL):
+def _close(name, got, want, dtype, rtol64, f32_rel=F32_REL, sens=None):
+    """float64: |Δ| <= 1e-10 + rtol·|want|, widened by SENS_FACTOR times a
+    lane's sensitivity `sens` [lanes]; float32: relative to max |want|."""
     g, w = got.double().cpu(), want.double().cpu()
-    if dtype == torch.float64:
+    if dtype == torch.float64 and sens is not None:
+        bound = tol.F64_ATOL + rtol64 * w.abs() + tol.SENS_FACTOR * sens.double().cpu() * (1.0 + w.abs())
+        assert bool(((g - w).abs() <= bound).all()), f"{name}: {float((g - w).abs().max()):.3e}"
+    elif dtype == torch.float64:
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=rtol64, atol=1e-10, err_msg=name)
     else:
         rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1.0) if w.numel() else 0.0
@@ -162,33 +160,37 @@ def test_compaction_kernels_match_eager_path_f64():
     )
 
 
-def _riccati_expansions(problem, dtype, dev):
-    """Eager expansions of a B=1000 fleet of `problem` under a warm random AL
-    state: the parking problem at N=12 (x0 in ±0.3), the zoo's quadrotor
-    (N=50) and cartpole (N=60) with x0 spread 0.05 about the zoo's start.
-    At the quadrotor's full horizon the unregularized sweep fails on every
-    lane; a shorter one leaves lanes on the edge, where rounding alone
-    decides the flag."""
+def _zoo_fleet(problem, dtype, dev, Bz=B):
+    """The zoo's quadrotor (N=50) or cartpole (N=60): a fleet of Bz lanes,
+    x0 spread 0.05 about the zoo's start, rolled out from the zoo's
+    initial trajectory, under a warm random AL state."""
     rng = np.random.default_rng(0)
-    if problem == "parking":
-        prob, params, Z, al = _setup(dtype, dev)
-        return ALSolverBatched(prob, SolverOptions()).expand(params, al, Z)
     build = zoo_quadrotor if problem == "quadrotor" else zoo_cartpole
     prob, Z0, x0, _ = build(dtype=dtype, device=dev)
     ev = ALSolverBatched(prob, SolverOptions())
-    x0s = x0.double().cpu().numpy()[:, None] + 0.05 * rng.standard_normal((prob.n, B))
+    x0s = x0.double().cpu().numpy()[:, None] + 0.05 * rng.standard_normal((prob.n, Bz))
     params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).to(dtype))
     Z = ev.rollout(params, BatchedTrajectory(
-        X=Z0.X[..., None].expand(-1, -1, B).contiguous(),
-        U=Z0.U[..., None].expand(-1, -1, B).contiguous(), t=Z0.t, h=Z0.h,
+        X=Z0.X[..., None].expand(-1, -1, Bz).contiguous(),
+        U=Z0.U[..., None].expand(-1, -1, Bz).contiguous(), t=Z0.t, h=Z0.h,
     ))
     al = tuple(
         dict(
             lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
             rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
         )
-        for st in ev.al_state_init(B, dtype)
+        for st in ev.al_state_init(Bz, dtype)
     )
+    return prob, ev, params, Z, al
+
+
+def _riccati_expansions(problem, dtype, dev):
+    """Eager expansions of a B=1000 fleet of `problem` under a warm random AL
+    state: the parking problem at N=12 (x0 in ±0.3), or the zoo's fleet."""
+    if problem == "parking":
+        prob, params, Z, al = _setup(dtype, dev)
+        return ALSolverBatched(prob, SolverOptions()).expand(params, al, Z)
+    _, ev, params, Z, al = _zoo_fleet(problem, dtype, dev)
     return ev.expand(params, al, Z)
 
 
@@ -196,27 +198,68 @@ def _riccati_expansions(problem, dtype, dev):
 @pytest.mark.parametrize("problem", ["parking", "quadrotor", "cartpole"])
 def test_riccati_kernel_matches_plain(dtype, problem):
     """At each of the problem's ρ, and with luu poisoned negative definite at
-    knot 3 (every lane fails): flags equal, K, d, ΔV close on the lanes that
-    did not fail."""
+    knot 3 (every lane fails): flags equal on the lanes whose flag a one-ulp
+    move of the inputs does not flip, K, d, ΔV close on those that did not
+    fail, each float64 lane within its sensitivity."""
     dev = _device()
+    tag = "f64" if dtype == torch.float64 else "f32"
     exp = _riccati_expansions(problem, dtype, dev)
     n, m = exp["A"].shape[1], exp["B"].shape[2]
     kern = RiccatiKernel(n, m, dtype=dtype)
     poisoned = dict(exp, luu=exp["luu"].clone())
     poisoned["luu"][3] = -torch.eye(m, dtype=dtype, device=dev)[:, :, None]
-    cases = [(exp, r) for r in RICCATI_RHOS[problem]] + [(poisoned, 0.0)]
+    cases = [(exp, r) for r in tol.RHOS[tag][problem]] + [(poisoned, 0.0)]
     for i, (e, r) in enumerate(cases):
         rho = torch.full((B,), r, dtype=dtype, device=dev)
         got = kern(e, rho)
         torch.cuda.synchronize()
         assert kern.launches == i + 1
         want = kern.plain(e, rho)
-        assert torch.equal(got[4], want[4])
+        rng = np.random.default_rng(i)
+        moved = [kern.plain({k: tol.ulp_moved(v, rng) for k, v in e.items()}, rho) for _ in range(tol.SENS_DRAWS)]
+        sens, flips = tol.sensitivity(want, moved)
+        assert torch.equal(got[4][~flips], want[4][~flips])
         if e is poisoned:
             assert bool(got[4].all())
-        ok = ~want[4]
+        ok = ~want[4] & ~flips
         for name, g, w, rt in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4], (1e-9, 1e-9, 1e-8, 1e-8)):
-            _close(name, g[..., ok], w[..., ok], dtype, rt, RICCATI_F32_REL[problem])
+            _close(name, g[..., ok], w[..., ok], dtype, rt, tol.RICCATI_F32_REL[problem], sens[ok])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem", ["quadrotor", "cartpole"])
+def test_fused_kernels_match_plain_on_the_zoo(dtype, problem):
+    """The fused backward kernel at each of the problem's ρ (flags, K, d, ΔV
+    within each lane's sensitivity, J0) and the forward kernel rolling out
+    the plain gains of the largest ρ, at the zoo's shapes."""
+    dev = _device()
+    tag = "f64" if dtype == torch.float64 else "f32"
+    prob, _, params, Z, al = _zoo_fleet(problem, dtype, dev)
+    f32_rel = tol.ZOO_F32_REL[problem]
+    bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    fk = ForwardKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    ap = bk.pad_al(al)
+    rng = np.random.default_rng(1)
+    Zms = [Z.replace(X=tol.ulp_moved(Z.X, rng), U=tol.ulp_moved(Z.U, rng)) for _ in range(tol.SENS_DRAWS)]
+    for r in tol.RHOS[tag][problem]:
+        rho = torch.full((B,), r, dtype=dtype, device=dev)
+        got = bk(params, ap, Z, rho)
+        want = bk.plain(params, ap, Z, rho)
+        sens, flips = tol.sensitivity(want, [bk.plain(params, ap, Zm, rho) for Zm in Zms])
+        assert torch.equal(got[4][~flips], want[4][~flips])
+        ok = ~want[4] & ~flips
+        for name, g, w, rt in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4], (1e-9, 1e-9, 1e-8, 1e-8)):
+            _close(name, g[..., ok], w[..., ok], dtype, rt, f32_rel, sens[ok])
+        _close("J0", got[5], want[5], dtype, 1e-10, f32_rel)
+    assert bk.launches == len(tol.RHOS[tag][problem])
+    for alpha in (1.0, 0.5):
+        a = torch.full((B,), alpha, dtype=dtype, device=dev)
+        got = fk(params, ap, Z, want[0], want[1], a)
+        exp_f = fk.plain(params, ap, Z, want[0], want[1], a)
+        assert torch.equal(got[3], exp_f[3]) and torch.equal(got[4], exp_f[4])
+        for name, g, w in zip(("Xn", "Ubar", "J"), got[:3], exp_f[:3]):
+            _close(name, g, w, dtype, 1e-10, f32_rel)
+    assert fk.launches == 2
 
 
 def test_golden_f64_through_the_riccati_kernel():
@@ -238,13 +281,14 @@ def test_golden_f64_through_the_riccati_kernel():
     np.testing.assert_allclose(J, 0.03893465058924039, rtol=1e-9)
 
 
-def test_fused_fallback_runs_the_riccati_kernel_on_the_quadrotor():
-    """backward_pass="fused" on the zoo's quadrotor (float64, N=20, B=8):
-    the fused kernel refuses the model, the Riccati kernel is launched, and
-    every lane SOLVES at the eager path's cost: median relative difference
-    below 1e-3, every lane below 2e-2 (perf/benchmark_zoo.py's contract; the
-    quadrotor's iteration path follows rounding, and two paths may stop at
-    points of the tolerance region that differ by a few 1e-3)."""
+def test_fused_kernels_solve_the_quadrotor_as_the_eager_path():
+    """backward_pass="fused" with forward_pass="cuda" on the zoo's quadrotor
+    (float64, N=20, B=8): both fused kernels are launched, no Riccati
+    kernel, and every lane SOLVES at the eager path's cost: median relative
+    difference below 1e-3, every lane below 2e-2 (perf/benchmark_zoo.py's
+    contract; the quadrotor's iteration path follows rounding, and two
+    paths may stop at points of the tolerance region that differ by a few
+    1e-3)."""
     dev = _device()
     prob, Z0, x0, _ = zoo_quadrotor(N=20, tf=1.0, dtype=torch.float64, device=dev)
     Bq = 8
@@ -254,12 +298,12 @@ def test_fused_fallback_runs_the_riccati_kernel_on_the_quadrotor():
     Z = BatchedTrajectory(X=Z0.X[..., None].expand(-1, -1, Bq).contiguous(),
                           U=Z0.U[..., None].expand(-1, -1, Bq).contiguous(), t=Z0.t, h=Z0.h)
     J = {}
-    for kind, kw in (("eager", {}), ("fallback", dict(backward_pass="fused", forward_pass="cuda"))):
+    for kind, kw in (("eager", {}), ("kernels", dict(backward_pass="fused", forward_pass="cuda"))):
         s = ALSolverBatched(prob, SolverOptions(**kw))
         res = s.solve(params, Z)
-        if kind == "fallback":
-            assert s._bwd is None and s._ric is not None and s._ric.launches > 0
+        if kind == "kernels":
+            assert s._ric is None and s._bwd.launches > 0 and s._fwd.launches > 0
         assert (res["status"] == int(SolverStatus.SOLVED)).all(), kind
         J[kind] = s.total_cost(params, s.al_state_init(Bq, torch.float64), res["Z"]).cpu().numpy()
-    rel = np.abs(J["fallback"] - J["eager"]) / np.abs(J["eager"])
+    rel = np.abs(J["kernels"] - J["eager"]) / np.abs(J["eager"])
     assert np.median(rel) < 1e-3 and rel.max() < 2e-2, rel

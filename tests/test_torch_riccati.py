@@ -23,7 +23,8 @@ from altro_tpu.ops.riccati_pallas import TILE, riccati_pallas
 from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
 from altro_tpu_torch import SolverOptions as TOptions
 from altro_tpu_torch import convert
-from altro_tpu_torch.ops.riccati import Ineligible, RiccatiKernel
+from altro_tpu_torch.ops import tolerances as tol
+from altro_tpu_torch.ops.riccati import Ineligible, RiccatiKernel, riccati_plain
 
 from _torch_fleet import F64, numpy_tree, zoo_fleet_jax
 
@@ -108,6 +109,31 @@ def test_zoo_shapes_match_jax_riccati_scan(zoo_exp, case):
     B = exp["A"].shape[-1]
     ref = jax.jit(solver.riccati_scan)(exp, jnp.full((B,), rho))
     _assert_matches(_port(exp, rho), ref, all_fail=case == "poisoned")
+
+
+@pytest.mark.parametrize("rho", [10.0, 1e3])
+def test_quadrotor_rounding_order_within_the_sensitivity_bound(rho):
+    """The rule chip_smoke.py holds the n=13 kernel to where the sweep is
+    ill-conditioned (ops/tolerances.py): two float64 sweeps that differ only
+    in rounding order, JAX `riccati_scan` and the port's plain sweep, at the
+    zoo's full horizon (N=50, B=64), stay on every lane within SENS_FACTOR
+    times the lane's sensitivity to a one-ulp move of the inputs.  At ρ=10
+    that sensitivity is far above the flat 1e-9 bound; at ρ=1e3 below it."""
+    _, solver, params, Zb, al = zoo_fleet_jax("quadrotor", N=50, B=64)
+    exp_j = solver.expand(params, al, Zb)
+    ref = jax.jit(solver.riccati_scan)(exp_j, jnp.full((64,), rho))
+    exp = convert.expansions(numpy_tree(exp_j), "cpu", F64)
+    r = torch.full((64,), rho, dtype=F64)
+    want = riccati_plain(exp, r)
+    rng = np.random.default_rng(0)
+    moved = [riccati_plain({k: tol.ulp_moved(v, rng) for k, v in exp.items()}, r) for _ in range(tol.SENS_DRAWS)]
+    sens, flips = tol.sensitivity(want, moved)
+    assert not bool(flips.any()) and not bool(want[4].any())
+    K0 = torch.as_tensor(np.array(ref[0]))
+    err = ((want[0] - K0).abs() / (1.0 + K0.abs())).flatten(0, -2).amax(dim=0)
+    assert bool((err <= tol.F64_ATOL + tol.F64_RTOL["K"] + tol.SENS_FACTOR * sens).all())
+    if rho == 10.0:
+        assert float(sens.min()) > 1e-8  # the flat bound alone would not hold here
 
 
 @pytest.mark.parametrize("n,m,dtype", [(5, 2, F64), (3, 2, torch.float16)], ids=["shape", "dtype"])

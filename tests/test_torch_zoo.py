@@ -7,8 +7,9 @@ Dynamics and discrete Jacobians at random x, u from a numpy seed (1e-12);
 one quadrotor iLQR step with `backward_pass="pallas"` in both packages
 (1e-9); a constrained triple-integrator solve (statuses and iterations
 equal, U to 1e-8); the tests/test_models_zoo.py quadrotor waypoint solve
-through the fused path's fallback; which kernels each problem selects; and
-the card as the default device.
+through the fused path's fallback (the quadrotor's device functor taken
+away); which kernels each problem selects; and the card as the default
+device.
 """
 import jax
 import jax.numpy as jnp
@@ -176,14 +177,23 @@ def _waypoint_problem():
     return prob.compile(), x0, u_hover, N, h
 
 
-def test_quadrotor_waypoint_through_the_fused_fallback():
-    """backward_pass="fused" on the quadrotor: the fused kernel refuses the
-    model (no device functor) and the Riccati wrapper takes the backward
-    pass.  Asserts what tests/test_models_zoo.py:53-60 asserts; not the
-    iteration count, which even in float64 follows codegen
+def _without_device_functor(monkeypatch, name):
+    """Take the model's device functor out of the fused kernels' table, so
+    that the fused path meets a model it cannot take."""
+    from altro_tpu_torch.ops import backward_fused
+
+    monkeypatch.delitem(backward_fused.CUDA_MODELS, name)
+
+
+def test_quadrotor_waypoint_through_the_fused_fallback(monkeypatch):
+    """backward_pass="fused" on a quadrotor whose device functor the fused
+    kernels lack: they refuse the model and the Riccati wrapper takes the
+    backward pass.  Asserts what tests/test_models_zoo.py:53-60 asserts; not
+    the iteration count, which even in float64 follows codegen
     (perf/quadrotor_path_stability.out)."""
     from altro_tpu_torch import initial_trajectory
 
+    _without_device_functor(monkeypatch, "quadrotor")
     cp, x0, u_hover, N, h = _waypoint_problem()
     solver = ALSolverBatched(cp, SolverOptions(backward_pass="fused", forward_pass="cuda"))
     assert solver._bwd is None and solver._fwd is None and solver._ric is not None
@@ -200,15 +210,42 @@ def test_quadrotor_waypoint_through_the_fused_fallback():
 
 
 @pytest.mark.parametrize("build", [zoo_quadrotor, zoo_cartpole], ids=["quadrotor", "cartpole"])
-def test_fused_path_falls_back_to_the_riccati_kernel(build):
-    """Neither zoo model has a device functor: `backward_pass="fused"`
+def test_fused_path_falls_back_to_the_riccati_kernel(build, monkeypatch):
+    """A zoo model without its device functor: `backward_pass="fused"`
     builds no fused kernel and builds the Riccati wrapper, at the model's
     (n, m)."""
     prob = build(N=8, dtype=F64, device="cpu")[0]
+    _without_device_functor(monkeypatch, prob.dynamics_families[0].model.cuda_model)
     solver = ALSolverBatched(prob, SolverOptions(backward_pass="fused", forward_pass="cuda"))
     assert solver._bwd is None and solver._fwd is None
     assert (solver._ric.n, solver._ric.m) == (prob.n, prob.m)
     assert ALSolverBatched(prob, SolverOptions())._ric is None  # "scan" stays eager
+
+
+@pytest.mark.parametrize("build", [zoo_quadrotor, zoo_cartpole], ids=["quadrotor", "cartpole"])
+def test_fused_kernels_take_the_zoo_models(build):
+    """The zoo's models have device functors (`csrc/models.cuh`), so
+    `backward_pass="fused"` with `forward_pass="cuda"` builds both fused
+    kernels and no Riccati wrapper, as the JAX package's fused kernels take
+    them (perf/benchmark_zoo.py:113-115); the descriptor carries the
+    model's params in the functor's order."""
+    from altro_tpu_torch.ops import _build
+    from altro_tpu_torch.ops.backward_fused import CUDA_MODELS
+
+    prob = build(N=8, dtype=torch.float32, device="cpu")[0]
+    solver = ALSolverBatched(prob, SolverOptions(backward_pass="fused", forward_pass="cuda"))
+    assert solver._bwd is not None and solver._fwd is not None and solver._ric is None
+    name = prob.dynamics_families[0].model.cuda_model
+    assert solver._bwd.model_name == name and CUDA_MODELS[name][:2] == (prob.n, prob.m)
+    raw, _ = solver._bwd._problem_desc(prob.params)
+    desc = _build.Problem.from_buffer_copy(raw.numpy().tobytes())
+    dyn = prob.params.dynamics[0]
+    want = np.concatenate([np.atleast_1d(dyn[k].double().numpy()) for k in CUDA_MODELS[name][2]])
+    np.testing.assert_array_equal(np.asarray(desc.dyn[: want.size]), want)
+    if name == "quadrotor":  # mass, J [3], gravity, kf, km, arm_length
+        np.testing.assert_allclose(desc.dyn[:8], [0.5, 0.0023, 0.0023, 0.004, 9.81, 1.0, 0.0245, 0.175], rtol=1e-7)
+    goal = [c for c in desc.con[: desc.n_con] if c.kind == _build.GOAL]
+    assert not goal  # the zoo's fleets hold the goal by cost alone
 
 
 def test_entry_points_default_to_the_card():
