@@ -54,6 +54,19 @@ struct AltroProblem {
   AltroConFam con[ALTRO_MAX_FAMS];
 };
 
+// Launch geometry of a fused kernel, chosen by its wrapper
+// (ops/backward_fused.py:FusedKernel.geometry); the grid is ceil(B / lanes)
+// blocks.  The kernel lays out its shared memory from these numbers and its
+// launcher refuses a geometry whose `smem` is not that layout's size.
+struct AltroGeometry {
+  int lanes;     // batch lanes per block
+  int knots;     // knots per chunk of the block's pipeline
+  int group;     // threads per lane in the backward sweep (4, 8 or 16: above n, a power of two)
+  int threads;   // threads per block
+  int smem;      // dynamic shared memory per block, bytes
+  int tab_smem;  // cost-table entries staged in shared memory (0: read in device memory)
+};
+
 // Device pointers to tensors of the launch's scalar type, batch last.
 struct AltroBackwardArgs {
   const void *cost_tab;          // cost rows, see AltroCostFam
@@ -66,6 +79,7 @@ struct AltroBackwardArgs {
   void *dV1, *dV2, *J0;          // out: [B]
   void *failed;                  // out: [B] int32
   int B, Ps, Fs, Pt, Ft;
+  AltroGeometry geo;
 };
 
 struct AltroForwardArgs {
@@ -79,6 +93,11 @@ struct AltroForwardArgs {
   void *J;                       // out: [B]
   void *valid, *status;          // out: [B] int32
   int B, Ps, Fs, Pt, Ft, check_bounds;
+  // 1 stages only the first chunk of inputs and replays it for every chunk:
+  // the time of the rollout's dependent chain alone (wrong outputs; the
+  // kernel_scaling phase of chip_smoke.py measures with it)
+  int chain_only;
+  AltroGeometry geo;
 };
 
 // The stand-alone Riccati sweep over materialized expansions (riccati.cu).
@@ -100,6 +119,9 @@ extern "C" {
 #endif
 // sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs
 void altro_abi_sizes(int* out);
+// (kFOps, kJvpOps) of the unicycle, cartpole and quadrotor functors
+// (csrc/models.cuh), six ints
+void altro_model_ops(int* out);
 // Each entry point launches on `stream` and returns cudaGetLastError().
 // altro_{backward_fused,forward}_{model}_{f32,f64} for the models of
 // csrc/models.cuh: unicycle, cartpole, quadrotor

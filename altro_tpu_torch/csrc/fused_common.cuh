@@ -1,16 +1,19 @@
 // Problem evaluation shared by the fused backward and forward kernels: the
 // quadratic cost and its expansion, the AL terms of the structured
-// constraints, and the integrator step with its chain-rule Jacobian.
+// constraints, the integrator step and its tangents, and the staging of
+// the problem descriptor and of device rows into shared memory.
 //
 // Counterparts of _tile_quad / _tile_con_rows / _al_value
 // (altro_tpu/ops/forward_pallas.py:431-532), _tile_quad_expansion /
 // _tile_al_expansion (backward_fused_pallas.py:148-242) and _tile_dyn_step
 // / _tile_dyn_jacobian (forward_pallas.py:361, backward_fused_pallas.py:
-// 244-299), with one lane per thread in place of one (sub, 128) tile.
+// 244-299), with one lane (or one Jacobian column of a lane) per thread in
+// place of one (sub, 128) tile.
 #pragma once
 
 #include "altro_abi.h"
 #include "lane_algebra.cuh"
+#include "models.cuh"
 
 namespace altro {
 
@@ -25,6 +28,16 @@ struct CostRow {
 template <typename T, int n, int m>
 __device__ __forceinline__ const T* cost_row(const T* tab, const AltroCostFam& f, int k) {
   return tab + f.offset + (f.stacked ? (k - f.k0) * CostRow<n, m>::size : 0);
+}
+
+// Q[i][j], R[i][j] of a cost row, read from the upper triangle
+template <typename T, int n, int m>
+__device__ __forceinline__ T quad_Q(const T* cr, int i, int j) {
+  return cr[CostRow<n, m>::Q + (i < j ? i : j) * n + (i < j ? j : i)];
+}
+template <typename T, int n, int m>
+__device__ __forceinline__ T quad_R(const T* cr, int i, int j) {
+  return cr[CostRow<n, m>::R + (i < j ? i : j) * m + (i < j ? j : i)];
 }
 
 // ½xᵀQx + xᵀHu + ½uᵀRu + qᵀx + rᵀu + c of one cost row, reading Q and R's
@@ -57,26 +70,23 @@ __device__ __forceinline__ T quad_value(const T* __restrict__ cr, const T* x, co
   return J;
 }
 
-// gradient and Hessian of quad_value added into lx, lxx (and lu, lxu, luu
-// when u != nullptr)
+// gradient of quad_value added into lx (and lu when u != nullptr)
 template <typename T, int n, int m>
-__device__ __forceinline__ void quad_expand_add(const T* __restrict__ cr, const T* x, const T* u,
-                                                T* lx, T* lu, T* lxx, T* lxu, T* luu) {
+__device__ __forceinline__ void quad_grad_add(const T* __restrict__ cr, const T* x, const T* u,
+                                              T* lx, T* lu) {
   using L = CostRow<n, m>;
 #pragma unroll
   for (int i = 0; i < n; ++i) {
     T g = cr[L::q + i] + cr[L::Q + i * n + i] * x[i];
 #pragma unroll
     for (int j = 0; j < n; ++j) {
-      if (j != i) g += cr[L::Q + (i < j ? i : j) * n + (i < j ? j : i)] * x[j];
+      if (j != i) g += quad_Q<T, n, m>(cr, i, j) * x[j];
     }
     if (u != nullptr) {
 #pragma unroll
       for (int j = 0; j < m; ++j) g += cr[L::H + i * m + j] * u[j];
     }
     lx[i] += g;
-#pragma unroll
-    for (int j = 0; j < n; ++j) lxx[i * n + j] += cr[L::Q + (i < j ? i : j) * n + (i < j ? j : i)];
   }
   if (u == nullptr) return;
 #pragma unroll
@@ -84,18 +94,28 @@ __device__ __forceinline__ void quad_expand_add(const T* __restrict__ cr, const 
     T g = cr[L::r + i] + cr[L::R + i * m + i] * u[i];
 #pragma unroll
     for (int j = 0; j < m; ++j) {
-      if (j != i) g += cr[L::R + (i < j ? i : j) * m + (i < j ? j : i)] * u[j];
+      if (j != i) g += quad_R<T, n, m>(cr, i, j) * u[j];
     }
 #pragma unroll
     for (int j = 0; j < n; ++j) g += cr[L::H + j * m + i] * x[j];
     lu[i] += g;
-#pragma unroll
-    for (int j = 0; j < m; ++j) luu[i * m + j] += cr[L::R + (i < j ? i : j) * m + (i < j ? j : i)];
   }
+}
+
+// rows[fi]: the row of cost family fi if its Hessian enters knot k of the
+// sweep (a stage family over k for k < N, a terminal family for k == N),
+// else nullptr.  Indexed by the family, so unrolled loops over
+// ALTRO_MAX_FAMS keep the pointers in registers.
+template <typename T, int n, int m>
+__device__ __forceinline__ void cost_rows_at(const AltroProblem& pr, const T* tab, int k,
+                                             const T* (&rows)[ALTRO_MAX_FAMS]) {
+  const int N = pr.N;
 #pragma unroll
-  for (int i = 0; i < n; ++i) {
-#pragma unroll
-    for (int j = 0; j < m; ++j) lxu[i * m + j] += cr[L::H + i * m + j];
+  for (int fi = 0; fi < ALTRO_MAX_FAMS; ++fi) {
+    const AltroCostFam& f = pr.cost[fi];
+    const bool on = fi < pr.n_cost &&
+                    (k == N ? f.k1 == N : (f.k0 <= k && k <= (f.k1 < N - 1 ? f.k1 : N - 1)));
+    rows[fi] = on ? cost_row<T, n, m>(tab, f, k) : nullptr;
   }
 }
 
@@ -121,13 +141,14 @@ __device__ __forceinline__ void al_row(int cone, T lam, T rho, T c, T& acc, T& l
 }
 
 // AL value (‖Π(λ−ρc)‖² − ‖λ‖²)/2ρ of one family at one knot; with EXP
-// its gradient and Gauss-Newton Hessian are added into lx, lu, lxx, luu.
-// lam points at the family's first multiplier of this lane, rows `stride`
-// apart; u == nullptr evaluates a control bound at u = 0 (terminal knot).
+// its gradient is added into lx, lu and its Gauss-Newton Hessian, which is
+// diagonal for these structures, into hx, hu.  lam points at the family's
+// first multiplier of this lane, rows `stride` apart; u == nullptr
+// evaluates a control bound at u = 0 (terminal knot).
 template <typename T, int n, int m, bool EXP>
 __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T* u,
                                        const T* lam, long stride, T rho,
-                                       T* lx, T* lu, T* lxx, T* luu) {
+                                       T* lx, T* lu, T* hx, T* hu) {
   T acc = T(0), lam2 = T(0), w, hw;
   if (f.kind == ALTRO_GOAL) {
 #pragma unroll
@@ -135,7 +156,7 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
       al_row(f.cone, lam[i * stride], rho, x[i] - T(f.a[i]), acc, lam2, w, hw);
       if (EXP) {
         lx[i] -= w;
-        lxx[i * n + i] += hw;
+        hx[i] += hw;
       }
     }
   } else {  // ALTRO_CONTROL_BOUND
@@ -147,7 +168,7 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
         al_row(f.cone, lam[r * stride], rho, T(f.a[j]) - uj, acc, lam2, w, hw);
         if (EXP && u != nullptr) {
           lu[j] += w;
-          luu[j * m + j] += hw;
+          hu[j] += hw;
         }
         ++r;
       }
@@ -159,7 +180,7 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
         al_row(f.cone, lam[r * stride], rho, uj - T(f.b[j]), acc, lam2, w, hw);
         if (EXP && u != nullptr) {
           lu[j] -= w;
-          luu[j * m + j] += hw;
+          hu[j] += hw;
         }
         ++r;
       }
@@ -174,95 +195,115 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
 template <typename T, class Model>
 struct DynParams {
   T p[Model::np > 0 ? Model::np : 1];
-  __device__ __forceinline__ explicit DynParams(const AltroProblem* pr) {
+  __device__ __forceinline__ explicit DynParams(const AltroProblem& pr) {
 #pragma unroll
-    for (int i = 0; i < Model::np; ++i) p[i] = T(pr->dyn[i]);
+    for (int i = 0; i < Model::np; ++i) p[i] = T(pr.dyn[i]);
   }
 };
 
-// x_{k+1} of the RK4 (method 0) or explicit Euler (method 1) step
-template <typename T, class Model>
-__device__ __forceinline__ void dyn_step(int method, const T* p, const T* x, const T* u, T t, T h,
-                                         T* xn) {
+// x_{k+1} of the RK4 (method 0) or explicit Euler (method 1) step; S is the
+// scalar T, or Dual<T> for the step's tangent
+template <typename T, class Model, typename S>
+__device__ __forceinline__ void dyn_step(int method, const T* p, const S* x, const S* u, T t, T h,
+                                         S* xn) {
   constexpr int n = Model::n;
-  T k1[n];
-  Model::f(p, x, u, t, k1);
+  S k[n], acc[n], xs[n];
+  Model::f(p, x, u, t, k);
   if (method == 1) {
 #pragma unroll
-    for (int i = 0; i < n; ++i) xn[i] = x[i] + h * k1[i];
+    for (int i = 0; i < n; ++i) xn[i] = x[i] + h * k[i];
     return;
   }
-  T k2[n], k3[n], k4[n], xs[n];
+  // acc = ((k1 + 2k2) + 2k3) + k4, summed as the stages finish so that only
+  // one stage derivative is live at a time
 #pragma unroll
-  for (int i = 0; i < n; ++i) xs[i] = x[i] + T(0.5) * h * k1[i];
-  Model::f(p, xs, u, t + T(0.5) * h, k2);
+  for (int i = 0; i < n; ++i) {
+    acc[i] = k[i];
+    xs[i] = x[i] + T(0.5) * h * k[i];
+  }
+  Model::f(p, xs, u, t + T(0.5) * h, k);
 #pragma unroll
-  for (int i = 0; i < n; ++i) xs[i] = x[i] + T(0.5) * h * k2[i];
-  Model::f(p, xs, u, t + T(0.5) * h, k3);
+  for (int i = 0; i < n; ++i) {
+    acc[i] = acc[i] + T(2) * k[i];
+    xs[i] = x[i] + T(0.5) * h * k[i];
+  }
+  Model::f(p, xs, u, t + T(0.5) * h, k);
 #pragma unroll
-  for (int i = 0; i < n; ++i) xs[i] = x[i] + h * k3[i];
-  Model::f(p, xs, u, t + h, k4);
+  for (int i = 0; i < n; ++i) {
+    acc[i] = acc[i] + T(2) * k[i];
+    xs[i] = x[i] + h * k[i];
+  }
+  Model::f(p, xs, u, t + h, k);
 #pragma unroll
-  for (int i = 0; i < n; ++i) xn[i] = x[i] + h * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]) / T(6);
+  for (int i = 0; i < n; ++i) xn[i] = x[i] + h * (acc[i] + k[i]) / T(6);
 }
 
-// Discrete A [n][n], Bd [n][m] of the step by the chain rule over the four
-// continuous Jacobians (integration.hpp:132-169), built stage by stage so
-// that only one continuous Jacobian is live at a time.
+// Column j of the step's Jacobian [A Bd] (j < n: column j of A; else column
+// j − n of Bd): the tangent of the whole step along e_j, one Dual pass
+// through its stages.  Through the four RK4 stages this is the TPU kernel's
+// chain rule (integration.hpp:132-169) taken one column at a time:
+// dA_s e_j = h·A_s(e_j + c·dA_{s−1} e_j), dB_s e_j = h·(B_s e_j + c·A_s dB_{s−1} e_j).
 template <typename T, class Model>
-__device__ __forceinline__ void dyn_jacobian(int method, const T* p, const T* x, const T* u, T t,
-                                             T h, T* A, T* Bd) {
+__device__ __forceinline__ void dyn_tangent(int method, const T* p, const T* x, const T* u, T t,
+                                            T h, int j, T* col) {
   constexpr int n = Model::n;
   constexpr int m = Model::m;
-  T Ac[n * n], Bc[n * m];
-  Model::jac(p, x, u, t, Ac, Bc);
-  if (method == 1) {
+  Dual<T> xd[n], ud[m], xn[n];
 #pragma unroll
-    for (int i = 0; i < n * n; ++i) A[i] = ((i % (n + 1)) == 0 ? T(1) : T(0)) + h * Ac[i];
+  for (int i = 0; i < n; ++i) xd[i] = Dual<T>(x[i], i == j ? T(1) : T(0));
 #pragma unroll
-    for (int i = 0; i < n * m; ++i) Bd[i] = h * Bc[i];
-    return;
+  for (int i = 0; i < m; ++i) ud[i] = Dual<T>(u[i], n + i == j ? T(1) : T(0));
+  dyn_step<T, Model>(method, p, xd, ud, t, h, xn);
+#pragma unroll
+  for (int i = 0; i < n; ++i) col[i] = xn[i].d;
+}
+
+// ------------------------------------------------------------ staging
+__host__ __device__ constexpr int align16(int bytes) { return (bytes + 15) / 16 * 16; }
+
+// bar.sync on named barrier `id` by `nthreads` threads (a multiple of 32)
+__device__ __forceinline__ void bar_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
+}
+
+// `words` 32-bit words from device to shared memory, by the threads
+// tid = 0 .. nthreads-1 together
+__device__ __forceinline__ void block_copy(void* dst, const void* src, int words, int tid,
+                                           int nthreads) {
+  for (int i = tid; i < words; i += nthreads) {
+    static_cast<int*>(dst)[i] = static_cast<const int*>(src)[i];
   }
-  T kk[n], xs[n], dA[n * n], dB[n * m], M[n * n], tmpA[n * n], tmpB[n * m];
-  // stage 1
-#pragma unroll
-  for (int i = 0; i < n * n; ++i) dA[i] = h * Ac[i];
-#pragma unroll
-  for (int i = 0; i < n * m; ++i) dB[i] = h * Bc[i];
-#pragma unroll
-  for (int i = 0; i < n * n; ++i) A[i] = dA[i];
-#pragma unroll
-  for (int i = 0; i < n * m; ++i) Bd[i] = dB[i];
-  Model::f(p, x, u, t, kk);
-  // stages 2..4: dA_s = h·A_s(I + c·dA_{s-1}), dB_s = h·B_s + c·h·A_s dB_{s-1}
-#pragma unroll
-  for (int s = 2; s <= 4; ++s) {
-    const T c = (s == 4) ? T(1) : T(0.5);
-    const T ts = (s == 4) ? t + h : t + T(0.5) * h;
-#pragma unroll
-    for (int i = 0; i < n; ++i) xs[i] = x[i] + c * h * kk[i];
-    Model::jac(p, xs, u, ts, Ac, Bc);
-    if (s < 4) Model::f(p, xs, u, ts, kk);
-#pragma unroll
-    for (int i = 0; i < n * n; ++i) M[i] = ((i % (n + 1)) == 0 ? T(1) : T(0)) + c * dA[i];
-    mm<T, n, n, n>(Ac, M, tmpA);
-    mm<T, n, n, m>(Ac, dB, tmpB);
-    const T wgt = (s == 4) ? T(1) : T(2);
-#pragma unroll
-    for (int i = 0; i < n * n; ++i) {
-      dA[i] = h * tmpA[i];
-      A[i] += wgt * dA[i];
-    }
-#pragma unroll
-    for (int i = 0; i < n * m; ++i) {
-      dB[i] = h * Bc[i] + c * h * tmpB[i];
-      Bd[i] += wgt * dB[i];
-    }
+}
+
+// The problem descriptor and the cost table's first `tab_smem` entries in
+// shared memory at `desc` and `tab`; returns the table the kernel reads
+// (shared, or device memory when it was not staged).  Ends with a barrier.
+template <typename T>
+__device__ __forceinline__ const T* stage_problem(AltroProblem* desc, T* tab, const AltroProblem* pr,
+                                                  const T* ctab, int tab_smem) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  block_copy(desc, pr, int(sizeof(AltroProblem) / 4), tid, nt);
+  block_copy(tab, ctab, int(tab_smem * sizeof(T) / 4), tid, nt);
+  __syncthreads();
+  return tab_smem > 0 ? tab : ctab;
+}
+
+// cp.async of BYTES (4, 8 or 16) from device to shared memory
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* smem_dst, const void* gmem_src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst), "l"(gmem_src), "n"(BYTES)
+                 : "memory");
   }
-#pragma unroll
-  for (int i = 0; i < n * n; ++i) A[i] = ((i % (n + 1)) == 0 ? T(1) : T(0)) + A[i] / T(6);
-#pragma unroll
-  for (int i = 0; i < n * m; ++i) Bd[i] = Bd[i] / T(6);
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace altro

@@ -1,15 +1,24 @@
 // Dynamics models the fused kernels take, as device functors: the
-// continuous dynamics f(p, x, u, t) and its Jacobians ∂f/∂x, ∂f/∂u, where
-// p holds the model's parameters in the order of the Python model's
-// `cuda_params` (AltroProblem.dyn, converted to the kernel's scalar type).
+// continuous dynamics f(p, x, u, t), where p holds the model's parameters in
+// the order of the Python model's `cuda_params` (AltroProblem.dyn, converted
+// to the kernel's scalar type).  f is written once for any scalar S of the
+// state and controls, so the same code evaluates the model (S = T) and one
+// directional derivative of it (S = Dual<T>).
 //
 // The JAX kernels trace the model's Python function and differentiate it
 // with jax.linearize (backward_fused_pallas.py:259-265); a CUDA kernel
 // cannot, so each model is written here once and named by the Python model
-// (`cuda_model`).  The unicycle's Jacobian is written out by hand; the
-// zoo's models are differentiated in forward mode (`Dual`, one input
-// direction at a time), the same rule as torch.func.jacfwd of the Python
-// model, against which the kernel-vs-plain checks hold them.
+// (`cuda_model`).  The fused backward kernel builds each column of the RK4
+// Jacobian [A Bd] as one tangent (JVP) of the whole step
+// (fused_common.cuh:dyn_tangent), the rule torch.func.jvp applies to the
+// Python model (ops/backward_fused.py:step_jacobian_by_tangents).
+//
+// Each functor states its operation counts, which chip_smoke.py's bounds
+// read through altro_model_ops(): kFOps for one evaluation of f, kJvpOps
+// for one evaluation in Dual (value and one derivative), counting each
+// add, multiply, divide, negate, sin and cos as one operation and the
+// Dual rules as written below (Dual·Dual 4, T·Dual 2, Dual±Dual 2,
+// Dual−T 1, −Dual 2, Dual/Dual 4, Dual/T 2, sin 3, cos 4).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,71 +51,20 @@ struct Dual {
   friend __device__ __forceinline__ Dual cos(Dual a) { return Dual(cos(a.v), -(sin(a.v) * a.d)); }
 };
 
-// A [n][n] = ∂f/∂x, Bc [n][m] = ∂f/∂u (row-major) of Model::f by forward
-// mode, one column per evaluation.
-template <class Model, typename T>
-__device__ __forceinline__ void jac_forward_mode(const T* p, const T* x, const T* u, T t, T* A,
-                                                 T* Bc) {
-  constexpr int n = Model::n;
-  constexpr int m = Model::m;
-  Dual<T> xd[n], ud[m], fd[n];
-#pragma unroll
-  for (int i = 0; i < n; ++i) xd[i] = Dual<T>(x[i]);
-#pragma unroll
-  for (int i = 0; i < m; ++i) ud[i] = Dual<T>(u[i]);
-#pragma unroll
-  for (int j = 0; j < n + m; ++j) {
-    if (j < n) {
-      xd[j].d = T(1);
-    } else {
-      ud[j - n].d = T(1);
-    }
-    Model::f(p, xd, ud, t, fd);
-#pragma unroll
-    for (int i = 0; i < n; ++i) {
-      if (j < n) {
-        A[i * n + j] = fd[i].d;
-      } else {
-        Bc[i * m + (j - n)] = fd[i].d;
-      }
-    }
-    if (j < n) {
-      xd[j].d = T(0);
-    } else {
-      ud[j - n].d = T(0);
-    }
-  }
-}
-
 // Kinematic unicycle (altro_tpu/models/unicycle.py): x = (px, py, θ),
 // u = (v, ω); ẋ = (v cosθ, v sinθ, ω).  No parameters.
 struct Unicycle {
   static constexpr int n = 3;
   static constexpr int m = 2;
   static constexpr int np = 0;
+  static constexpr int kFOps = 4;     // cos, sin, 2 multiplies
+  static constexpr int kJvpOps = 15;  // cos 4, sin 3, 2 Dual·Dual
 
-  template <typename T>
-  __device__ __forceinline__ static void f(const T* /*p*/, const T* x, const T* u, T /*t*/,
-                                           T* xdot) {
+  template <typename T, typename S>
+  __device__ __forceinline__ static void f(const T* /*p*/, const S* x, const S* u, T /*t*/, S* xdot) {
     xdot[0] = u[0] * cos(x[2]);
     xdot[1] = u[0] * sin(x[2]);
     xdot[2] = u[1];
-  }
-
-  template <typename T>
-  __device__ __forceinline__ static void jac(const T* /*p*/, const T* x, const T* u, T /*t*/,
-                                             T* A, T* Bc) {
-    const T c = cos(x[2]);
-    const T s = sin(x[2]);
-#pragma unroll
-    for (int i = 0; i < n * n; ++i) A[i] = T(0);
-#pragma unroll
-    for (int i = 0; i < n * m; ++i) Bc[i] = T(0);
-    A[0 * n + 2] = -(u[0] * s);
-    A[1 * n + 2] = u[0] * c;
-    Bc[0 * m + 0] = c;
-    Bc[1 * m + 0] = s;
-    Bc[2 * m + 1] = T(1);
   }
 };
 
@@ -116,6 +74,8 @@ struct Cartpole {
   static constexpr int n = 4;
   static constexpr int m = 1;
   static constexpr int np = 4;
+  static constexpr int kFOps = 26;
+  static constexpr int kJvpOps = 68;
 
   template <typename T, typename S>
   __device__ __forceinline__ static void f(const T* p, const S* x, const S* u, T /*t*/, S* xdot) {
@@ -131,12 +91,6 @@ struct Cartpole {
     xdot[2] = pddot;
     xdot[3] = thddot;
   }
-
-  template <typename T>
-  __device__ __forceinline__ static void jac(const T* p, const T* x, const T* u, T t, T* A,
-                                             T* Bc) {
-    jac_forward_mode<Cartpole>(p, x, u, t, A, Bc);
-  }
 };
 
 // Quadrotor (altro_tpu/models/quadrotor.py): x = (position 3, unit
@@ -146,6 +100,8 @@ struct Quadrotor {
   static constexpr int n = 13;
   static constexpr int m = 4;
   static constexpr int np = 8;
+  static constexpr int kFOps = 81;
+  static constexpr int kJvpOps = 213;
 
   template <typename T, typename S>
   __device__ __forceinline__ static void f(const T* p, const S* x, const S* u, T /*t*/, S* xdot) {
@@ -183,12 +139,6 @@ struct Quadrotor {
     xdot[10] = (tau[0] - (w[1] * Jw[2] - w[2] * Jw[1])) / J[0];
     xdot[11] = (tau[1] - (w[2] * Jw[0] - w[0] * Jw[2])) / J[1];
     xdot[12] = (tau[2] - (w[0] * Jw[1] - w[1] * Jw[0])) / J[2];
-  }
-
-  template <typename T>
-  __device__ __forceinline__ static void jac(const T* p, const T* x, const T* u, T t, T* A,
-                                             T* Bc) {
-    jac_forward_mode<Quadrotor>(p, x, u, t, A, Bc);
   }
 };
 

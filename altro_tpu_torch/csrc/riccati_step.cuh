@@ -1,6 +1,7 @@
-// One knot of the Riccati backward sweep for one batch lane, shared by the
-// stand-alone sweep (riccati.cu) and the fused backward kernel
-// (backward_fused.cu).
+// One knot of the Riccati backward sweep for one batch lane on one thread,
+// the stand-alone sweep's (riccati.cu).  The fused backward kernel
+// (backward_fused.cu:sweep_knot_group) runs the same statements, in the
+// same order, on a group of threads per lane.
 //
 // Counterpart of the step body of altro_tpu/ops/riccati_pallas.py:_kernel
 // (:138-178), which backward_fused_pallas.py reuses the same way: the Q

@@ -61,13 +61,17 @@ class Problem(ctypes.Structure):
     ]
 
 
+class Geometry(ctypes.Structure):
+    _fields_ = [(name, _int) for name in ("lanes", "knots", "group", "threads", "smem", "tab_smem")]
+
+
 class BackwardArgs(ctypes.Structure):
     _fields_ = [
         (name, _ptr) for name in (
             "cost_tab", "t", "h", "X", "U", "rho", "lam", "lam_rho", "lamT", "lamT_rho",
             "K", "d", "dV1", "dV2", "J0", "failed",
         )
-    ] + [(name, _int) for name in ("B", "Ps", "Fs", "Pt", "Ft")]
+    ] + [(name, _int) for name in ("B", "Ps", "Fs", "Pt", "Ft")] + [("geo", Geometry)]
 
 
 class ForwardArgs(ctypes.Structure):
@@ -76,7 +80,9 @@ class ForwardArgs(ctypes.Structure):
             "cost_tab", "t", "h", "x0", "alpha", "X", "U", "K", "d",
             "lam", "lam_rho", "lamT", "lamT_rho", "Xn", "Ubar", "J", "valid", "status",
         )
-    ] + [(name, _int) for name in ("B", "Ps", "Fs", "Pt", "Ft", "check_bounds")]
+    ] + [(name, _int) for name in ("B", "Ps", "Fs", "Pt", "Ft", "check_bounds", "chain_only")] + [
+        ("geo", Geometry)
+    ]
 
 
 class RiccatiArgs(ctypes.Structure):
@@ -110,6 +116,13 @@ class KernelLibrary:
         self.lib = lib
         self.build_seconds = build_seconds
         self.build_log = build_log
+
+    def model_ops(self) -> dict:
+        """model -> (operations of one f, of one f in Dual): the counts
+        written beside each functor in csrc/models.cuh."""
+        out = (ctypes.c_int * (2 * len(FUSED_MODELS)))()
+        self.lib.altro_model_ops(ctypes.addressof(out))
+        return {name: (out[2 * i], out[2 * i + 1]) for i, name in enumerate(FUSED_MODELS)}
 
     def launch(self, name: str, args: ctypes.Structure, *ptrs: int) -> None:
         """Call one entry point with its args struct and the device
@@ -193,8 +206,9 @@ def load() -> KernelLibrary:
     """Build if needed, load, declare the C signatures and check the ABI."""
     path, seconds, log = build()
     lib = ctypes.CDLL(str(path))
-    lib.altro_abi_sizes.argtypes = [_ptr]
-    lib.altro_abi_sizes.restype = None
+    for name in ("altro_abi_sizes", "altro_model_ops"):
+        getattr(lib, name).argtypes = [_ptr]
+        getattr(lib, name).restype = None
     for name, nargs in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = [_ptr] * nargs  # args (host), [problem (device),] stream

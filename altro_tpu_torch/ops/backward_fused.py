@@ -1,21 +1,29 @@
 """Fused expansion + Riccati backward kernel (CUDA, `csrc/backward_fused.cu`).
 
 Replaces the TPU kernel `altro_tpu/ops/backward_fused_pallas.py:
-BackwardFusedKernel` (body `_make_kernel`, :302-531).  One thread per batch
-lane sweeps the horizon backwards with the cost-to-go carry in registers,
-building the cost, AL and RK4 expansions at each knot instead of reading
-materialized [N,·,·,B] tensors, and Kahan-sums the trajectory's AL cost J0
-on the way.  What bounds it on the H100 is per-lane arithmetic and
-registers, not bytes (the source note in `csrc/backward_fused.cu` gives the
-numbers); one thread per lane keeps every carry in registers and every load
-coalesced, at the price of a grid too small to fill the card at B=4096.
+BackwardFusedKernel` (body `_make_kernel`, :302-531).  Per lane it sweeps
+the horizon backwards, building the cost, AL and RK4 expansions at each
+knot instead of reading materialized [N,·,·,B] tensors, and Kahan-sums the
+trajectory's AL cost J0 on the way.
+
+What bounds it on the H100 is the dependent chain of each lane's sweep,
+not bytes or operations (`csrc/backward_fused.cu` gives the numbers).  So
+a block of LANES lanes splits its threads: producer warps build the next
+chunk of knots' expansions in parallel (each Jacobian column one tangent
+of the RK4 step, `step_jacobian_by_tangents` below is that arithmetic in
+torch) while consumer warps run the sweep over the chunk before, a group
+of threads per lane (one per row of the carry, which lives in shared
+memory).  `geometry` chooses the launch (`Geometry`,
+`csrc/altro_abi.h:AltroGeometry`) so that B >= 2048 fills the card's 132
+multiprocessors; the kernel checks the shared-memory layout it is given
+against its own.
 
 The kernel is specialised at build time to the model (a device functor
 named by the model's `cuda_model`), the scalar type and n, m; quadratic
-costs and goal / control-bound constraints arrive as batch-shared scalars.
-Any other structure raises `Ineligible` when the wrapper is built, and the
-solver then runs the eager passes — a decision made once, from the
-problem's structure.
+costs and goal / control-bound constraints arrive as batch-shared scalars
+in a problem descriptor.  Any other structure raises `Ineligible` when the
+wrapper is built, and the solver then runs the eager passes — a decision
+made once, from the problem's structure.
 
 Beside the kernel: its plain PyTorch version (`plain`, the eager
 `expand` + `riccati_scan` + `total_cost` composition), which the wrapper
@@ -24,6 +32,7 @@ tensors the wrapper launches the kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
@@ -42,6 +51,98 @@ CUDA_MODELS = {
     "quadrotor": (13, 4, ("mass", "J", "gravity", "kf", "km", "arm_length")),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+# The launch geometry of the fused kernels on the H100 (csrc/altro_abi.h:
+# AltroGeometry).  Blocks of LANES lanes, so that B=2048 launches 256 blocks
+# on the card's SMS multiprocessors; the backward kernel adds PRODUCERS
+# threads that build the expansions beside the sweep's threads (a group per
+# lane, `sweep_group`); the forward kernel has two
+# warps, the lanes' rollouts and their cost terms with the input staging.  Knots per pipeline chunk, per model, in float32 and
+# float64: as many as keep a block's shared memory small enough for
+# several blocks per multiprocessor.
+SMS = 132
+SMEM_MAX = 232_448  # dynamic shared memory one block may use on the H100, bytes
+TABLE_SMEM = 16_384  # the largest cost table staged in shared memory, bytes
+LANES = 8
+PRODUCERS = 128
+FWD_THREADS = 64
+KNOTS = {  # kernel -> model -> knots per chunk in (float32, float64)
+    "backward_fused": dict(unicycle=(16, 8), cartpole=(16, 8), quadrotor=(4, 4)),
+    "forward": dict(unicycle=(16, 16), cartpole=(16, 16), quadrotor=(8, 8)),
+}
+
+
+def _align16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def sweep_group(n: int) -> int:
+    """Threads per lane in the backward sweep, one per row and one more,
+    rounded up to a power of two (csrc/backward_fused.cu:BwdLayout::G)."""
+    return 4 if n < 4 else 8 if n < 8 else 16
+
+
+def backward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int) -> int:
+    """Bytes of csrc/backward_fused.cu:BwdLayout: descriptor, cost table,
+    the chunk's x, u, two expansion buffers, the cooperative sweep's
+    scratch."""
+    slot = (n * n + n * m + 2 * n + 2 * m + 2 * _build.MAX_FAMS) | 1
+    scratch = 2 * n * n + n + 2 * n * m + m * m + 2 * m
+    return (
+        _align16(ctypes.sizeof(_build.Problem)) + _align16(tab_smem * itemsize)
+        + _align16(knots * lanes * (n + m) * itemsize) + _align16(2 * knots * lanes * slot * itemsize)
+        + _align16(lanes * scratch * itemsize)
+    )
+
+
+def forward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int,
+                 Ps: int, Fs: int) -> int:
+    """Bytes of csrc/forward.cu:FwdLayout: descriptor, cost table, two
+    stages of knots × (x, u, K, d, λ, ρ rows) × lanes, two trails of knots
+    × (x, ū) × lanes and x_N."""
+    rows = n + 2 * m + m * n + Ps + Fs
+    return (
+        _align16(ctypes.sizeof(_build.Problem)) + _align16(tab_smem * itemsize)
+        + _align16(2 * knots * rows * lanes * itemsize)
+        + _align16((2 * knots * (n + m) + n) * lanes * itemsize)
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch's geometry: `blocks` blocks of `threads` threads, each
+    owning `lanes` batch lanes, pipelined over chunks of `knots` knots, with
+    `smem` bytes of dynamic shared memory, of which the cost table's first
+    `tab_smem` entries (all of it, or 0 when it does not fit)."""
+
+    lanes: int
+    knots: int
+    group: int
+    threads: int
+    smem: int
+    tab_smem: int
+    blocks: int
+
+    def abi(self) -> _build.Geometry:
+        return _build.Geometry(
+            lanes=self.lanes, knots=self.knots, group=self.group, threads=self.threads,
+            smem=self.smem, tab_smem=self.tab_smem,
+        )
+
+
+def step_jacobian_by_tangents(model, x, u, t, h) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A [n,n], Bd [n,m]) of one instance's discrete step (x [n], u [m]),
+    column by column as the fused backward kernel builds them
+    (csrc/fused_common.cuh:dyn_tangent): column j is the tangent of the
+    whole step along e_j of (x, u), `torch.func.jvp` of `model`'s step."""
+    n, m = x.shape[0], u.shape[0]
+    cols = []
+    for j in range(n + m):
+        e = torch.zeros(n + m, dtype=x.dtype, device=x.device)
+        e[j] = 1.0
+        cols.append(torch.func.jvp(lambda xx, uu: model(xx, uu, t, h), (x, u), (e[:n], e[n:]))[1])
+    AB = torch.stack(cols, dim=1)
+    return AB[:, :n], AB[:, n:]
 
 
 class Ineligible(Exception):
@@ -78,8 +179,10 @@ class PaddedAL:
 
 
 class FusedKernel:
-    """Eligibility, problem descriptor and AL packing shared by the fused
-    backward and forward kernels."""
+    """Eligibility, problem descriptor, AL packing and launch geometry
+    shared by the fused backward and forward kernels."""
+
+    KIND = ""  # the kernel's entry-point prefix: "backward_fused" or "forward"
 
     def __init__(self, prob, opts, *, dtype=torch.float32, device="cuda"):
         self.prob = prob
@@ -142,6 +245,8 @@ class FusedKernel:
         if len(self._cost_fams) > _build.MAX_FAMS or len(self._con_fams) > _build.MAX_FAMS:
             raise Ineligible("more families than the descriptor holds")
         self.Ps, self.Fs, self.Pt, self.Ft = Ps, Fs, Pt, Ft
+        self._itemsize = torch.finfo(dtype).bits // 8
+        self._knots = KNOTS[self.KIND][model.cuda_model][0 if dtype == torch.float32 else 1]
         # launches of the CUDA kernel (never of the plain version)
         self.launches = 0
         self._desc_key = None
@@ -174,12 +279,29 @@ class FusedKernel:
         return PaddedAL(lam, rho, lamT, rhoT, tuple(al))
 
     # ------------------------------------------------------ problem descriptor
+    def _shared_runs(self, k0, k1, stacked, rows):
+        """A cost family (knots k0..k1, its rows [knots or 1, row]) as the
+        kernels' families: a stacked family whose rows are all equal becomes
+        one shared row, and one whose stage rows are equal and end at the
+        terminal knot becomes two shared families, the stage knots and the
+        terminal knot (the usual stage + terminal LQR cost, grouped into one
+        family because both use the same function).  Either way the kernels
+        add the same terms to J in the same order: the terminal-only family
+        is skipped at the stage knots and the stage family at the terminal
+        knot, as the one family was."""
+        if stacked and bool((rows == rows[:1]).all()):
+            return [(k0, k1, False, rows[:1])]
+        N = self.N
+        if stacked and k1 == N and k0 <= N - 1 and bool((rows[:-1] == rows[:1]).all()):
+            return [(k0, N - 1, False, rows[:1]), (N, N, False, rows[-1:])]
+        return [(k0, k1, stacked, rows)]
+
     def _problem_desc(self, params) -> tuple[torch.Tensor, torch.Tensor]:
         """The problem's params on the device: `csrc/altro_abi.h:AltroProblem`
         as bytes, and the cost table in the kernel's scalar type (one row per
-        knot of a stacked cost family, one per shared family).  Rebuilt only
-        when `params` carries other cost, constraint or dynamics data than
-        the last call."""
+        knot of a stacked cost family, one per shared family; see
+        `_shared_runs`).  Rebuilt only when `params` carries other cost,
+        constraint or dynamics data than the last call."""
         key = (params.costs, params.constraints, params.dynamics)
         if self._desc_key is not None and all(a is b for a, b in zip(key, self._desc_key)):
             return self._desc
@@ -187,7 +309,7 @@ class FusedKernel:
         o = self.opts
         d = _build.Problem()
         d.N, d.method = self.N, self.method
-        d.n_cost, d.n_con = len(self._cost_fams), len(self._con_fams)
+        d.n_con = len(self._con_fams)
         d.gain_limit = float(o.bp_gain_limit)
         d.state_max2 = float(o.state_max) ** 2
         d.control_max2 = float(o.control_max) ** 2
@@ -204,18 +326,24 @@ class FusedKernel:
                 raise ValueError(f"{dyn.numel()} dynamics params; the descriptor holds {_build.NDYN}")
             d.dyn[: dyn.numel()] = dyn.tolist()
 
-        rows, offset = [], 0
-        for i, f in enumerate(self._cost_fams):
+        fams, runs = [], []
+        for f in self._cost_fams:
             cp = params.costs[f["fi"]]
             nk = f["k1"] - f["k0"] + 1 if f["stacked"] else 1
             parts = [
                 host(cp[name], nk * size).reshape(nk, size)
                 for name, size in (("Q", n * n), ("R", m * m), ("H", n * m), ("q", n), ("r", m), ("c", 1))
             ]
-            rows.append(torch.cat(parts, dim=1).reshape(-1))
-            c = d.cost[i]
-            c.k0, c.k1, c.stacked, c.offset = f["k0"], f["k1"], int(f["stacked"]), offset
-            offset += rows[-1].numel()
+            fam = (f["k0"], f["k1"], f["stacked"], torch.cat(parts, dim=1))
+            fams.append(fam)
+            runs.extend(self._shared_runs(*fam))
+        if len(runs) <= _build.MAX_FAMS:
+            fams = runs
+        d.n_cost = len(fams)
+        offset = 0
+        for c, (k0, k1, stacked, rows) in zip(d.cost, fams):
+            c.k0, c.k1, c.stacked, c.offset = k0, k1, int(stacked), offset
+            offset += rows.numel()
         for i, f in enumerate(self._con_fams):
             cp = params.constraints[f["fi"]]
             c = d.con[i]
@@ -236,7 +364,7 @@ class FusedKernel:
                 c.a[:m] = host(cp["lb"], m).tolist()
                 c.b[:m] = host(cp["ub"], m).tolist()
         raw = torch.frombuffer(bytearray(bytes(d)), dtype=torch.uint8)
-        table = torch.cat(rows) if rows else torch.zeros(1, dtype=torch.float64)
+        table = torch.cat([f[3].reshape(-1) for f in fams]) if fams else torch.zeros(1, dtype=torch.float64)
         self._desc = (raw.to(self.device), table.to(self.device, self.dtype))
         self._desc_key = key
         return self._desc
@@ -287,8 +415,20 @@ class FusedKernel:
         self._check("lamT", al_pad.lamT, (self.Pt, B))
         self._check("rhoT", al_pad.rhoT, (self.Ft, B))
 
-    def _entry(self, kind: str) -> str:
-        return f"altro_{kind}_{self.model_name}_{_SUFFIX[self.dtype]}"
+    def _geometry(self, B: int, params, threads: int, group: int, smem) -> Geometry:
+        """The geometry at batch width B for `params` (the problem's own when
+        None): the cost table staged in shared memory when it holds at most
+        TABLE_SMEM bytes; `smem(tab_smem)` is the kernel's layout size."""
+        tab = self._problem_desc(self.prob.params if params is None else params)[1].numel()
+        if tab * self._itemsize > TABLE_SMEM:
+            tab = 0
+        return Geometry(
+            lanes=LANES, knots=self._knots, group=group, threads=threads, smem=smem(tab),
+            tab_smem=tab, blocks=-(-B // LANES),
+        )
+
+    def _entry(self) -> str:
+        return f"altro_{self.KIND}_{self.model_name}_{_SUFFIX[self.dtype]}"
 
     @staticmethod
     def _stream(t: torch.Tensor) -> int:
@@ -299,6 +439,18 @@ class BackwardFusedKernel(FusedKernel):
     """`__call__(params, al_pad, Z, rho)` returns
     `(K [N,m,n,B], d [N,m,B], dV1 [B], dV2 [B], failed [B] bool, J0 [B])`,
     equal to `expand` + `riccati_scan` + `total_cost` up to rounding."""
+
+    KIND = "backward_fused"
+
+    def geometry(self, B: int, params=None) -> Geometry:
+        """The launch geometry at batch width B: consumer warps (a group of
+        `sweep_group(n)` threads per lane) and PRODUCERS producer threads."""
+        n, m, g = self.n, self.m, sweep_group(self.n)
+        threads = -(-LANES * g // 32) * 32 + PRODUCERS
+        return self._geometry(
+            B, params, threads, g,
+            lambda tab: backward_smem(n, m, self._itemsize, LANES, self._knots, tab),
+        )
 
     def plain(self, params, al_pad: PaddedAL, Z, rho):
         """The plain PyTorch version of the kernel."""
@@ -330,9 +482,10 @@ class BackwardFusedKernel(FusedKernel):
             lamT=_ptr(al_pad.lamT), lamT_rho=_ptr(al_pad.rhoT),
             K=_ptr(K), d=_ptr(d), dV1=_ptr(dV1), dV2=_ptr(dV2), J0=_ptr(J0),
             failed=_ptr(failed), B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
+            geo=self.geometry(B, params).abi(),
         )
         with torch.cuda.device(Z.X.device):
-            lib.launch(self._entry("backward_fused"), args, desc.data_ptr(), self._stream(Z.X))
+            lib.launch(self._entry(), args, desc.data_ptr(), self._stream(Z.X))
         self.launches += 1
         return K, d, dV1, dV2, failed != 0, J0
 

@@ -6,21 +6,28 @@ runs a whole line-search try: the feedback control, the stage cost and AL
 terms, the RK4 step and the divergence guard at each knot, then the
 terminal terms, with the state carry in registers and J Kahan-summed.  With
 α = 0 and K = d = 0 (and `check_bounds=False`) it is the open-loop rollout
-that starts each inner solve.  What bounds it on the H100 is per-lane
-arithmetic and latency (numbers in `csrc/forward.cu`); the streamed bytes
-are small.
+that starts each inner solve.
 
-Eligibility, the problem descriptor and `pad_al` are shared with the
-backward kernel (`ops/backward_fused.py:FusedKernel`).  Beside the kernel:
-its plain PyTorch version (`plain`: `closed_loop_rollout` + `total_cost`),
-which the wrapper runs only for CPU tensors, and a launch counter.
+What bounds it on the H100 is the latency of each lane's chain (numbers in
+`csrc/forward.cu`); the streamed bytes are small.  A block owns LANES
+lanes: one warp runs their chains over a chunk of knots from shared
+memory, while the other adds the previous chunk's cost terms, off the
+chain, and copies the next chunk's inputs in with cp.async.  B >= 2048
+fills the card's 132 multiprocessors (`geometry`).  `chain_only=True`
+times the chain alone.
+
+Eligibility, the problem descriptor, `pad_al` and the geometry's
+bookkeeping are shared with the backward kernel
+(`ops/backward_fused.py:FusedKernel`).  Beside the kernel: its plain
+PyTorch version (`plain`: `closed_loop_rollout` + `total_cost`), which the
+wrapper runs only for CPU tensors, and a launch counter.
 """
 from __future__ import annotations
 
 import torch
 
 from . import _build
-from .backward_fused import FusedKernel, Ineligible, PaddedAL, _ptr
+from .backward_fused import FWD_THREADS, LANES, FusedKernel, Geometry, Ineligible, PaddedAL, _ptr, forward_smem
 
 __all__ = ["ForwardKernel", "Ineligible"]
 
@@ -29,6 +36,17 @@ class ForwardKernel(FusedKernel):
     """`__call__(params, al_pad, Z, K, d, alpha, check_bounds=)` returns
     `(Xnext [N,n,B], Ubar [N,m,B], J [B], valid [B] bool, status [B] int32)`,
     equal to `closed_loop_rollout` + `total_cost` up to rounding."""
+
+    KIND = "forward"
+
+    def geometry(self, B: int, params=None) -> Geometry:
+        """The launch geometry at batch width B: two warps per block, the
+        first LANES threads of each running the lanes' rollouts and their
+        cost terms."""
+        n, m, item, knots, Ps, Fs = self.n, self.m, self._itemsize, self._knots, self.Ps, self.Fs
+        return self._geometry(
+            B, params, FWD_THREADS, 1, lambda tab: forward_smem(n, m, item, LANES, knots, tab, Ps, Fs)
+        )
 
     @staticmethod
     def _alpha(alpha, Z) -> torch.Tensor:
@@ -42,8 +60,14 @@ class ForwardKernel(FusedKernel):
         J = ev.total_cost(params, al_pad.al, Zbar)
         return Zbar.X[1:], Zbar.U, J, valid, status
 
-    def __call__(self, params, al_pad: PaddedAL, Z, K, d, alpha, *, check_bounds=True):
+    def __call__(self, params, al_pad: PaddedAL, Z, K, d, alpha, *, check_bounds=True,
+                 chain_only=False):
+        """`chain_only` times the rollout's chain alone: the kernel replays
+        its first chunk of inputs for every chunk, so the outputs are wrong
+        (csrc/forward.cu); the plain version has no such mode."""
         if self._use_plain(Z.X):
+            if chain_only:
+                raise ValueError("chain_only exists only for the CUDA kernel")
             return self.plain(params, al_pad, Z, K, d, alpha, check_bounds=check_bounds)
         N, n, m = self.N, self.n, self.m
         B = Z.X.shape[-1]
@@ -74,9 +98,10 @@ class ForwardKernel(FusedKernel):
             lamT=_ptr(al_pad.lamT), lamT_rho=_ptr(al_pad.rhoT),
             Xn=_ptr(Xn), Ubar=_ptr(Ubar), J=_ptr(J), valid=_ptr(valid), status=_ptr(status),
             B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
-            check_bounds=int(bool(check_bounds)),
+            check_bounds=int(bool(check_bounds)), chain_only=int(bool(chain_only)),
+            geo=self.geometry(B, params).abi(),
         )
         with torch.cuda.device(Z.X.device):
-            lib.launch(self._entry("forward"), args, desc.data_ptr(), self._stream(Z.X))
+            lib.launch(self._entry(), args, desc.data_ptr(), self._stream(Z.X))
         self.launches += 1
         return Xn, Ubar, J, valid != 0, status

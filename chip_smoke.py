@@ -26,9 +26,14 @@ in parallel), then:
   6. checks the fused kernels against their plain versions at the zoo's
      shapes, and drives the model zoo (perf/benchmark_zoo.py) through them:
      quadrotor and cartpole fleets (B=2048) held against the plain path;
-  7. traces one solve of each parking path with torch.profiler: device
+  7. times each fused kernel instance in f32 against the batch width
+     (kernel_scaling: parking, cartpole and quadrotor at B = 1024, 2048,
+     4096 and 16384, with the forward kernel's chain alone beside it);
+  8. traces one solve of each parking path with torch.profiler: device
      time, busy share, the largest device events.
-Each phase prints one JSON line.  The last lines are the card's name and
+Each phase prints one JSON line.  `--phase NAME` (repeatable) runs only the
+named phases after the build, for measuring, and then prints the card but
+no kernel summary or result line.  The last lines are the card's name and
 power limit (nvidia-smi), the kernel summary, and
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or when any check
 fails, it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -68,6 +73,8 @@ ZOO_OPT_KW = dict(
     initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
     outer_constraints_f64=True,
 )
+SCALING_B = (1024, 2048, 4096, 16384)  # batch widths of the kernel_scaling phase
+SCALING_REPS = 10
 GOLDEN_J = 0.03893465058924039  # auglag_test.cpp:346-349 (tol 1e-6 solve)
 # H100 SXM peaks (NVIDIA data sheet): memory, and non-tensor-core FP rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -167,33 +174,47 @@ def riccati_work(N, n, m, B, itemsize) -> tuple[float, float]:
     return B * ((read + write) * itemsize + 4), float(N * B * riccati_step_flops(n, m))
 
 
-def fused_work(prob, B, itemsize, Ps, Fs, Pt, Ft) -> tuple[float, float]:
+def model_ops(kern) -> tuple[int, int]:
+    """(operations of one f, of one f in Dual) of the kernel's model, as
+    csrc/models.cuh counts them (read from the built library)."""
+    from altro_tpu_torch.ops import _build
+
+    return _build.load().model_ops()[kern.model_name]
+
+
+def fused_work(kern, B, itemsize) -> tuple[float, float]:
     """(bytes, flops) of one fused backward launch: per lane it reads X, U,
     the packed AL state and ρ and writes K, d, ΔV1, ΔV2, J0 and the flags;
-    per knot it builds the quadratic-cost and AL expansions and the RK4
-    chain rule, then one Riccati step.  The model's own function and
-    Jacobian evaluations are not counted, so the operations bound is a
-    lower bound."""
-    N, n, m = prob.N, prob.n, prob.m
+    per knot the quadratic cost's value and gradient, its Hessian from the
+    cost rows, the AL rows, the n+m tangents of the RK4 step (four model
+    evaluations in Dual each, csrc/models.cuh's count, and the step's own
+    arithmetic on Duals, 31 operations per state entry), and one Riccati
+    step."""
+    N, n, m = kern.N, kern.n, kern.m
+    Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
+    jvp = model_ops(kern)[1]
     read = (N + 1) * n + N * m + N * (Ps + Fs) + Pt + Ft + 1
     write = N * (m * n + m) + 3
     quad = 2 * _mm_flops(n, n, 1) + 2 * _mm_flops(n, m, 1) + 2 * _mm_flops(m, m, 1) + 6 * (n + m)
     hess = n * n + n * m + m * m
     al = 8 * Ps
-    rk4 = 3 * (_mm_flops(n, n, n) + _mm_flops(n, n, m)) + 12 * (n * n + n * m)
-    per_knot = quad + hess + al + rk4 + riccati_step_flops(n, m)
+    tangents = (n + m) * (4 * jvp + 31 * n)
+    per_knot = quad + hess + al + tangents + riccati_step_flops(n, m)
     return B * ((read + write) * itemsize + 4), float(N * B * per_knot)
 
 
-def forward_work(prob, B, itemsize, Ps, Fs, Pt, Ft) -> tuple[float, float]:
+def forward_work(kern, B, itemsize) -> tuple[float, float]:
     """(bytes, flops) of one forward launch: per lane it reads x0, α, X, U,
     K, d and the packed AL state and writes X̄, Ū, J and two int32 flags;
-    per knot the feedback law, the RK4 combination, the cost and AL value
-    and the guard.  The model's own evaluations are not counted."""
-    N, n, m = prob.N, prob.n, prob.m
+    per knot the feedback law, the RK4 step (four model evaluations,
+    csrc/models.cuh's count, and 17 operations per state entry), the cost
+    and AL value and the guard."""
+    N, n, m = kern.N, kern.n, kern.m
+    Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
+    f = model_ops(kern)[0]
     read = n + 1 + (N + 1) * n + N * m + N * (m * n + m) + N * (Ps + Fs) + Pt + Ft
     write = N * (n + m) + 1
-    per_knot = (_mm_flops(m, n, 1) + n + 3 * m + 14 * n
+    per_knot = (_mm_flops(m, n, 1) + n + 3 * m + 4 * f + 17 * n
                 + 2 * (n * n + n * m + m * m) + 4 * (n + m) + 6 * Ps + 2 * (n + m))
     return B * ((read + write) * itemsize + 8), float(N * B * per_knot)
 
@@ -325,16 +346,15 @@ def phase_kernels(dev) -> dict:
         emit({"phase": "kernel_vs_plain", "dtype": tag, "N": N, "B": B,
               "backward_fused": errs_b, "forward": errs_f, **times})
         item = torch.finfo(dtype).bits // 8
-        pack = (bk.Ps, bk.Fs, bk.Pt, bk.Ft)
         summary["backward_fused"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_b.values() for k in ("K", "d")),
             ms=times["backward_ms"], plain_ms=times["backward_plain_ms"],
-            work=fused_work(prob, B, item, *pack),
+            work=fused_work(bk, B, item),
         )
         summary["forward"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_f.values() for k in ("Xn", "Ubar")),
             ms=times["forward_ms"], plain_ms=times["forward_plain_ms"],
-            work=forward_work(prob, B, item, *pack),
+            work=forward_work(fk, B, item),
         )
     return summary
 
@@ -836,8 +856,7 @@ def phase_fused_zoo_vs_plain(dev) -> None:
                 forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 10),
                 forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
             )
-            pack = (bk.Ps, bk.Fs, bk.Pt, bk.Ft)
-            wb, wf = fused_work(prob, B, item, *pack), forward_work(prob, B, item, *pack)
+            wb, wf = fused_work(bk, B, item), forward_work(fk, B, item)
             emit({"phase": "fused_zoo_vs_plain", "problem": name, "dtype": tag, "n": prob.n, "m": prob.m,
                   "N": prob.N, "B": B, "backward_fused": errs_b, "forward": errs_f, **times,
                   "backward_bound": bound(*wb, tag), "forward_bound": bound(*wf, tag)})
@@ -938,6 +957,73 @@ def phase_zoo(dev) -> dict:
     return launches
 
 
+def scaling_fleet(name, B, dev):
+    """The f32 problem, fleet trajectory (rolled out from the instance's own
+    start) and warm AL state of one fused-kernel instance at B lanes:
+    parking N=100 (x0 in ±0.1), or the zoo's quadrotor N=50 or cartpole N=60
+    (x0 spread 0.05)."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    dtype = torch.float32
+    rng = np.random.default_rng(0)
+    if name == "parking":
+        defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+        prob, Z0 = defn.make_problem().compile(), defn.initial_trajectory()
+        x0s = torch.as_tensor(rng.uniform(-0.1, 0.1, (3, B)), device=dev).to(dtype)
+    else:
+        prob, Z0, x0, _ = (zoo_quadrotor if name == "quadrotor" else zoo_cartpole)(dtype=dtype, device=dev)
+        x0s = zoo_x0s(x0, B, rng).to(dtype)
+    ev = ALSolverBatched(prob, SolverOptions())
+    params = prob.params.replace(x0=x0s)
+    return prob, params, ev.rollout(params, replicate(Z0, B)), warm_al(ev, B, dtype, dev, rng)
+
+
+def phase_kernel_scaling(dev) -> None:
+    """Each fused kernel instance in f32 against the batch width: parking
+    (N=100), cartpole (N=60) and quadrotor (N=50) at B in SCALING_B, timed
+    with CUDA events (median of SCALING_REPS launches).  The backward kernel
+    runs at the instance's largest f32 ρ, the forward kernel rolls out the
+    gains it returned with α = 1, and once more with `chain_only` (its
+    inputs replayed from shared memory: the time of the rollout's chain
+    alone, the floor of its design).  Per launch: ms, µs per knot and the
+    grid the wrapper launches.  A time flat in B is a latency-bound chain;
+    one that grows with B has filled the card."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
+    from altro_tpu_torch.ops.forward import ForwardKernel
+
+    for name in ("parking", "cartpole", "quadrotor"):
+        for B in SCALING_B:
+            prob, params, Zb, al = scaling_fleet(name, B, dev)
+            bk = BackwardFusedKernel(prob, SolverOptions(), dtype=torch.float32, device=dev)
+            fk = ForwardKernel(prob, SolverOptions(), dtype=torch.float32, device=dev)
+            ap = bk.pad_al(al)
+            rho = torch.full((B,), tol.RHOS["f32"][name][-1], dtype=torch.float32, device=dev)
+            a1 = torch.ones((B,), dtype=torch.float32, device=dev)
+            K, d = bk(params, ap, Zb, rho)[:2]
+            ms_b = cuda_ms(lambda: bk(params, ap, Zb, rho), SCALING_REPS)
+            ms_f = cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), SCALING_REPS)
+            ms_chain = cuda_ms(lambda: fk(params, ap, Zb, K, d, a1, chain_only=True), SCALING_REPS)
+            gb, gf = bk.geometry(B, params), fk.geometry(B, params)
+            emit(dict(
+                phase="kernel_scaling", problem=name, N=prob.N, B=B,
+                backward_bound=bound(*fused_work(bk, B, 4), "f32"),
+                forward_bound=bound(*forward_work(fk, B, 4), "f32"),
+                backward_ms=ms_b, backward_us_per_knot=ms_b * 1e3 / prob.N,
+                backward_blocks=gb.blocks, backward_threads=gb.threads, backward_smem=gb.smem,
+                forward_ms=ms_f, forward_us_per_knot=ms_f * 1e3 / prob.N,
+                forward_chain_ms=ms_chain, forward_blocks=gf.blocks, forward_threads=gf.threads,
+                forward_smem=gf.smem,
+            ))
+
+
 def phase_profile(dev) -> None:
     """Where the time of one parking-fleet solve goes, on each path: the
     main path's program (phase_main_path) and the same with
@@ -1007,9 +1093,16 @@ def phase_profile(dev) -> None:
         assert device_s > 0, f"{path}: the trace holds no device time"
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase", action="append", default=[],
+                    help="run only this phase (repeatable; e.g. kernel_scaling) after the build, "
+                         "and print no kernel summary or result line")
+    only = ap.parse_args(argv).phase
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1046,6 +1139,12 @@ def main() -> int:
             seconds[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
             return out
 
+        if only:
+            for name in only:
+                timed(globals()[f"phase_{name}"])
+            emit(dict(phase="seconds", **seconds))
+            print(card)
+            return 0
         kern = timed(phase_kernels)
         main_launches = timed(phase_main_path)
         timed(phase_parity)
@@ -1053,6 +1152,7 @@ def main() -> int:
         ric_launches = timed(phase_riccati_path)
         timed(phase_golden_f64_riccati)
         timed(phase_fused_zoo_vs_plain)
+        timed(phase_kernel_scaling)
         zoo_launches = timed(phase_zoo)
         timed(phase_profile)
         emit(dict(phase="seconds", **seconds))
@@ -1092,4 +1192,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -6,8 +6,9 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 (`--noconftest` skips tests/conftest.py, which configures JAX.)  Inputs are
-made from a numpy seed; B=1000 is not a multiple of the 128-thread block,
-so the ragged edge of the grid is covered.  The bounds and the
+made from a numpy seed; B=1000 leaves the last block of the Riccati
+kernel's grid (128 lanes) part-empty, B=1001 and B=1 that of the fused
+kernels' (8 lanes), so the ragged edges are covered.  The bounds and the
 regularizations are chip_smoke.py's, from altro_tpu_torch/ops/tolerances.py.
 """
 import numpy as np
@@ -254,6 +255,70 @@ def test_fused_kernels_match_plain_on_the_zoo(dtype, problem):
     assert bk.launches == len(tol.RHOS[tag][problem])
     for alpha in (1.0, 0.5):
         a = torch.full((B,), alpha, dtype=dtype, device=dev)
+        got = fk(params, ap, Z, want[0], want[1], a)
+        exp_f = fk.plain(params, ap, Z, want[0], want[1], a)
+        assert torch.equal(got[3], exp_f[3]) and torch.equal(got[4], exp_f[4])
+        for name, g, w in zip(("Xn", "Ubar", "J"), got[:3], exp_f[:3]):
+            _close(name, g, w, dtype, 1e-10, f32_rel)
+    assert fk.launches == 2
+
+
+def _own_fleet(problem, dtype, dev, Bz):
+    """A fleet of Bz lanes of `problem` at its own horizon: parking N=100
+    (x0 in ±0.1), or the zoo's quadrotor N=50 / cartpole N=60 (x0 spread
+    0.05), rolled out, under a warm random AL state."""
+    if problem != "parking":
+        prob, _, params, Z, al = _zoo_fleet(problem, dtype, dev, Bz)
+        return prob, params, Z, al
+    rng = np.random.default_rng(0)
+    defn = UnicycleProblem(dtype=dtype, device=dev)
+    prob = defn.make_problem().compile()
+    ev = ALSolverBatched(prob, SolverOptions())
+    params = prob.params.replace(x0=torch.as_tensor(rng.uniform(-0.1, 0.1, (3, Bz)), device=dev).to(dtype))
+    Z = ev.rollout(params, _fleet_Z(defn, Bz))
+    al = tuple(
+        dict(
+            lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
+            rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
+        )
+        for st in ev.al_state_init(Bz, dtype)
+    )
+    return prob, params, Z, al
+
+
+@pytest.mark.parametrize("Bz", [1000, 1001, 1])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem", ["parking", "cartpole", "quadrotor"])
+def test_fused_kernels_match_plain_at_ragged_widths(problem, dtype, Bz):
+    """Both fused kernels at each instance's own horizon, whose knots are
+    no multiple of the kernels' chunks, and at three batch widths: B=1000
+    (whole blocks of 8 lanes, the forward kernel's 16-byte copies), B=1001
+    (a last block with one lane, copies element by element) and B=1.  The
+    backward kernel at each of the problem's ρ (flags, K, d, ΔV within each
+    float64 lane's sensitivity, J0), the forward kernel rolling out the
+    plain gains of the largest ρ at α = 1 and 0.5."""
+    dev = _device()
+    tag = "f64" if dtype == torch.float64 else "f32"
+    prob, params, Z, al = _own_fleet(problem, dtype, dev, Bz)
+    f32_rel = tol.F32_REL if problem == "parking" else tol.ZOO_F32_REL[problem]
+    bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    fk = ForwardKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    ap = bk.pad_al(al)
+    rng = np.random.default_rng(3)
+    Zms = [Z.replace(X=tol.ulp_moved(Z.X, rng), U=tol.ulp_moved(Z.U, rng)) for _ in range(tol.SENS_DRAWS)]
+    for r in tol.RHOS[tag][problem]:
+        rho = torch.full((Bz,), r, dtype=dtype, device=dev)
+        got = bk(params, ap, Z, rho)
+        want = bk.plain(params, ap, Z, rho)
+        sens, flips = tol.sensitivity(want, [bk.plain(params, ap, Zm, rho) for Zm in Zms])
+        assert torch.equal(got[4][~flips], want[4][~flips])
+        ok = ~want[4] & ~flips
+        for name, g, w, rt in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4], (1e-9, 1e-9, 1e-8, 1e-8)):
+            _close(name, g[..., ok], w[..., ok], dtype, rt, f32_rel, sens[ok])
+        _close("J0", got[5], want[5], dtype, 1e-10, f32_rel)
+    assert bk.launches == len(tol.RHOS[tag][problem])
+    for alpha in (1.0, 0.5):
+        a = torch.full((Bz,), alpha, dtype=dtype, device=dev)
         got = fk(params, ap, Z, want[0], want[1], a)
         exp_f = fk.plain(params, ap, Z, want[0], want[1], a)
         assert torch.equal(got[3], exp_f[3]) and torch.equal(got[4], exp_f[4])
