@@ -119,7 +119,7 @@ extern "C" {
 #endif
 // sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs
 void altro_abi_sizes(int* out);
-// (kFOps, kJvpOps) of the unicycle, cartpole and quadrotor functors
+// (kFOps, kTangentOps) of the unicycle, cartpole and quadrotor functors
 // (csrc/models.cuh), six ints
 void altro_model_ops(int* out);
 // Each entry point launches on `stream` and returns cudaGetLastError().

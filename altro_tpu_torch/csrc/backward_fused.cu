@@ -533,8 +533,9 @@ void altro_abi_sizes(int* out) {
 }
 
 void altro_model_ops(int* out) {
-  const int ops[6] = {altro::Unicycle::kFOps, altro::Unicycle::kJvpOps, altro::Cartpole::kFOps,
-                      altro::Cartpole::kJvpOps, altro::Quadrotor::kFOps, altro::Quadrotor::kJvpOps};
+  const int ops[6] = {altro::Unicycle::kFOps,  altro::Unicycle::kTangentOps,
+                      altro::Cartpole::kFOps,  altro::Cartpole::kTangentOps,
+                      altro::Quadrotor::kFOps, altro::Quadrotor::kTangentOps};
   for (int i = 0; i < 6; ++i) out[i] = ops[i];
 }
 

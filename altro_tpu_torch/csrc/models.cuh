@@ -14,11 +14,14 @@
 // Python model (ops/backward_fused.py:step_jacobian_by_tangents).
 //
 // Each functor states its operation counts, which chip_smoke.py's bounds
-// read through altro_model_ops(): kFOps for one evaluation of f, kJvpOps
-// for one evaluation in Dual (value and one derivative), counting each
-// add, multiply, divide, negate, sin and cos as one operation and the
-// Dual rules as written below (Dual·Dual 4, T·Dual 2, Dual±Dual 2,
-// Dual−T 1, −Dual 2, Dual/Dual 4, Dual/T 2, sin 3, cos 4).
+// read through altro_model_ops(): kFOps for one evaluation of f, and
+// kTangentOps for one directional derivative of f at a point whose value
+// is known, the part of an evaluation in Dual that the tangent adds (as
+// jax.linearize splits it).  Each add, multiply, divide, negate, sin and
+// cos counts one; the tangent parts of the Dual rules below count Dual·Dual
+// 3, T·Dual 1, Dual±Dual 1, Dual−T 0, −Dual 1, Dual/Dual 3 (the quotient is
+// the value's), Dual/T 1, sin 1 and cos 2 (every model that takes sin or
+// cos of an argument takes both, so f's value already holds them).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -57,8 +60,8 @@ struct Unicycle {
   static constexpr int n = 3;
   static constexpr int m = 2;
   static constexpr int np = 0;
-  static constexpr int kFOps = 4;     // cos, sin, 2 multiplies
-  static constexpr int kJvpOps = 15;  // cos 4, sin 3, 2 Dual·Dual
+  static constexpr int kFOps = 4;        // cos, sin, 2 multiplies
+  static constexpr int kTangentOps = 9;  // cos 2, sin 1, 2 Dual·Dual
 
   template <typename T, typename S>
   __device__ __forceinline__ static void f(const T* /*p*/, const S* x, const S* u, T /*t*/, S* xdot) {
@@ -75,7 +78,7 @@ struct Cartpole {
   static constexpr int m = 1;
   static constexpr int np = 4;
   static constexpr int kFOps = 26;
-  static constexpr int kJvpOps = 68;
+  static constexpr int kTangentOps = 40;
 
   template <typename T, typename S>
   __device__ __forceinline__ static void f(const T* p, const S* x, const S* u, T /*t*/, S* xdot) {
@@ -101,7 +104,7 @@ struct Quadrotor {
   static constexpr int m = 4;
   static constexpr int np = 8;
   static constexpr int kFOps = 81;
-  static constexpr int kJvpOps = 213;
+  static constexpr int kTangentOps = 132;
 
   template <typename T, typename S>
   __device__ __forceinline__ static void f(const T* p, const S* x, const S* u, T /*t*/, S* xdot) {

@@ -118,8 +118,9 @@ class KernelLibrary:
         self.build_log = build_log
 
     def model_ops(self) -> dict:
-        """model -> (operations of one f, of one f in Dual): the counts
-        written beside each functor in csrc/models.cuh."""
+        """model -> (operations of one f, of one tangent of f at a point
+        whose value is known): the counts written beside each functor in
+        csrc/models.cuh."""
         out = (ctypes.c_int * (2 * len(FUSED_MODELS)))()
         self.lib.altro_model_ops(ctypes.addressof(out))
         return {name: (out[2 * i], out[2 * i + 1]) for i, name in enumerate(FUSED_MODELS)}

@@ -56,20 +56,21 @@ _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # AltroGeometry).  Blocks of LANES lanes, so that B=2048 launches 256 blocks
 # on the card's SMS multiprocessors; the backward kernel adds PRODUCERS
 # threads that build the expansions beside the sweep's threads (a group per
-# lane, `sweep_group`); the forward kernel has two
-# warps, the lanes' rollouts and their cost terms with the input staging.  Knots per pipeline chunk, per model, in float32 and
-# float64: as many as keep a block's shared memory small enough for
-# several blocks per multiprocessor.
+# lane, `sweep_group`); the forward kernel has two warps, the lanes'
+# rollouts and their cost terms with the input staging.  A pipeline's first
+# chunk of knots is not overlapped (the sweep waits for its expansions, the
+# rollouts for its staged inputs), so a chunk holds at most PRODUCER_ROUNDS
+# rounds of the producers' items, or FWD_STAGE_WORDS staged words
+# (`chunk_knots`).
 SMS = 132
 SMEM_MAX = 232_448  # dynamic shared memory one block may use on the H100, bytes
 TABLE_SMEM = 16_384  # the largest cost table staged in shared memory, bytes
 LANES = 8
 PRODUCERS = 128
+PRODUCER_ROUNDS = 8
 FWD_THREADS = 64
-KNOTS = {  # kernel -> model -> knots per chunk in (float32, float64)
-    "backward_fused": dict(unicycle=(16, 8), cartpole=(16, 8), quadrotor=(4, 4)),
-    "forward": dict(unicycle=(16, 16), cartpole=(16, 16), quadrotor=(8, 8)),
-}
+FWD_STAGE_WORDS = 8192
+MAX_KNOTS = 16
 
 
 def _align16(nbytes: int) -> int:
@@ -108,6 +109,16 @@ def forward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem
     )
 
 
+def chunk_knots(per_knot: int, budget: int, smem) -> int:
+    """Knots per pipeline chunk: the largest power of two up to MAX_KNOTS
+    whose chunk holds at most `budget` items, `per_knot` to a knot, and
+    whose block's `smem(knots)` bytes fit SMEM_MAX."""
+    knots = MAX_KNOTS
+    while knots > 1 and (knots * per_knot > budget or smem(knots) > SMEM_MAX):
+        knots //= 2
+    return knots
+
+
 @dataclasses.dataclass(frozen=True)
 class Geometry:
     """One launch's geometry: `blocks` blocks of `threads` threads, each
@@ -121,7 +132,7 @@ class Geometry:
     threads: int
     smem: int
     tab_smem: int
-    blocks: int
+    blocks: int = 0
 
     def abi(self) -> _build.Geometry:
         return _build.Geometry(
@@ -242,15 +253,17 @@ class FusedKernel:
                 Pt += fam.dim
                 Ft += 1
             self._con_fams.append(f)
-        if len(self._cost_fams) > _build.MAX_FAMS or len(self._con_fams) > _build.MAX_FAMS:
+        # `_shared_runs` may split a cost family in two
+        if 2 * len(self._cost_fams) > _build.MAX_FAMS or len(self._con_fams) > _build.MAX_FAMS:
             raise Ineligible("more families than the descriptor holds")
         self.Ps, self.Fs, self.Pt, self.Ft = Ps, Fs, Pt, Ft
         self._itemsize = torch.finfo(dtype).bits // 8
-        self._knots = KNOTS[self.KIND][model.cuda_model][0 if dtype == torch.float32 else 1]
+        self._knots = self._chunk_knots()
         # launches of the CUDA kernel (never of the plain version)
         self.launches = 0
         self._desc_key = None
         self._desc = None  # (problem descriptor, cost table) on the device
+        self._geo = None  # their launch geometry (`blocks` aside) and its ABI struct
         self._eager = {}
 
     # ------------------------------------------------------------ AL state
@@ -300,8 +313,10 @@ class FusedKernel:
         """The problem's params on the device: `csrc/altro_abi.h:AltroProblem`
         as bytes, and the cost table in the kernel's scalar type (one row per
         knot of a stacked cost family, one per shared family; see
-        `_shared_runs`).  Rebuilt only when `params` carries other cost,
-        constraint or dynamics data than the last call."""
+        `_shared_runs`).  Beside them it sets `_geo`, the launch geometry
+        for that table, which is staged in shared memory when it holds at
+        most TABLE_SMEM bytes.  Rebuilt only when `params` carries other
+        cost, constraint or dynamics data than the last call."""
         key = (params.costs, params.constraints, params.dynamics)
         if self._desc_key is not None and all(a is b for a, b in zip(key, self._desc_key)):
             return self._desc
@@ -326,7 +341,7 @@ class FusedKernel:
                 raise ValueError(f"{dyn.numel()} dynamics params; the descriptor holds {_build.NDYN}")
             d.dyn[: dyn.numel()] = dyn.tolist()
 
-        fams, runs = [], []
+        fams = []
         for f in self._cost_fams:
             cp = params.costs[f["fi"]]
             nk = f["k1"] - f["k0"] + 1 if f["stacked"] else 1
@@ -334,11 +349,7 @@ class FusedKernel:
                 host(cp[name], nk * size).reshape(nk, size)
                 for name, size in (("Q", n * n), ("R", m * m), ("H", n * m), ("q", n), ("r", m), ("c", 1))
             ]
-            fam = (f["k0"], f["k1"], f["stacked"], torch.cat(parts, dim=1))
-            fams.append(fam)
-            runs.extend(self._shared_runs(*fam))
-        if len(runs) <= _build.MAX_FAMS:
-            fams = runs
+            fams.extend(self._shared_runs(f["k0"], f["k1"], f["stacked"], torch.cat(parts, dim=1)))
         d.n_cost = len(fams)
         offset = 0
         for c, (k0, k1, stacked, rows) in zip(d.cost, fams):
@@ -365,6 +376,9 @@ class FusedKernel:
                 c.b[:m] = host(cp["ub"], m).tolist()
         raw = torch.frombuffer(bytearray(bytes(d)), dtype=torch.uint8)
         table = torch.cat([f[3].reshape(-1) for f in fams]) if fams else torch.zeros(1, dtype=torch.float64)
+        tab = table.numel() if table.numel() * self._itemsize <= TABLE_SMEM else 0
+        geo = self._layout(tab)
+        self._geo = (geo, geo.abi())
         self._desc = (raw.to(self.device), table.to(self.device, self.dtype))
         self._desc_key = key
         return self._desc
@@ -415,17 +429,12 @@ class FusedKernel:
         self._check("lamT", al_pad.lamT, (self.Pt, B))
         self._check("rhoT", al_pad.rhoT, (self.Ft, B))
 
-    def _geometry(self, B: int, params, threads: int, group: int, smem) -> Geometry:
-        """The geometry at batch width B for `params` (the problem's own when
-        None): the cost table staged in shared memory when it holds at most
-        TABLE_SMEM bytes; `smem(tab_smem)` is the kernel's layout size."""
-        tab = self._problem_desc(self.prob.params if params is None else params)[1].numel()
-        if tab * self._itemsize > TABLE_SMEM:
-            tab = 0
-        return Geometry(
-            lanes=LANES, knots=self._knots, group=group, threads=threads, smem=smem(tab),
-            tab_smem=tab, blocks=-(-B // LANES),
-        )
+    def geometry(self, B: int, params=None) -> Geometry:
+        """The launch geometry at batch width B for `params` (the problem's
+        own when None)."""
+        self._problem_desc(self.prob.params if params is None else params)
+        geo = self._geo[0]
+        return dataclasses.replace(geo, blocks=-(-B // geo.lanes))
 
     def _entry(self) -> str:
         return f"altro_{self.KIND}_{self.model_name}_{_SUFFIX[self.dtype]}"
@@ -442,14 +451,23 @@ class BackwardFusedKernel(FusedKernel):
 
     KIND = "backward_fused"
 
-    def geometry(self, B: int, params=None) -> Geometry:
-        """The launch geometry at batch width B: consumer warps (a group of
-        `sweep_group(n)` threads per lane) and PRODUCERS producer threads."""
+    def _chunk_knots(self) -> int:
+        """Knots per chunk: PRODUCER_ROUNDS rounds of the producers, an item
+        being one column of [A Bd] or the cost and AL terms of a knot and
+        lane."""
+        n, m = self.n, self.m
+        return chunk_knots(
+            LANES * (n + m + 1), PRODUCER_ROUNDS * PRODUCERS,
+            lambda knots: backward_smem(n, m, self._itemsize, LANES, knots, TABLE_SMEM // self._itemsize),
+        )
+
+    def _layout(self, tab: int) -> Geometry:
+        """Consumer warps (a group of `sweep_group(n)` threads per lane) and
+        PRODUCERS producer threads, with `tab` cost-table entries staged."""
         n, m, g = self.n, self.m, sweep_group(self.n)
-        threads = -(-LANES * g // 32) * 32 + PRODUCERS
-        return self._geometry(
-            B, params, threads, g,
-            lambda tab: backward_smem(n, m, self._itemsize, LANES, self._knots, tab),
+        return Geometry(
+            lanes=LANES, knots=self._knots, group=g, threads=-(-LANES * g // 32) * 32 + PRODUCERS,
+            smem=backward_smem(n, m, self._itemsize, LANES, self._knots, tab), tab_smem=tab,
         )
 
     def plain(self, params, al_pad: PaddedAL, Z, rho):
@@ -482,7 +500,7 @@ class BackwardFusedKernel(FusedKernel):
             lamT=_ptr(al_pad.lamT), lamT_rho=_ptr(al_pad.rhoT),
             K=_ptr(K), d=_ptr(d), dV1=_ptr(dV1), dV2=_ptr(dV2), J0=_ptr(J0),
             failed=_ptr(failed), B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
-            geo=self.geometry(B, params).abi(),
+            geo=self._geo[1],
         )
         with torch.cuda.device(Z.X.device):
             lib.launch(self._entry(), args, desc.data_ptr(), self._stream(Z.X))

@@ -27,7 +27,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .backward_fused import FWD_THREADS, LANES, FusedKernel, Geometry, Ineligible, PaddedAL, _ptr, forward_smem
+from .backward_fused import (
+    FWD_STAGE_WORDS, FWD_THREADS, LANES, TABLE_SMEM, FusedKernel, Geometry, Ineligible, PaddedAL, _ptr,
+    chunk_knots, forward_smem,
+)
 
 __all__ = ["ForwardKernel", "Ineligible"]
 
@@ -39,13 +42,22 @@ class ForwardKernel(FusedKernel):
 
     KIND = "forward"
 
-    def geometry(self, B: int, params=None) -> Geometry:
-        """The launch geometry at batch width B: two warps per block, the
-        first LANES threads of each running the lanes' rollouts and their
-        cost terms."""
-        n, m, item, knots, Ps, Fs = self.n, self.m, self._itemsize, self._knots, self.Ps, self.Fs
-        return self._geometry(
-            B, params, FWD_THREADS, 1, lambda tab: forward_smem(n, m, item, LANES, knots, tab, Ps, Fs)
+    def _chunk_knots(self) -> int:
+        """Knots per chunk: at most FWD_STAGE_WORDS staged input words."""
+        n, m, item, Ps, Fs = self.n, self.m, self._itemsize, self.Ps, self.Fs
+        return chunk_knots(
+            LANES * (n + 2 * m + m * n + Ps + Fs), FWD_STAGE_WORDS,
+            lambda knots: forward_smem(n, m, item, LANES, knots, TABLE_SMEM // item, Ps, Fs),
+        )
+
+    def _layout(self, tab: int) -> Geometry:
+        """Two warps per block, the first LANES threads of each running the
+        lanes' rollouts and their cost terms, with `tab` cost-table entries
+        staged."""
+        n, m, item = self.n, self.m, self._itemsize
+        return Geometry(
+            lanes=LANES, knots=self._knots, group=1, threads=FWD_THREADS,
+            smem=forward_smem(n, m, item, LANES, self._knots, tab, self.Ps, self.Fs), tab_smem=tab,
         )
 
     @staticmethod
@@ -99,7 +111,7 @@ class ForwardKernel(FusedKernel):
             Xn=_ptr(Xn), Ubar=_ptr(Ubar), J=_ptr(J), valid=_ptr(valid), status=_ptr(status),
             B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
             check_bounds=int(bool(check_bounds)), chain_only=int(bool(chain_only)),
-            geo=self.geometry(B, params).abi(),
+            geo=self._geo[1],
         )
         with torch.cuda.device(Z.X.device):
             lib.launch(self._entry(), args, desc.data_ptr(), self._stream(Z.X))

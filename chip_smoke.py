@@ -175,46 +175,59 @@ def riccati_work(N, n, m, B, itemsize) -> tuple[float, float]:
 
 
 def model_ops(kern) -> tuple[int, int]:
-    """(operations of one f, of one f in Dual) of the kernel's model, as
-    csrc/models.cuh counts them (read from the built library)."""
+    """(operations of one f, of one tangent of f at a point whose value is
+    known) of the kernel's model, as csrc/models.cuh counts them (read from
+    the built library)."""
     from altro_tpu_torch.ops import _build
 
     return _build.load().model_ops()[kern.model_name]
+
+
+def step_ops(kern) -> tuple[int, int]:
+    """(model evaluations, operations per state entry) of one step of the
+    kernel's integrator, for its value or for one tangent alike: RK4's four
+    stages (x + h/2·k, acc + 2k, ..., x + h·(acc + k)/6: 14 operations per
+    entry, h/2 and h/6 once a step), or Euler's x + h·k."""
+    return (4, 14) if kern.method == 0 else (1, 2)
 
 
 def fused_work(kern, B, itemsize) -> tuple[float, float]:
     """(bytes, flops) of one fused backward launch: per lane it reads X, U,
     the packed AL state and ρ and writes K, d, ΔV1, ΔV2, J0 and the flags;
     per knot the quadratic cost's value and gradient, its Hessian from the
-    cost rows, the AL rows, the n+m tangents of the RK4 step (four model
-    evaluations in Dual each, csrc/models.cuh's count, and the step's own
-    arithmetic on Duals, 31 operations per state entry), and one Riccati
+    cost rows, the AL rows, the step's value once (the model's evaluations,
+    csrc/models.cuh's kFOps, and the step's own arithmetic), the n+m
+    columns of [A Bd] as tangents of the step at that value (kTangentOps
+    per evaluation, and the step's arithmetic again), and one Riccati
     step."""
     N, n, m = kern.N, kern.n, kern.m
     Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
-    jvp = model_ops(kern)[1]
+    f, tangent = model_ops(kern)
+    evals, per_entry = step_ops(kern)
     read = (N + 1) * n + N * m + N * (Ps + Fs) + Pt + Ft + 1
     write = N * (m * n + m) + 3
     quad = 2 * _mm_flops(n, n, 1) + 2 * _mm_flops(n, m, 1) + 2 * _mm_flops(m, m, 1) + 6 * (n + m)
     hess = n * n + n * m + m * m
     al = 8 * Ps
-    tangents = (n + m) * (4 * jvp + 31 * n)
-    per_knot = quad + hess + al + tangents + riccati_step_flops(n, m)
+    value = evals * f + per_entry * n
+    tangents = (n + m) * (evals * tangent + per_entry * n)
+    per_knot = quad + hess + al + value + tangents + riccati_step_flops(n, m)
     return B * ((read + write) * itemsize + 4), float(N * B * per_knot)
 
 
 def forward_work(kern, B, itemsize) -> tuple[float, float]:
     """(bytes, flops) of one forward launch: per lane it reads x0, α, X, U,
     K, d and the packed AL state and writes X̄, Ū, J and two int32 flags;
-    per knot the feedback law, the RK4 step (four model evaluations,
-    csrc/models.cuh's count, and 17 operations per state entry), the cost
-    and AL value and the guard."""
+    per knot the feedback law, the step (the model's evaluations,
+    csrc/models.cuh's kFOps, and the step's own arithmetic), the cost and AL
+    value and the guard."""
     N, n, m = kern.N, kern.n, kern.m
     Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
     f = model_ops(kern)[0]
+    evals, per_entry = step_ops(kern)
     read = n + 1 + (N + 1) * n + N * m + N * (m * n + m) + N * (Ps + Fs) + Pt + Ft
     write = N * (n + m) + 1
-    per_knot = (_mm_flops(m, n, 1) + n + 3 * m + 4 * f + 17 * n
+    per_knot = (_mm_flops(m, n, 1) + n + 3 * m + evals * f + per_entry * n
                 + 2 * (n * n + n * m + m * m) + 4 * (n + m) + 6 * Ps + 2 * (n + m))
     return B * ((read + write) * itemsize + 8), float(N * B * per_knot)
 

@@ -11,6 +11,7 @@ launch_forward`).  The descriptor folds the stacked stage + terminal cost
 family into two shared families only where the kernels then add the same
 J terms in the same order.
 """
+import dataclasses
 import functools
 
 import pytest
@@ -100,3 +101,29 @@ def test_descriptor_folds_the_stage_and_terminal_cost_rows():
     costs[0] = dict(costs[0], Q=Q)
     desc, fams = _families(kern, prob.params.replace(costs=tuple(costs)))
     assert fams == [(0, N, 1, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("model", ["unicycle", "quadrotor"])
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_a_cost_table_larger_than_TABLE_SMEM_stays_in_device_memory(kind, model, dtype):
+    """With each knot's Q scaled by its own factor the cost table holds a
+    row per knot; the geometry stages it in shared memory only where it fits
+    TABLE_SMEM (the unicycle in f32), and its shared memory then counts the
+    table, else none of it."""
+    prob = _problem(model, dtype)
+    kern = KERNELS[kind](prob, SolverOptions(), dtype=dtype, device="cpu")
+    costs = list(prob.params.costs)
+    Q = costs[0]["Q"]
+    costs[0] = dict(costs[0], Q=Q * (1.0 + 1e-3 * torch.arange(Q.shape[0], dtype=dtype))[:, None, None])
+    params = prob.params.replace(costs=tuple(costs))
+    shared, per_knot = kern.geometry(1000), kern.geometry(1000, params)
+    table = kern._problem_desc(params)[1].numel()
+    assert table == (prob.N + 1) * (prob.n * prob.n + prob.m * prob.m + prob.n * prob.m + prob.n + prob.m + 1)
+    itemsize = torch.finfo(dtype).bits // 8
+    staged = model == "unicycle" and dtype == torch.float32
+    assert (table * itemsize <= bf.TABLE_SMEM) == staged
+    assert per_knot.tab_smem == (table if staged else 0)
+    layout = bf._align16(shared.tab_smem * itemsize)
+    assert per_knot.smem - shared.smem == (bf._align16(table * itemsize) if staged else 0) - layout
+    assert dataclasses.replace(per_knot, smem=shared.smem, tab_smem=shared.tab_smem) == shared

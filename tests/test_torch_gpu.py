@@ -298,8 +298,39 @@ def test_fused_kernels_match_plain_at_ragged_widths(problem, dtype, Bz):
     float64 lane's sensitivity, J0), the forward kernel rolling out the
     plain gains of the largest ρ at α = 1 and 0.5."""
     dev = _device()
-    tag = "f64" if dtype == torch.float64 else "f32"
     prob, params, Z, al = _own_fleet(problem, dtype, dev, Bz)
+    _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem", ["parking", "quadrotor"])
+def test_fused_kernels_match_plain_with_a_cost_per_knot(problem, dtype):
+    """A stacked cost family whose stage rows differ (each knot's Q scaled
+    by its own factor) stays stacked: the kernels read a cost-table row per
+    knot, staged in shared memory where the table fits TABLE_SMEM (parking
+    in f32) and from device memory where it does not (parking in f64, the
+    quadrotor).  Both kernels held as at the ragged widths, B=1001."""
+    dev = _device()
+    Bz = 1001
+    prob, params, Z, al = _own_fleet(problem, dtype, dev, Bz)
+    costs = list(params.costs)
+    Q = costs[0]["Q"]
+    costs[0] = dict(costs[0], Q=Q * (1.0 + 1e-3 * torch.arange(Q.shape[0], dtype=Q.dtype, device=dev))[:, None, None])
+    params = params.replace(costs=tuple(costs))
+    staged = problem == "parking" and dtype == torch.float32
+    for kind in (BackwardFusedKernel, ForwardKernel):
+        g = kind(prob, SolverOptions(), dtype=dtype, device=dev).geometry(Bz, params)
+        assert (g.tab_smem > 0) == staged, (kind.KIND, g)
+    _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al)
+
+
+def _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al):
+    """The backward kernel at each of the problem's ρ (flags, K, d, ΔV
+    within each float64 lane's sensitivity, J0), the forward kernel rolling
+    out the plain gains of the largest ρ at α = 1 and 0.5, each against its
+    plain version."""
+    Bz = Z.X.shape[-1]
+    tag = "f64" if dtype == torch.float64 else "f32"
     f32_rel = tol.F32_REL if problem == "parking" else tol.ZOO_F32_REL[problem]
     bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
     fk = ForwardKernel(prob, SolverOptions(), dtype=dtype, device=dev)
