@@ -54,17 +54,18 @@ struct AltroProblem {
   AltroConFam con[ALTRO_MAX_FAMS];
 };
 
-// Launch geometry of a fused kernel, chosen by its wrapper
-// (ops/backward_fused.py:FusedKernel.geometry); the grid is ceil(B / lanes)
-// blocks.  The kernel lays out its shared memory from these numbers and its
-// launcher refuses a geometry whose `smem` is not that layout's size.
+// Launch geometry of a kernel, chosen by its wrapper
+// (ops/backward_fused.py:FusedKernel.geometry, ops/riccati.py:
+// RiccatiKernel.geometry); the grid is ceil(B / lanes) blocks.  The kernel
+// lays out its shared memory from these numbers and its launcher refuses a
+// geometry whose `smem` is not that layout's size.
 struct AltroGeometry {
   int lanes;     // batch lanes per block
   int knots;     // knots per chunk of the block's pipeline
   int group;     // threads per lane in the backward sweep (4, 8 or 16: above n, a power of two)
   int threads;   // threads per block
   int smem;      // dynamic shared memory per block, bytes
-  int tab_smem;  // cost-table entries staged in shared memory (0: read in device memory)
+  int tab_smem;  // cost-table entries staged in shared memory (0: read in device memory; the Riccati sweep has none)
 };
 
 // Device pointers to tensors of the launch's scalar type, batch last.
@@ -112,6 +113,7 @@ struct AltroRiccatiArgs {
   void *failed;                  // out: [B] int32
   double gain_limit;             // SolverOptions.bp_gain_limit
   int N, B;
+  AltroGeometry geo;
 };
 
 #ifdef __cplusplus

@@ -36,9 +36,11 @@
 //     quadrotor): one per row of P and the Q terms, which live in shared
 //     memory, plus one for d, so a thread's share of a knot is one row and
 //     at n=13 nothing spills to local memory (on one thread per lane the
-//     n=13 sweep kept 13.7 KB per thread there).
-//   - The cost Hessians Q, R, H are the same for every lane: the consumer
-//     reads them from the cost table, staged once per block in shared
+//     n=13 sweep kept 13.7 KB per thread there).  The step is
+//     sweep_group.cuh:sweep_knot_group, which riccati.cu runs too; this
+//     kernel's accessor (FusedKnot) gives it the knot's slot.
+//   - The cost Hessians Q, R, H are the same for every lane: the accessor
+//     sums them from the cost table, staged once per block in shared
 //     memory with the problem descriptor; per lane only what depends on it
 //     is stored.
 //   - Blocks of 8 lanes: B=2048 launches 256 blocks on 132 SMs.
@@ -59,6 +61,7 @@
 #include "altro_abi.h"
 #include "fused_common.cuh"
 #include "models.cuh"
+#include "sweep_group.cuh"
 
 namespace altro {
 
@@ -66,21 +69,18 @@ constexpr int kBwdMaxThreads = 256;
 constexpr int kTerms = 2 * ALTRO_MAX_FAMS;  // J terms of a knot: cost families, then constraint families
 
 // Shared memory of one block: the descriptor, the cost table, the chunk's
-// x, u, two expansion buffers of knots × lanes slots, and the cooperative
-// sweep's per-lane scratch.  ops/backward_fused.py mirrors it.
+// x, u, two expansion buffers of knots × lanes slots, and the sweep's
+// per-lane scratch (sweep_group.cuh:SweepScratch).  ops/backward_fused.py
+// mirrors it.
 template <typename T, class Model>
 struct BwdLayout {
   static constexpr int n = Model::n, m = Model::m;
-  // threads per lane in the sweep: one per row and one for d, a power of two
-  static constexpr int G = n < 4 ? 4 : n < 8 ? 8 : 16;
+  static constexpr int G = sweep_group_size<n>();  // threads per lane in the sweep
   // one (knot, lane) slot of an expansion buffer
   static constexpr int A = 0, Bd = A + n * n, lx = Bd + n * m, lu = lx + n, hx = lu + m,
                        hu = hx + n, terms = hu + m;
   static constexpr int slot = (terms + kTerms) | 1;  // odd: column writes spread over the banks
-  // per-lane scratch of the cooperative sweep
-  static constexpr int P = 0, p = P + n * n, PB = p + n, Quu = PB + n * m, Qu = Quu + m * m,
-                       K = Qu + m, d = K + m * n, QK = d + m;
-  static constexpr int scratch = QK + n * n;
+  static constexpr int scratch = SweepScratch<n, m>::size;
 
   int tab, xu, exp, scr, total;  // byte offsets and size
   __host__ __device__ explicit BwdLayout(const AltroGeometry& g) {
@@ -215,230 +215,51 @@ __device__ __forceinline__ void produce(const AltroBackwardArgs& a, const AltroP
   }
 }
 
-// The running sums and failure flag of one consumer thread (the carry P, p
-// lives in the lane's scratch)
-template <typename T>
-struct Carry {
-  T J = T(0), comp = T(0), dv1 = T(0), dv2 = T(0);
-  bool failed = false;
-};
-
-// One knot of the sweep for one lane on a group of G threads: the
-// statements of riccati_step.cuh, each output row on the thread of its row
-// r, every sum in riccati_step's order (riccati.cu keeps the one-thread
-// form).  The group lies within one warp, so __syncwarp orders its phases.  Every thread computes the m×m Cholesky of
-// the same Quu and so the same failure flag; the gain guard's flag is
-// OR-ed over the group with a ballot.
+// A knot slot as the shared sweep reads it (sweep_group.cuh): A, Bd and the
+// gradients from the slot; lxx, lxu, luu as the sum of the cost Hessians of
+// the families over the knot (the cost table's rows) plus the diagonal AL
+// weights hx, hu
 template <typename T, class Model>
-__device__ __forceinline__ void sweep_knot_group(const AltroBackwardArgs& a, const AltroProblem& pr,
-                                                 const T* ctab, int k, const T* sl, T* sc, T rho,
-                                                 Carry<T>& cy,
-                                                 int b, int r) {
+struct FusedKnot {
   using Lay = BwdLayout<T, Model>;
-  constexpr int n = Model::n, m = Model::m, G = Lay::G;
-  static_assert(G > n && 32 % G == 0, "one thread per row and one for d, in whole warps");
+  static constexpr int n = Model::n, m = Model::m;
+  const T* sl;
   const T* rows[ALTRO_MAX_FAMS];
-  cost_rows_at<T, n, m>(pr, ctab, k, rows);
-  const T* A = sl + Lay::A;
-  const T* Bd = sl + Lay::Bd;
-  T* P = sc + Lay::P;
-  T* p = sc + Lay::p;
-  if (k == pr.N) {  // P_N, p_N
-    if (r < n) {
-#pragma unroll
-      for (int j = 0; j < n; ++j) {
-        T v = T(0);
-#pragma unroll
-        for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
-          if (rows[q]) v += quad_Q<T, n, m>(rows[q], r, j);
-        }
-        if (j == r) v += sl[Lay::hx + r];
-        P[r * n + j] = v;
-      }
-      p[r] = sl[Lay::lx + r];
-    }
-    __syncwarp();
-    return;
+  __device__ __forceinline__ FusedKnot(const AltroProblem& pr, const T* ctab, int k, const T* slot)
+      : sl(slot) {
+    cost_rows_at<T, n, m>(pr, ctab, k, rows);
   }
-  T* PB = sc + Lay::PB;
-  T* Quu = sc + Lay::Quu;
-  T* Qu = sc + Lay::Qu;
-  T* K = sc + Lay::K;
-  T* d = sc + Lay::d;
-  T* QK = sc + Lay::QK;
-
-  // Qx[r], Qu, PB; row r of AᵀP, which only this thread reads
-  T atp[n], qx = T(0);
-  if (r < n) {
+  __device__ __forceinline__ T A(int i, int j) const { return sl[Lay::A + i * n + j]; }
+  __device__ __forceinline__ T Bd(int i, int j) const { return sl[Lay::Bd + i * m + j]; }
+  __device__ __forceinline__ T lx(int r) const { return sl[Lay::lx + r]; }
+  __device__ __forceinline__ T lu(int r) const { return sl[Lay::lu + r]; }
+  __device__ __forceinline__ T lxx(int r, int c) const {
+    T l = T(0);
 #pragma unroll
-    for (int c = 0; c < n; ++c) {
-      T acc = A[r] * P[c];
-#pragma unroll
-      for (int j = 1; j < n; ++j) acc += A[j * n + r] * P[j * n + c];
-      atp[c] = acc;
+    for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
+      if (rows[q]) l += quad_Q<T, n, m>(rows[q], r, c);
     }
+    if (c == r) l += sl[Lay::hx + r];
+    return l;
+  }
+  __device__ __forceinline__ T lxu(int r, int c) const {
+    T l = T(0);
 #pragma unroll
-    for (int c = 0; c < m; ++c) {
-      T acc = P[r * n] * Bd[c];
-#pragma unroll
-      for (int j = 1; j < n; ++j) acc += P[r * n + j] * Bd[j * m + c];
-      PB[r * m + c] = acc;
+    for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
+      if (rows[q]) l += rows[q][CostRow<n, m>::H + r * m + c];
     }
-    T acc = A[r] * p[0];
-#pragma unroll
-    for (int j = 1; j < n; ++j) acc += A[j * n + r] * p[j];
-    qx = sl[Lay::lx + r] + acc;
+    return l;
   }
-  if (r < m) {
-    T acc = Bd[r] * p[0];
+  __device__ __forceinline__ T luu(int r, int c) const {
+    T l = T(0);
 #pragma unroll
-    for (int j = 1; j < n; ++j) acc += Bd[j * m + r] * p[j];
-    Qu[r] = sl[Lay::lu + r] + acc;
-  }
-  __syncwarp();
-
-  // rows r of Qxx = lxx + AᵀPA and Qxu = lxu + AᵀPB (this thread's only); Quu
-  T qxx[n], qxu[m];
-  if (r < n) {
-#pragma unroll
-    for (int c = 0; c < n; ++c) {
-      T l = T(0);
-#pragma unroll
-      for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
-        if (rows[q]) l += quad_Q<T, n, m>(rows[q], r, c);
-      }
-      if (c == r) l += sl[Lay::hx + r];
-      T acc = atp[0] * A[c];
-#pragma unroll
-      for (int j = 1; j < n; ++j) acc += atp[j] * A[j * n + c];
-      qxx[c] = l + acc;
+    for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
+      if (rows[q]) l += quad_R<T, n, m>(rows[q], r, c);
     }
-#pragma unroll
-    for (int c = 0; c < m; ++c) {
-      T l = T(0);
-#pragma unroll
-      for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
-        if (rows[q]) l += rows[q][CostRow<n, m>::H + r * m + c];
-      }
-      T acc = atp[0] * Bd[c];
-#pragma unroll
-      for (int j = 1; j < n; ++j) acc += atp[j] * Bd[j * m + c];
-      qxu[c] = l + acc;
-    }
+    if (c == r) l += sl[Lay::hu + r];
+    return l;
   }
-  if (r < m) {
-#pragma unroll
-    for (int c = 0; c < m; ++c) {
-      T l = T(0);
-#pragma unroll
-      for (int q = 0; q < ALTRO_MAX_FAMS; ++q) {
-        if (rows[q]) l += quad_R<T, n, m>(rows[q], r, c);
-      }
-      if (c == r) l += sl[Lay::hu + r];
-      T acc = Bd[r] * PB[c];
-#pragma unroll
-      for (int j = 1; j < n; ++j) acc += Bd[j * m + r] * PB[j * m + c];
-      Quu[r * m + c] = l + acc;
-    }
-  }
-  __syncwarp();
-
-  // Cholesky of Quu + ρI on every thread; column r of K (rhs: row r of
-  // Qxu), d on thread n; the gain guard
-  T Lc[m * m];
-  const bool fail_chol = chol<T, m>(Quu, rho, Lc);
-  bool big = false;
-  if (r <= n) {
-    T rhs[m], sol[m];
-#pragma unroll
-    for (int i = 0; i < m; ++i) rhs[i] = r < n ? qxu[i] : Qu[i];
-    chol_solve<T, m, 1>(Lc, rhs, sol);
-#pragma unroll
-    for (int i = 0; i < m; ++i) {
-      sol[i] = -sol[i];
-      big |= !(fabs(sol[i]) <= T(pr.gain_limit));
-      if (r < n) {
-        K[i * n + r] = sol[i];
-      } else {
-        d[i] = sol[i];
-      }
-    }
-  }
-  const unsigned lane = threadIdx.x % 32;
-  const unsigned gmask = (G == 32 ? 0xffffffffu : ((1u << G) - 1u)) << (lane / G * G);
-  const unsigned bigs = __ballot_sync(0xffffffffu, big);  // the whole warp, whatever fail_chol
-  const bool fail_k = fail_chol || (bigs & gmask) != 0u;
-  __syncwarp();
-
-  // p update and rows r of (Qxu K) and KᵀQuu K; ΔV on every thread
-  T pn = T(0), ktqk[n];
-  if (r < n) {
-    T ktq[m];
-#pragma unroll
-    for (int c = 0; c < m; ++c) {
-      T acc = K[r] * Quu[c];
-#pragma unroll
-      for (int j = 1; j < m; ++j) acc += K[j * n + r] * Quu[j * m + c];
-      ktq[c] = acc;
-    }
-    T v1 = ktq[0] * d[0], v2 = K[r] * Qu[0], v3 = qxu[0] * d[0];
-#pragma unroll
-    for (int j = 1; j < m; ++j) {
-      v1 += ktq[j] * d[j];
-      v2 += K[j * n + r] * Qu[j];
-      v3 += qxu[j] * d[j];
-    }
-    pn = qx + v1 + v2 + v3;
-#pragma unroll
-    for (int c = 0; c < n; ++c) {
-      T acc = qxu[0] * K[c], acc2 = ktq[0] * K[c];
-#pragma unroll
-      for (int j = 1; j < m; ++j) {
-        acc += qxu[j] * K[j * n + c];
-        acc2 += ktq[j] * K[j * n + c];
-      }
-      QK[r * n + c] = acc;
-      ktqk[c] = acc2;
-    }
-  }
-  T dV1 = d[0] * Qu[0];
-#pragma unroll
-  for (int i = 1; i < m; ++i) dV1 += d[i] * Qu[i];
-  T dV2 = T(0);
-#pragma unroll
-  for (int i = 0; i < m; ++i) {
-    T qd = Quu[i * m] * d[0];
-#pragma unroll
-    for (int j = 1; j < m; ++j) qd += Quu[i * m + j] * d[j];
-    dV2 = i == 0 ? d[0] * qd : dV2 + d[i] * qd;
-  }
-  dV2 = T(0.5) * dV2;
-  __syncwarp();
-
-  // P, p (frozen at the first failure), the gains out
-  cy.failed = cy.failed || fail_k;
-  if (r < n && !cy.failed) {
-#pragma unroll
-    for (int c = 0; c < n; ++c) P[r * n + c] = qxx[c] + ktqk[c] + QK[c * n + r] + QK[r * n + c];
-    p[r] = pn;
-  }
-  if (!cy.failed) {
-    cy.dv1 = cy.dv1 + dV1;
-    cy.dv2 = cy.dv2 + dV2;
-  }
-  if (b < a.B && r <= n) {
-    const long Bl = a.B;
-#pragma unroll
-    for (int i = 0; i < m; ++i) {
-      if (r < n) {
-        static_cast<T*>(a.K)[((long(k) * m + i) * n + r) * Bl + b] = K[i * n + r];
-      } else {
-        static_cast<T*>(a.d)[(long(k) * m + i) * Bl + b] = d[i];
-      }
-    }
-  }
-  __syncwarp();
-}
+};
 
 template <typename T, class Model>
 __global__ void __launch_bounds__(kBwdMaxThreads)
@@ -465,7 +286,9 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ prg)
   const bool lane_ok = tid < ncons && l < L && b < a.B;
   const T rho = lane_ok ? static_cast<const T*>(a.rho)[b] : T(0);
   T* sc = reinterpret_cast<T*>(smem + lay.scr) + (l < L ? l : 0) * Lay::scratch;
-  Carry<T> cy;
+  const T glim = T(pr.gain_limit);
+  T J = T(0), comp = T(0);  // J0's Kahan sum, on thread r == 0
+  SweepCarry<T> cy;
 
   // chunk c is produced in iteration c and swept in iteration c + 1, in the
   // other buffer; the barrier ends each iteration
@@ -481,8 +304,14 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ prg)
         const int pos = (c - 1) * KC + kc;
         if (pos > N) break;
         const T* sl = buf + (kc * L + l) * Lay::slot;
-        if (r == 0) add_terms<T>(pr, pos == 0, sl + Lay::terms, cy.J, cy.comp);
-        sweep_knot_group<T, Model>(a, pr, ctab, N - pos, sl, sc, rho, cy, b, r);
+        if (r == 0) add_terms<T>(pr, pos == 0, sl + Lay::terms, J, comp);
+        const FusedKnot<T, Model> src(pr, ctab, N - pos, sl);
+        if (pos == 0) {
+          sweep_terminal_group<T, Model::n, Model::m>(src, sc, r);
+        } else {
+          sweep_knot_group<T, Model::n, Model::m>(src, sc, rho, glim, cy, r, static_cast<T*>(a.K),
+                                                  static_cast<T*>(a.d), N - pos, b, a.B);
+        }
       }
     }
     __syncthreads();
@@ -492,7 +321,7 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ prg)
     static_cast<T*>(a.dV1)[b] = cy.dv1;
     static_cast<T*>(a.dV2)[b] = cy.dv2;
     static_cast<int*>(a.failed)[b] = cy.failed ? 1 : 0;
-    static_cast<T*>(a.J0)[b] = sub_rn(cy.J, cy.comp);
+    static_cast<T*>(a.J0)[b] = sub_rn(J, comp);
   }
 }
 

@@ -1,10 +1,11 @@
-// Per-lane small-matrix algebra for the fused kernels: one thread owns one
-// batch lane and keeps its matrices in registers.
+// Per-lane arithmetic of the kernels: compensated sums, and the small
+// Cholesky factorization and solve that every thread of a sweep group runs
+// on its lane's m×m Quu (sweep_group.cuh), in registers.
 //
-// Counterpart of the unrolled tile helpers _mm, _mv, _mT, _chol and
-// _chol_solve_mat of altro_tpu/ops/riccati_pallas.py:37-108.  Matrices are
-// row-major arrays whose sizes are template constants, so every loop below
-// unrolls and every entry lives in a register.
+// Counterpart of the unrolled tile helpers _chol and _chol_solve_mat of
+// altro_tpu/ops/riccati_pallas.py:37-108.  Matrices are row-major arrays
+// whose sizes are template constants, so every loop below unrolls and
+// every entry lives in a register.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -33,61 +34,6 @@ __device__ __forceinline__ void kahan_add(T& J, T& comp, T term) {
 template <typename T>
 __device__ __forceinline__ T nan_max(T s, T lo) {
   return (s >= lo || s != s) ? s : lo;
-}
-
-// ------------------------------------------------------------ products
-// out[I][K] = a[I][J] b[J][K]
-template <typename T, int I, int J, int K>
-__device__ __forceinline__ void mm(const T* a, const T* b, T* out) {
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      T acc = a[i * J] * b[k];
-#pragma unroll
-      for (int j = 1; j < J; ++j) acc += a[i * J + j] * b[j * K + k];
-      out[i * K + k] = acc;
-    }
-  }
-}
-
-// out[I][K] = aᵀ b with a stored [J][I]
-template <typename T, int I, int J, int K>
-__device__ __forceinline__ void mtm(const T* a, const T* b, T* out) {
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      T acc = a[i] * b[k];
-#pragma unroll
-      for (int j = 1; j < J; ++j) acc += a[j * I + i] * b[j * K + k];
-      out[i * K + k] = acc;
-    }
-  }
-}
-
-// out[I] = a[I][J] v[J]
-template <typename T, int I, int J>
-__device__ __forceinline__ void mv(const T* a, const T* v, T* out) {
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-    T acc = a[i * J] * v[0];
-#pragma unroll
-    for (int j = 1; j < J; ++j) acc += a[i * J + j] * v[j];
-    out[i] = acc;
-  }
-}
-
-// out[I] = aᵀ v with a stored [J][I]
-template <typename T, int I, int J>
-__device__ __forceinline__ void mtv(const T* a, const T* v, T* out) {
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-    T acc = a[i] * v[0];
-#pragma unroll
-    for (int j = 1; j < J; ++j) acc += a[j * I + i] * v[j];
-    out[i] = acc;
-  }
 }
 
 // ------------------------------------------------------------ Cholesky

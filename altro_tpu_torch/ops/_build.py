@@ -90,7 +90,7 @@ class RiccatiArgs(ctypes.Structure):
         (name, _ptr) for name in (
             "A", "Bd", "lxx", "lxu", "luu", "lx", "lu", "rho", "K", "d", "dV1", "dV2", "failed",
         )
-    ] + [("gain_limit", _dbl), ("N", _int), ("B", _int)]
+    ] + [("gain_limit", _dbl), ("N", _int), ("B", _int), ("geo", Geometry)]
 
 
 # (n, m) of the Riccati sweep's instantiations in csrc/riccati.cu

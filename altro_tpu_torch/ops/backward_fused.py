@@ -52,16 +52,17 @@ CUDA_MODELS = {
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
-# The launch geometry of the fused kernels on the H100 (csrc/altro_abi.h:
+# The launch geometry of the kernels on the H100 (csrc/altro_abi.h:
 # AltroGeometry).  Blocks of LANES lanes, so that B=2048 launches 256 blocks
 # on the card's SMS multiprocessors; the backward kernel adds PRODUCERS
 # threads that build the expansions beside the sweep's threads (a group per
 # lane, `sweep_group`); the forward kernel has two warps, the lanes'
-# rollouts and their cost terms with the input staging.  A pipeline's first
+# rollouts and their cost terms with the input staging; the Riccati kernel
+# (ops/riccati.py) a group per lane and a copy warp.  A pipeline's first
 # chunk of knots is not overlapped (the sweep waits for its expansions, the
-# rollouts for its staged inputs), so a chunk holds at most PRODUCER_ROUNDS
-# rounds of the producers' items, or FWD_STAGE_WORDS staged words
-# (`chunk_knots`).
+# rollouts for their staged inputs), so a chunk holds at most
+# PRODUCER_ROUNDS rounds of the producers' items, or STAGE_WORDS staged
+# values (`chunk_knots`).
 SMS = 132
 SMEM_MAX = 232_448  # dynamic shared memory one block may use on the H100, bytes
 TABLE_SMEM = 16_384  # the largest cost table staged in shared memory, bytes
@@ -69,7 +70,7 @@ LANES = 8
 PRODUCERS = 128
 PRODUCER_ROUNDS = 8
 FWD_THREADS = 64
-FWD_STAGE_WORDS = 8192
+STAGE_WORDS = 8192
 MAX_KNOTS = 16
 
 
@@ -79,8 +80,14 @@ def _align16(nbytes: int) -> int:
 
 def sweep_group(n: int) -> int:
     """Threads per lane in the backward sweep, one per row and one more,
-    rounded up to a power of two (csrc/backward_fused.cu:BwdLayout::G)."""
+    rounded up to a power of two (csrc/sweep_group.cuh:sweep_group_size)."""
     return 4 if n < 4 else 8 if n < 8 else 16
+
+
+def sweep_scratch(n: int, m: int) -> int:
+    """Values of one lane's sweep scratch (csrc/sweep_group.cuh:
+    SweepScratch): P, p, PB, Quu, Qu, K, d, QK."""
+    return 2 * n * n + n + 2 * n * m + m * m + 2 * m
 
 
 def backward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int) -> int:
@@ -88,11 +95,10 @@ def backward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_sme
     the chunk's x, u, two expansion buffers, the cooperative sweep's
     scratch."""
     slot = (n * n + n * m + 2 * n + 2 * m + 2 * _build.MAX_FAMS) | 1
-    scratch = 2 * n * n + n + 2 * n * m + m * m + 2 * m
     return (
         _align16(ctypes.sizeof(_build.Problem)) + _align16(tab_smem * itemsize)
         + _align16(knots * lanes * (n + m) * itemsize) + _align16(2 * knots * lanes * slot * itemsize)
-        + _align16(lanes * scratch * itemsize)
+        + _align16(lanes * sweep_scratch(n, m) * itemsize)
     )
 
 
@@ -109,12 +115,12 @@ def forward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem
     )
 
 
-def chunk_knots(per_knot: int, budget: int, smem) -> int:
+def chunk_knots(per_knot: int, budget: int, smem, limit: int = SMEM_MAX) -> int:
     """Knots per pipeline chunk: the largest power of two up to MAX_KNOTS
     whose chunk holds at most `budget` items, `per_knot` to a knot, and
-    whose block's `smem(knots)` bytes fit SMEM_MAX."""
+    whose block's `smem(knots)` bytes fit `limit`."""
     knots = MAX_KNOTS
-    while knots > 1 and (knots * per_knot > budget or smem(knots) > SMEM_MAX):
+    while knots > 1 and (knots * per_knot > budget or smem(knots) > limit):
         knots //= 2
     return knots
 

@@ -28,7 +28,7 @@ import torch
 
 from . import _build
 from .backward_fused import (
-    FWD_STAGE_WORDS, FWD_THREADS, LANES, TABLE_SMEM, FusedKernel, Geometry, Ineligible, PaddedAL, _ptr,
+    FWD_THREADS, LANES, STAGE_WORDS, TABLE_SMEM, FusedKernel, Geometry, Ineligible, PaddedAL, _ptr,
     chunk_knots, forward_smem,
 )
 
@@ -43,10 +43,10 @@ class ForwardKernel(FusedKernel):
     KIND = "forward"
 
     def _chunk_knots(self) -> int:
-        """Knots per chunk: at most FWD_STAGE_WORDS staged input words."""
+        """Knots per chunk: at most STAGE_WORDS staged input words."""
         n, m, item, Ps, Fs = self.n, self.m, self._itemsize, self.Ps, self.Fs
         return chunk_knots(
-            LANES * (n + 2 * m + m * n + Ps + Fs), FWD_STAGE_WORDS,
+            LANES * (n + 2 * m + m * n + Ps + Fs), STAGE_WORDS,
             lambda knots: forward_smem(n, m, item, LANES, knots, TABLE_SMEM // item, Ps, Fs),
         )
 

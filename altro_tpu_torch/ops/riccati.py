@@ -4,12 +4,16 @@ Replaces the TPU kernel `altro_tpu/ops/riccati_pallas.py:riccati_pallas`
 (body `_kernel`, :111-187), with its contract: the sweep over materialized
 expansions `exp` (A [N,n,n,B], B [N,n,m,B], lxx/lxu/luu/lx/lu [N+1,…,B])
 and a per-lane regularization ρ [B], returning
-`(K [N,m,n,B], d [N,m,B], dV1 [B], dV2 [B], failed [B] bool)`.  One thread
-per batch lane streams the horizon backwards with the cost-to-go carry in
-registers; the step is `csrc/riccati_step.cuh`, the function the fused
-backward kernel calls too.  Bytes bound it on the H100 (the source note in
-`csrc/riccati.cu` gives the counts).  Unlike the TPU kernel it takes any
-batch width: the last block masks its ragged edge.
+`(K [N,m,n,B], d [N,m,B], dV1 [B], dV2 [B], failed [B] bool)`.  A block
+owns LANES lanes and runs each lane's sweep on a group of `sweep_group(n)`
+threads with the carry in shared memory, the step of
+`csrc/sweep_group.cuh` that the fused backward kernel runs too, while a
+copy warp stages the next chunk of knots' expansions in shared memory.
+Bytes bound it on the H100 (the source note in `csrc/riccati.cu` gives the
+counts).  `geometry` chooses the launch, once per (n, m, dtype); the
+kernel checks the shared-memory layout it is given against its own.
+Unlike the TPU kernel it takes any batch width: the last block masks its
+ragged edge.
 
 The kernel is instantiated for float32 and float64 at the (n, m) of the
 port's models (`_build.RICCATI_SHAPES`); any other shape or type raises
@@ -21,15 +25,48 @@ For CUDA tensors the wrapper launches the kernel or raises.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from ..solver.batched import chol_solve_mat, chol_solve_vec, dotv, mm, mT, mv
 from . import _build
-from .backward_fused import _SUFFIX, Ineligible, _ptr
+from .backward_fused import (
+    _SUFFIX, LANES, STAGE_WORDS, Geometry, Ineligible, _align16, _ptr, chunk_knots, sweep_group,
+    sweep_scratch,
+)
 
 __all__ = ["Ineligible", "RiccatiKernel", "riccati_plain"]
 
+SMEM_SM = 233_472  # shared memory of one H100 multiprocessor, bytes; 1,024 of it kept per block
+COPY_THREADS = 32  # the copy warp
+
+
+def blocks_per_sm(n: int) -> int:
+    """Blocks a multiprocessor must hold by shared memory: four where the
+    sweep's groups have at most 8 threads, so that B=4096 (512 blocks) runs
+    in one wave on the 132; two at n=13, whose 160-thread blocks take 168
+    registers a thread or more, so that two fill the register file whatever
+    the shared memory (csrc/riccati.cu:ric_min_blocks)."""
+    return 2 if sweep_group(n) == 16 else 4
+
 _EXP_KEYS = ("A", "B", "lxx", "lxu", "luu", "lx", "lu")
+
+
+def staged_entries(n: int, m: int) -> int:
+    """Values of one knot that the kernel stages per lane: A, B, lxx, lxu,
+    luu, lx, lu."""
+    return 2 * n * n + 2 * n * m + m * m + n + m
+
+
+def riccati_smem(n: int, m: int, itemsize: int, lanes: int, knots: int) -> int:
+    """Bytes of csrc/riccati.cu:RicLayout: two buffers of one run per
+    16-byte vector of lanes (knots × entries × lanes of the vector; a run
+    rounded up to 128 bytes plus 64, so that runs start in other banks),
+    then the sweep's per-lane scratch."""
+    vec = 16 // itemsize
+    run = -(-knots * staged_entries(n, m) * 16 // 128) * 128 + 64
+    return 2 * (lanes // vec) * run + _align16(lanes * sweep_scratch(n, m) * itemsize)
 
 
 def chol_nan_safe(M, diag_add):
@@ -113,8 +150,32 @@ class RiccatiKernel:
         self.gain_limit = float(gain_limit)
         self.dtype = dtype
         self.entry = f"altro_riccati_n{n}m{m}_{_SUFFIX[dtype]}"
+        self._geo = self._layout(torch.finfo(dtype).bits // 8)
+        self._geo_abi = self._geo.abi()
         # launches of the CUDA kernel (never of the plain version)
         self.launches = 0
+
+    def _layout(self, itemsize: int) -> Geometry:
+        """Blocks of LANES lanes, a group of `sweep_group(n)` threads per
+        lane and the copy warp; knots per chunk with at most STAGE_WORDS
+        staged values and `blocks_per_sm(n)` blocks' shared memory on one
+        multiprocessor."""
+        n, m = self.n, self.m
+        g = sweep_group(n)
+
+        def smem(knots):
+            return riccati_smem(n, m, itemsize, LANES, knots)
+
+        limit = SMEM_SM // blocks_per_sm(n) - 1024
+        knots = chunk_knots(LANES * staged_entries(n, m), STAGE_WORDS, smem, limit)
+        return Geometry(
+            lanes=LANES, knots=knots, group=g, threads=LANES * g + COPY_THREADS, smem=smem(knots),
+            tab_smem=0,
+        )
+
+    def geometry(self, B: int) -> Geometry:
+        """The launch geometry at batch width B."""
+        return dataclasses.replace(self._geo, blocks=-(-B // self._geo.lanes))
 
     def plain(self, exp, rho):
         """The plain PyTorch version of the kernel."""
@@ -152,7 +213,7 @@ class RiccatiKernel:
             A=_ptr(ins["A"]), Bd=_ptr(ins["B"]), lxx=_ptr(ins["lxx"]), lxu=_ptr(ins["lxu"]),
             luu=_ptr(ins["luu"]), lx=_ptr(ins["lx"]), lu=_ptr(ins["lu"]), rho=_ptr(ins["rho"]),
             K=_ptr(K), d=_ptr(d), dV1=_ptr(dV1), dV2=_ptr(dV2), failed=_ptr(failed),
-            gain_limit=self.gain_limit, N=N, B=B,
+            gain_limit=self.gain_limit, N=N, B=B, geo=self._geo_abi,
         )
         with torch.cuda.device(dev):
             lib.launch(self.entry, args, torch.cuda.current_stream(dev).cuda_stream)

@@ -54,11 +54,15 @@ F32_REL = dict(K=3e-4, d=3e-4, dV1=8e-6, dV2=8e-6, J0=2e-6, Xn=2e-6, Ubar=2e-6, 
 # the Riccati kernel per problem.  Observed on an H100 (700 W), largest over
 # the cases: parking K 7.3e-5, d 4.3e-5, dV1 1.0e-6, dV2 9.4e-7; quadrotor
 # (ρ=1e3) K 1.3e-2, d 1.9e-3, dV1 9.9e-6, dV2 1.0e-5; cartpole K 1.6e-5, d
-# 1.8e-5, dV1 2.1e-6, dV2 1.8e-6
+# 1.8e-5, dV1 2.1e-6, dV2 1.8e-6; triple integrator K 3.8e-3, d 3.7e-3,
+# dV1 5.0e-5, dV2 3.4e-4 (its terminal weight 1e5 and |K| up to ~800 at
+# ρ=0 make it round coarsest: the plain float32 sweep is as far off the
+# float64 one)
 RICCATI_F32_REL = dict(
     parking=dict(K=5e-4, d=3e-4, dV1=8e-6, dV2=8e-6),
     quadrotor=dict(K=1e-1, d=1.5e-2, dV1=8e-5, dV2=8e-5),
     cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=1.5e-5, dV2=1.5e-5),
+    triple=dict(K=3e-2, d=3e-2, dV1=3e-4, dV2=2e-3),
 )
 
 # the fused kernels on the zoo's problems.  Observed on an H100 (700 W),
@@ -81,8 +85,8 @@ F32_VS_F64_RATIO = 4.0
 # case), and at ρ=0 every lane fails.  In float32 the same move is 2^29
 # times larger, so float32 is held at ρ=1e3 only (and at ρ=0, flags alone).
 RHOS = dict(
-    f64=dict(parking=(0.0, 0.37), quadrotor=(0.0, 10.0, 1e3), cartpole=(0.0, 0.37)),
-    f32=dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37)),
+    f64=dict(parking=(0.0, 0.37), quadrotor=(0.0, 10.0, 1e3), cartpole=(0.0, 0.37), triple=(0.0, 0.37)),
+    f32=dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37), triple=(0.0, 0.37)),
 )
 
 

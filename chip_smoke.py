@@ -18,22 +18,29 @@ in parallel), then:
      reference golden (14 total / 5 outer iterations,
      J = 0.03893465058924039);
   4. checks the Riccati kernel against its plain version on the parking
-     expansions (N=100, B=4096 and B=1000) and at the model zoo's shapes
-     (quadrotor n=13 N=50, cartpole n=4 N=60, B=2048), float64 and float32;
+     expansions (N=100, B=4096 and B=1000), at the model zoo's shapes
+     (quadrotor n=13 N=50, cartpole n=4 N=60, B=2048) and on the triple
+     integrator's (n=6, N=10, B=2048), float64 and float32;
   5. drives `backward_pass="pallas"` (the Riccati kernel over the eager
      expansions) through `CompactedALSolver` on the B=4096 parking fleet,
      and the float64 golden through the Riccati kernel;
   6. checks the fused kernels against their plain versions at the zoo's
      shapes, and drives the model zoo (perf/benchmark_zoo.py) through them:
      quadrotor and cartpole fleets (B=2048) held against the plain path;
-  7. times each fused kernel instance in f32 against the batch width
-     (kernel_scaling: parking, cartpole and quadrotor at B = 1024, 2048,
-     4096 and 16384, with the forward kernel's chain alone beside it);
+  7. times each kernel instance in f32 against the batch width
+     (kernel_scaling, B = 1024, 2048, 4096 and 16384): the fused kernels at
+     parking, cartpole and quadrotor, with the forward kernel's chain alone
+     beside them, and the Riccati kernel at its four instances;
   8. traces one solve of each parking path with torch.profiler: device
      time, busy share, the largest device events.
 Each phase prints one JSON line.  `--phase NAME` (repeatable) runs only the
 named phases after the build, for measuring, and then prints the card but
-no kernel summary or result line.  The last lines are the card's name and
+no kernel summary or result line.  With `--package-root DIR` those phases
+run on the package of another checkout (a parent commit unpacked into
+`_work/`), so that two versions are measured in one call;
+`--phase fused_digest` (not part of the full run) hashes the fused
+backward kernel's outputs and compares them with another run's (`--dump`,
+`--against`).  The last lines are the card's name and
 power limit (nvidia-smi), the kernel summary, and
 `{"ok": true, "device": {...}}`.  Without a CUDA device, or when any check
 fails, it exits non-zero and prints no result.  Imports nothing of JAX.
@@ -109,6 +116,33 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def dev_us(e) -> float:
+    """Device microseconds of a torch.profiler key_averages() entry."""
+    return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+
+def device_ms(fn, reps: int, kernel: str):
+    """Mean device milliseconds per launch of the kernel whose name holds
+    `kernel` over `reps` calls of `fn()`, traced by torch.profiler after one
+    warm-up call: the kernel's own time.  CUDA events around `fn()`
+    (cuda_ms) also count the host's work before the launch while the card
+    waits, about 0.1 ms for these wrappers.  The trace may hold fewer
+    launches than were made (an H100 trace once kept 3 of 10); the mean is
+    over those it holds, None when it holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    _sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        _sync()
+    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU and kernel in e.key]
+    count = sum(e.count for e in rows)
+    return sum(dev_us(e) for e in rows) / count / 1e3 if count else None
+
+
 def fleet_trajectory(defn, B):
     return replicate(defn.initial_trajectory(), B)
 
@@ -152,7 +186,8 @@ def _mm_flops(i, j, k):
 
 def riccati_step_flops(n, m) -> int:
     """Floating-point operations of one knot of the Riccati step
-    (csrc/riccati_step.cuh), per lane."""
+    (csrc/sweep_group.cuh:sweep_knot_group), per lane, each counted once
+    (every thread of a lane's group repeats the m×m Cholesky)."""
     f = 2 * _mm_flops(n, n, n) + n * n  # AᵀP, AᵀP·A, + lxx
     f += 2 * _mm_flops(n, n, m) + n * m  # AᵀP·B, P·B, + lxu
     f += _mm_flops(m, n, m) + m * m  # Bᵀ(PB) + luu
@@ -352,8 +387,10 @@ def phase_kernels(dev) -> dict:
         a1 = torch.ones((B,), dtype=dtype, device=dev)
         times = dict(
             backward_ms=cuda_ms(lambda: bk(params, ap, Zb, rho0), 20),
+            backward_device_ms=device_ms(lambda: bk(params, ap, Zb, rho0), 20, "backward_fused_kernel"),
             backward_plain_ms=cuda_ms(lambda: bk.plain(params, ap, Zb, rho0), 3),
             forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 20),
+            forward_device_ms=device_ms(lambda: fk(params, ap, Zb, K, d, a1), 20, "forward_kernel"),
             forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
         )
         emit({"phase": "kernel_vs_plain", "dtype": tag, "N": N, "B": B,
@@ -361,13 +398,13 @@ def phase_kernels(dev) -> dict:
         item = torch.finfo(dtype).bits // 8
         summary["backward_fused"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_b.values() for k in ("K", "d")),
-            ms=times["backward_ms"], plain_ms=times["backward_plain_ms"],
-            work=fused_work(bk, B, item),
+            ms=times["backward_ms"], device_ms=times["backward_device_ms"],
+            plain_ms=times["backward_plain_ms"], work=fused_work(bk, B, item),
         )
         summary["forward"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_f.values() for k in ("Xn", "Ubar")),
-            ms=times["forward_ms"], plain_ms=times["forward_plain_ms"],
-            work=forward_work(fk, B, item),
+            ms=times["forward_ms"], device_ms=times["forward_device_ms"],
+            plain_ms=times["forward_plain_ms"], work=forward_work(fk, B, item),
         )
     return summary
 
@@ -590,13 +627,38 @@ def riccati_check(kern, exp, dtype, name, rng) -> dict:
     return out
 
 
-def phase_riccati_vs_plain(dev) -> dict:
-    """The Riccati kernel against its plain version: parking expansions
-    (N=100, B=4096 and B=1000, as phase_kernels builds them), and the zoo's
-    quadrotor (N=50) and cartpole (N=60) at B=2048; f64 and f32."""
+def riccati_fleet(name, B, dtype, dev, rng):
+    """(problem, Z0, x0s [n, B]) of one Riccati-kernel instance at B lanes,
+    x0s drawn from `rng`: parking (3,2) N=100 (x0 in ±0.1), the zoo's
+    cartpole (4,1) N=60 and quadrotor (13,4) N=50 (x0 spread 0.05), or the
+    triple integrator (6,2) at its own N=10 with its control bounds and
+    goal (x0 spread 0.05; the model without a device functor, which takes
+    the fused path's fallback).  `riccati_inputs` gives the expansions."""
     import torch
 
-    from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.models.problems import (
+        TripleIntegratorProblem, UnicycleProblem, zoo_cartpole, zoo_quadrotor,
+    )
+
+    if name == "parking":
+        defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+        prob, Z0 = defn.make_problem().compile(), defn.initial_trajectory()
+        return prob, Z0, torch.as_tensor(rng.uniform(-0.1, 0.1, (3, B)), device=dev).to(dtype)
+    if name == "triple":
+        defn = TripleIntegratorProblem(dtype=dtype, device=dev)
+        prob, Z0 = defn.make_problem(add_constraints=True).compile(), defn.initial_trajectory()
+        return prob, Z0, zoo_x0s(torch.as_tensor(defn.x0, device=dev), B, rng).to(dtype)
+    prob, Z0, x0, _ = (zoo_quadrotor if name == "quadrotor" else zoo_cartpole)(dtype=dtype, device=dev)
+    return prob, Z0, zoo_x0s(x0, B, rng).to(dtype)
+
+
+def phase_riccati_vs_plain(dev) -> dict:
+    """The Riccati kernel against its plain version: parking expansions
+    (N=100, B=4096 and B=1000, as phase_kernels builds them), the zoo's
+    quadrotor (N=50) and cartpole (N=60) and the triple integrator (N=10)
+    at B=2048; f64 and f32."""
+    import torch
+
     from altro_tpu_torch.ops import tolerances as tol
     from altro_tpu_torch.ops.riccati import RiccatiKernel
 
@@ -606,14 +668,11 @@ def phase_riccati_vs_plain(dev) -> dict:
         item = torch.finfo(dtype).bits // 8
         setups = []
         for B in (B_FLEET, 1000):
-            defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
             rng = np.random.default_rng(42)
-            x0s = torch.as_tensor(rng.uniform(-0.1, 0.1, (3, B)), device=dev).to(dtype)
-            setups.append(("parking", defn.make_problem().compile(), defn.initial_trajectory(), x0s, rng))
-        rng = np.random.default_rng(0)
-        for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole)):
-            prob, Z0, x0, _ = build(dtype=dtype, device=dev)
-            setups.append((name, prob, Z0, zoo_x0s(x0, ZOO_BATCH, rng).to(dtype), rng))
+            setups.append(("parking", *riccati_fleet("parking", B, dtype, dev, rng), rng))
+        rng = np.random.default_rng(0)  # the B=2048 fleets' x0 first, then their AL states
+        for name in ("quadrotor", "cartpole", "triple"):
+            setups.append((name, *riccati_fleet(name, ZOO_BATCH, dtype, dev, rng), rng))
         for name, prob, Z0, x0s, rng_s in setups:
             exp = riccati_inputs(prob, Z0, x0s, dtype, dev, rng_s)
             Nk, n, m, B = prob.N, prob.n, prob.m, x0s.shape[-1]
@@ -621,17 +680,20 @@ def phase_riccati_vs_plain(dev) -> dict:
             errs = riccati_check(kern, exp, dtype, name, rng_s)
             rho = torch.full((B,), tol.RHOS[tag][name][-1], dtype=dtype, device=dev)
             ms = cuda_ms(lambda: kern(exp, rho), 20)
+            dms = device_ms(lambda: kern(exp, rho), 20, "riccati_kernel")
             plain_ms = cuda_ms(lambda: kern.plain(exp, rho), 3)
             work = riccati_work(Nk, n, m, B, item)
             bound_ms, bound_by = bound(*work, tag)
+            geo = kern.geometry(B)
             emit({"phase": "riccati_vs_plain", "problem": name, "dtype": tag, "n": n, "m": m,
                   "N": Nk, "B": B, "cases": errs, "timed_rho": float(rho[0]), "ms": ms,
-                  "plain_ms": plain_ms, "bytes": work[0], "flops": work[1],
-                  "bound_ms": bound_ms, "bound_by": bound_by})
+                  "device_ms": dms, "plain_ms": plain_ms, "bytes": work[0], "flops": work[1],
+                  "bound_ms": bound_ms, "bound_by": bound_by, "blocks": geo.blocks,
+                  "threads": geo.threads, "knots": geo.knots, "smem": geo.smem})
             if (name, B) == ("parking", B_FLEET):
                 summary[tag] = dict(
                     max_abs_err=max(c[k]["max_abs"] for c in errs.values() for k in ("K", "d")),
-                    ms=ms, plain_ms=plain_ms, work=work,
+                    ms=ms, device_ms=dms, plain_ms=plain_ms, work=work,
                 )
     return summary
 
@@ -970,18 +1032,18 @@ def phase_zoo(dev) -> dict:
     return launches
 
 
-def scaling_fleet(name, B, dev):
-    """The f32 problem, fleet trajectory (rolled out from the instance's own
-    start) and warm AL state of one fused-kernel instance at B lanes:
-    parking N=100 (x0 in ±0.1), or the zoo's quadrotor N=50 or cartpole N=60
-    (x0 spread 0.05)."""
+def scaling_fleet(name, B, dev, dtype=None):
+    """The problem (f32 unless `dtype` says otherwise), fleet trajectory
+    (rolled out from the instance's own start) and warm AL state of one
+    fused-kernel instance at B lanes: parking N=100 (x0 in ±0.1), or the
+    zoo's quadrotor N=50 or cartpole N=60 (x0 spread 0.05)."""
     import torch
 
     from altro_tpu_torch import SolverOptions
     from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
     from altro_tpu_torch.solver.batched import ALSolverBatched
 
-    dtype = torch.float32
+    dtype = dtype or torch.float32
     rng = np.random.default_rng(0)
     if name == "parking":
         defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
@@ -996,13 +1058,18 @@ def scaling_fleet(name, B, dev):
 
 
 def phase_kernel_scaling(dev) -> None:
-    """Each fused kernel instance in f32 against the batch width: parking
-    (N=100), cartpole (N=60) and quadrotor (N=50) at B in SCALING_B, timed
-    with CUDA events (median of SCALING_REPS launches).  The backward kernel
-    runs at the instance's largest f32 ρ, the forward kernel rolls out the
-    gains it returned with α = 1, and once more with `chain_only` (its
-    inputs replayed from shared memory: the time of the rollout's chain
-    alone, the floor of its design).  Per launch: ms, µs per knot and the
+    """Each kernel instance in f32 against the batch width, timed with CUDA
+    events (median of SCALING_REPS launches).  The fused kernels at parking
+    (N=100), cartpole (N=60) and quadrotor (N=50), B in SCALING_B: the
+    backward kernel at the instance's largest f32 ρ, the forward kernel
+    rolling out the gains it returned with α = 1, and once more with
+    `chain_only` (its inputs replayed from shared memory: the time of the
+    rollout's chain alone, the floor of its design).  The Riccati kernel
+    at each of its instances (riccati_fleet: parking, cartpole, quadrotor,
+    triple integrator) over the eager expansions, at ρ = 1e3, where no lane
+    fails (its time does not depend on ρ).  Per launch: ms (CUDA events
+    around the wrapper's call, the host's preparation of the launch
+    included), device ms (the kernel alone, `device_ms`), the bound and the
     grid the wrapper launches.  A time flat in B is a latency-bound chain;
     one that grows with B has filled the card."""
     import torch
@@ -1022,19 +1089,122 @@ def phase_kernel_scaling(dev) -> None:
             a1 = torch.ones((B,), dtype=torch.float32, device=dev)
             K, d = bk(params, ap, Zb, rho)[:2]
             ms_b = cuda_ms(lambda: bk(params, ap, Zb, rho), SCALING_REPS)
+            dev_b = device_ms(lambda: bk(params, ap, Zb, rho), SCALING_REPS, "backward_fused_kernel")
             ms_f = cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), SCALING_REPS)
+            dev_f = device_ms(lambda: fk(params, ap, Zb, K, d, a1), SCALING_REPS, "forward_kernel")
             ms_chain = cuda_ms(lambda: fk(params, ap, Zb, K, d, a1, chain_only=True), SCALING_REPS)
+            dev_chain = device_ms(lambda: fk(params, ap, Zb, K, d, a1, chain_only=True), SCALING_REPS,
+                                  "forward_kernel")
             gb, gf = bk.geometry(B, params), fk.geometry(B, params)
             emit(dict(
                 phase="kernel_scaling", problem=name, N=prob.N, B=B,
                 backward_bound=bound(*fused_work(bk, B, 4), "f32"),
                 forward_bound=bound(*forward_work(fk, B, 4), "f32"),
-                backward_ms=ms_b, backward_us_per_knot=ms_b * 1e3 / prob.N,
+                backward_ms=ms_b, backward_device_ms=dev_b, backward_us_per_knot=ms_b * 1e3 / prob.N,
                 backward_blocks=gb.blocks, backward_threads=gb.threads, backward_smem=gb.smem,
-                forward_ms=ms_f, forward_us_per_knot=ms_f * 1e3 / prob.N,
-                forward_chain_ms=ms_chain, forward_blocks=gf.blocks, forward_threads=gf.threads,
-                forward_smem=gf.smem,
+                forward_ms=ms_f, forward_device_ms=dev_f, forward_us_per_knot=ms_f * 1e3 / prob.N,
+                forward_chain_ms=ms_chain, forward_chain_device_ms=dev_chain, forward_blocks=gf.blocks,
+                forward_threads=gf.threads, forward_smem=gf.smem,
             ))
+    riccati_scaling(dev)
+
+
+def riccati_scaling(dev) -> None:
+    """The Riccati kernel's part of kernel_scaling (see there)."""
+    import torch
+
+    from altro_tpu_torch.ops.riccati import RiccatiKernel
+
+    for name in ("parking", "cartpole", "quadrotor", "triple"):
+        for B in SCALING_B:
+            rng = np.random.default_rng(0)
+            prob, Z0, x0s = riccati_fleet(name, B, torch.float32, dev, rng)
+            exp = riccati_inputs(prob, Z0, x0s, torch.float32, dev, rng)
+            Nk, n, m = prob.N, prob.n, prob.m
+            kern = RiccatiKernel(n, m, dtype=torch.float32)
+            rho = torch.full((B,), 1e3, dtype=torch.float32, device=dev)
+            ms = cuda_ms(lambda: kern(exp, rho), SCALING_REPS)
+            dms = device_ms(lambda: kern(exp, rho), SCALING_REPS, "riccati_kernel")
+            # a checkout from before the kernel took its geometry from the
+            # wrapper (--package-root) launched ceil(B/128) blocks of 128
+            geo = kern.geometry(B) if hasattr(kern, "geometry") else None
+            emit(dict(
+                phase="kernel_scaling", kernel="riccati", problem=name, n=n, m=m, N=Nk, B=B,
+                ms=ms, device_ms=dms, us_per_knot=ms * 1e3 / Nk,
+                bound=bound(*riccati_work(Nk, n, m, B, 4), "f32"),
+                blocks=geo.blocks if geo else -(-B // 128), threads=geo.threads if geo else 128,
+                knots=geo.knots if geo else None, smem=geo.smem if geo else 0,
+            ))
+
+
+def phase_fused_digest(dev, dump=None, against=None) -> None:
+    """The fused backward kernel's outputs (K, d, ΔV1, ΔV2, failed, J0) on
+    phase_kernels' inputs (parking N=100, B=4096, ρ = 0 and 0.37) and at
+    the zoo's shapes (quadrotor N=50, cartpole N=60, B=2048, at their
+    tolerances.RHOS), f64 and f32: a SHA-256 of each output's bytes.  With
+    --dump DIR the outputs are saved there; with --against DIR they are
+    compared with the outputs another run saved (for instance from another
+    checkout's package, --package-root), bit for bit and by the largest
+    difference, NaNs included.  `dump`, `against`: those directories."""
+    import hashlib
+
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    names = ("K", "d", "dV1", "dV2", "failed", "J0")
+    saved = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        # phase_kernels' inputs
+        defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+        prob = defn.make_problem().compile()
+        ev = ALSolverBatched(prob, SolverOptions())
+        rng = np.random.default_rng(42)
+        params = prob.params.replace(
+            x0=torch.as_tensor(rng.uniform(-0.1, 0.1, (3, B_FLEET)), device=dev).to(dtype)
+        )
+        Zb = ev.rollout(params, fleet_trajectory(defn, B_FLEET))
+        fleets = [("parking", (0.0, 0.37), prob, params, Zb, warm_al(ev, B_FLEET, dtype, dev, rng))]
+        for name in ("quadrotor", "cartpole"):
+            fleets.append((name, tol.RHOS[tag][name], *scaling_fleet(name, ZOO_BATCH, dev, dtype)))
+        for name, rhos, prob, params, Zb, al in fleets:
+            bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+            ap = bk.pad_al(al)
+            for r in rhos:
+                rho = torch.full((Zb.X.shape[-1],), r, dtype=dtype, device=dev)
+                out = bk(params, ap, Zb, rho)
+                _sync()
+                case = f"{name}/{tag}/rho={r}"
+                saved[case] = {k: v.cpu() for k, v in zip(names, out)}
+    if dump:
+        os.makedirs(dump, exist_ok=True)
+        torch.save(saved, os.path.join(dump, "fused_digest.pt"))
+    other = torch.load(os.path.join(against, "fused_digest.pt")) if against else None
+    for case, outs in saved.items():
+        line = dict(phase="fused_digest", case=case,
+                    sha256={k: hashlib.sha256(v.numpy().tobytes()).hexdigest()[:16] for k, v in outs.items()})
+        if other is not None:
+            ref = other[case]
+            line["bitwise_equal"] = all(
+                outs[k].numpy().tobytes() == ref[k].numpy().tobytes() for k in names
+            )
+            line["max_abs_diff"] = {k: _max_diff(outs[k], ref[k]) for k in names}
+        emit(line)
+
+
+def _max_diff(a, b) -> float:
+    """max |a − b|, counting equal entries (infinities too) and entries NaN
+    in both as 0, and an entry NaN in one only as inf."""
+    import torch
+
+    a, b = a.double(), b.double()
+    d = torch.where((a == b) | (a.isnan() & b.isnan()), 0.0, (a - b).abs())
+    return float(d.nan_to_num(nan=float("inf")).max()) if d.numel() else 0.0
 
 
 def phase_profile(dev) -> None:
@@ -1062,9 +1232,6 @@ def phase_profile(dev) -> None:
     x0[:, 0] = 0.0
     params = prob.params.replace(x0=x0)
     Zb = fleet_trajectory(defn, B_FLEET)
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
     for path, kw in (("main", {}), ("riccati", dict(backward_pass="pallas"))):
         opts = SolverOptions(**BENCH_OPT_KW).replace(**kw)
@@ -1106,6 +1273,26 @@ def phase_profile(dev) -> None:
         assert device_s > 0, f"{path}: the trace holds no device time"
 
 
+def ptxas_riccati(log: str) -> dict:
+    """nvcc -Xptxas=-v's registers, stack and spill-store bytes of each
+    Riccati kernel instance ("n13m4_f32": {...}), from the build log."""
+    import re
+
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '_ZN5altro14riccati_kernelI([fd])Li(\d+)ELi(\d+)E", ln)
+        if m:
+            cur = f"n{m[2]}m{m[3]}_{'f32' if m[1] == 'f' else 'f64'}"
+            out[cur] = {}
+        elif "entry function" in ln:
+            cur = None
+        elif cur and (m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln)):
+            out[cur].update(stack=int(m[1]), spill_stores=int(m[2]))
+        elif cur and (m := re.search(r"Used (\d+) registers", ln)):
+            out[cur]["registers"] = int(m[1])
+    return out
+
+
 def main(argv) -> int:
     import argparse
 
@@ -1115,11 +1302,21 @@ def main(argv) -> int:
     ap.add_argument("--phase", action="append", default=[],
                     help="run only this phase (repeatable; e.g. kernel_scaling) after the build, "
                          "and print no kernel summary or result line")
-    only = ap.parse_args(argv).phase
+    ap.add_argument("--package-root", default=None,
+                    help="with --phase: import altro_tpu_torch from this directory (another "
+                         "checkout, e.g. a parent commit unpacked into _work/) instead of this one's")
+    ap.add_argument("--dump", default=None, help="fused_digest: save the outputs in this directory")
+    ap.add_argument("--against", default=None,
+                    help="fused_digest: compare with the outputs saved in this directory")
+    args = ap.parse_args(argv)
+    only = args.phase
+    if args.package_root and not only:
+        print("chip_smoke: --package-root needs --phase", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.package_root) if args.package_root else ROOT)
     try:
         from altro_tpu_torch.ops import _build
     except ImportError as e:
@@ -1142,19 +1339,20 @@ def main(argv) -> int:
         emit(dict(
             phase="env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
             device=torch.cuda.get_device_name(0), build_s=lib.build_seconds, load_s=load_s,
-            ptxas=ptxas,
+            ptxas=ptxas, ptxas_riccati=ptxas_riccati(lib.build_log),
         ))
         seconds = {}
 
-        def timed(fn):
+        def timed(fn, *extra):
             t0 = time.perf_counter()
-            out = fn(dev)
+            out = fn(dev, *extra)
             seconds[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
             return out
 
         if only:
             for name in only:
-                timed(globals()[f"phase_{name}"])
+                extra = (args.dump, args.against) if name == "fused_digest" else ()
+                timed(globals()[f"phase_{name}"], *extra)
             emit(dict(phase="seconds", **seconds))
             print(card)
             return 0
@@ -1195,7 +1393,8 @@ def main(argv) -> int:
         rows.append(dict(
             name=name, route="cuda", source=src, replaces=rep, launches=by_path[name][path],
             launches_by_path=by_path[name], max_abs_err=k["max_abs_err"], ms=k["ms"],
-            plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            device_ms=k["device_ms"], plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None,
         ))
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""The fused kernels' launch geometry and problem descriptor, as the
-wrappers compute them on the host (no card needed).
+"""The kernels' launch geometry and the fused kernels' problem descriptor,
+as the wrappers compute them on the host (no card needed).
 
 For every model with a device functor, both scalar types and both fused
 kernels, at B in {1, 1000, 2048, 4096}: the block's dynamic shared memory
@@ -10,6 +10,14 @@ geometry passes the checks the kernels' launchers make
 launch_forward`).  The descriptor folds the stacked stage + terminal cost
 family into two shared families only where the kernels then add the same
 J terms in the same order.
+
+For the Riccati kernel, at each instance (3,2), (4,1), (6,2), (13,4) in
+both scalar types and B in {1, 1000, 1001, 4096}: blocks of 8 lanes with a
+group of `sweep_group(n)` threads per lane in whole warps plus the copy
+warp, the knots per chunk, shared memory equal to the layout of
+`csrc/riccati.cu:RicLayout` and within the card's limit, and four blocks
+per multiprocessor (two at n=13; what `launch_riccati` and the design
+require).
 """
 import dataclasses
 import functools
@@ -23,6 +31,7 @@ from altro_tpu_torch.ops import _build
 from altro_tpu_torch.ops import backward_fused as bf
 from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
 from altro_tpu_torch.ops.forward import ForwardKernel
+from altro_tpu_torch.ops.riccati import RiccatiKernel
 
 KERNELS = {"backward_fused": BackwardFusedKernel, "forward": ForwardKernel}
 
@@ -127,3 +136,49 @@ def test_a_cost_table_larger_than_TABLE_SMEM_stays_in_device_memory(kind, model,
     layout = bf._align16(shared.tab_smem * itemsize)
     assert per_knot.smem - shared.smem == (bf._align16(table * itemsize) if staged else 0) - layout
     assert dataclasses.replace(per_knot, smem=shared.smem, tab_smem=shared.tab_smem) == shared
+
+
+# knots per chunk of the Riccati kernel: at most 8192 staged values (8 lanes
+# × 2n²+2nm+m²+n+m per knot), and the shared memory of four blocks per
+# multiprocessor (two at n=13)
+RICCATI_KNOTS = {
+    (3, 2, "f32"): 16, (3, 2, "f64"): 8, (4, 1, "f32"): 16, (4, 1, "f64"): 8,
+    (6, 2, "f32"): 4, (6, 2, "f64"): 2, (13, 4, "f32"): 2, (13, 4, "f64"): 1,
+}
+
+
+def _riccati_layout_bytes(n, m, itemsize, lanes, knots):
+    """csrc/riccati.cu:RicLayout, counted here: two buffers, each a run per
+    16 bytes of lanes of knots × (A, B, lxx, lxu, luu, lx, lu) × those
+    lanes, a run rounded up to 128 bytes plus 64; then per lane the sweep's
+    scratch P, p, PB, Quu, Qu, K, d, QK."""
+    vec = 16 // itemsize
+    entries = n * n + n * m + n * n + n * m + m * m + n + m
+    run = -(-(knots * entries * vec * itemsize) // 128) * 128 + 64
+    scratch = n * n + n + n * m + m * m + m + m * n + m + n * n
+    return 2 * (lanes // vec) * run + -(-(lanes * scratch * itemsize) // 16) * 16
+
+
+@pytest.mark.parametrize("B", [1, 1000, 1001, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,m", [(3, 2), (4, 1), (6, 2), (13, 4)])
+def test_riccati_launch_geometry(n, m, dtype, B):
+    tag = "f32" if dtype == torch.float32 else "f64"
+    itemsize = torch.finfo(dtype).bits // 8
+    g = RiccatiKernel(n, m, dtype=dtype).geometry(B)
+    assert g.lanes == bf.LANES == 8 and g.group == bf.sweep_group(n) and g.group > n
+    assert g.lanes * g.group % 32 == 0 and g.threads == g.lanes * g.group + 32 and g.threads <= 160
+    assert g.tab_smem == 0
+    assert g.knots == RICCATI_KNOTS[(n, m, tag)]
+    assert g.smem == _riccati_layout_bytes(n, m, itemsize, g.lanes, g.knots) <= bf.SMEM_MAX
+    # blocks on one multiprocessor: 233,472 bytes, 1,024 kept per block; four
+    # (B=4096 in one wave), two at n=13, at least two at (13,4) f32
+    blocks = 2 if n == 13 else 4
+    assert blocks * (g.smem + 1024) <= 233_472
+    if g.knots < bf.MAX_KNOTS:  # the largest chunk that fits both limits
+        twice = _riccati_layout_bytes(n, m, itemsize, g.lanes, 2 * g.knots)
+        per_knot = g.lanes * (2 * n * n + 2 * n * m + m * m + n + m)
+        assert 2 * g.knots * per_knot > 8192 or blocks * (twice + 1024) > 233_472
+    assert g.blocks == -(-B // 8)
+    lanes = torch.arange(g.blocks)[:, None] * g.lanes + torch.arange(g.lanes)[None, :]
+    assert torch.equal(torch.sort(lanes[lanes < B]).values, torch.arange(B))

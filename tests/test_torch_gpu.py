@@ -6,9 +6,9 @@ This file imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 
 (`--noconftest` skips tests/conftest.py, which configures JAX.)  Inputs are
-made from a numpy seed; B=1000 leaves the last block of the Riccati
-kernel's grid (128 lanes) part-empty, B=1001 and B=1 that of the fused
-kernels' (8 lanes), so the ragged edges are covered.  The bounds and the
+made from a numpy seed; B=1001 and B=1 leave the last block of every
+kernel's grid (8 lanes) part-empty and make the kernels that stage their
+inputs copy element by element, so the ragged edges are covered.  The bounds and the
 regularizations are chip_smoke.py's, from altro_tpu_torch/ops/tolerances.py.
 """
 import numpy as np
@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from altro_tpu_torch import SolverOptions, SolverStatus
-from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+from altro_tpu_torch.models.problems import (
+    TripleIntegratorProblem, UnicycleProblem, zoo_cartpole, zoo_quadrotor,
+)
 from altro_tpu_torch.ops import tolerances as tol
 from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
 from altro_tpu_torch.ops.forward import ForwardKernel
@@ -185,38 +187,60 @@ def _zoo_fleet(problem, dtype, dev, Bz=B):
     return prob, ev, params, Z, al
 
 
+def _triple_expansions(dtype, dev, Bz, N=10):
+    """Eager expansions of a Bz-lane triple-integrator fleet (n=6, m=2; its
+    control bounds and goal; x0 spread 0.05 about its start) rolled out from
+    its initial trajectory, under a warm random AL state."""
+    rng = np.random.default_rng(0)
+    defn = TripleIntegratorProblem(dtype=dtype, device=dev, N=N)
+    prob = defn.make_problem(add_constraints=True).compile()
+    ev = ALSolverBatched(prob, SolverOptions())
+    x0s = defn.x0[:, None] + 0.05 * rng.standard_normal((prob.n, Bz))
+    params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).to(dtype))
+    Z = ev.rollout(params, _fleet_Z(defn, Bz))
+    al = tuple(
+        dict(
+            lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
+            rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
+        )
+        for st in ev.al_state_init(Bz, dtype)
+    )
+    return ev.expand(params, al, Z)
+
+
 def _riccati_expansions(problem, dtype, dev):
     """Eager expansions of a B=1000 fleet of `problem` under a warm random AL
-    state: the parking problem at N=12 (x0 in ±0.3), or the zoo's fleet."""
+    state: the parking problem at N=12 (x0 in ±0.3), the zoo's fleet, or
+    the triple integrator's at N=10."""
     if problem == "parking":
         prob, params, Z, al = _setup(dtype, dev)
         return ALSolverBatched(prob, SolverOptions()).expand(params, al, Z)
+    if problem == "triple":
+        return _triple_expansions(dtype, dev, B)
     _, ev, params, Z, al = _zoo_fleet(problem, dtype, dev)
     return ev.expand(params, al, Z)
 
 
-@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
-@pytest.mark.parametrize("problem", ["parking", "quadrotor", "cartpole"])
-def test_riccati_kernel_matches_plain(dtype, problem):
-    """At each of the problem's ρ, and with luu poisoned negative definite at
-    knot 3 (every lane fails): flags equal on the lanes whose flag a one-ulp
-    move of the inputs does not flip, K, d, ΔV close on those that did not
-    fail, each float64 lane within its sensitivity."""
-    dev = _device()
+def _hold_riccati_kernel(problem, dtype, exp, seed=0):
+    """The Riccati kernel against its plain version on `exp` at each of the
+    problem's ρ, and with luu poisoned negative definite at knot 3 (every
+    lane fails): flags equal on the lanes whose flag a one-ulp move of the
+    inputs does not flip, K, d, ΔV close on those that did not fail, each
+    float64 lane within its sensitivity.  Returns the kernel."""
+    dev = exp["A"].device
     tag = "f64" if dtype == torch.float64 else "f32"
-    exp = _riccati_expansions(problem, dtype, dev)
-    n, m = exp["A"].shape[1], exp["B"].shape[2]
+    Bz, n, m = exp["A"].shape[-1], exp["A"].shape[1], exp["B"].shape[2]
     kern = RiccatiKernel(n, m, dtype=dtype)
     poisoned = dict(exp, luu=exp["luu"].clone())
     poisoned["luu"][3] = -torch.eye(m, dtype=dtype, device=dev)[:, :, None]
     cases = [(exp, r) for r in tol.RHOS[tag][problem]] + [(poisoned, 0.0)]
     for i, (e, r) in enumerate(cases):
-        rho = torch.full((B,), r, dtype=dtype, device=dev)
+        rho = torch.full((Bz,), r, dtype=dtype, device=dev)
         got = kern(e, rho)
         torch.cuda.synchronize()
         assert kern.launches == i + 1
         want = kern.plain(e, rho)
-        rng = np.random.default_rng(i)
+        rng = np.random.default_rng(seed + i)
         moved = [kern.plain({k: tol.ulp_moved(v, rng) for k, v in e.items()}, rho) for _ in range(tol.SENS_DRAWS)]
         sens, flips = tol.sensitivity(want, moved)
         assert torch.equal(got[4][~flips], want[4][~flips])
@@ -225,6 +249,69 @@ def test_riccati_kernel_matches_plain(dtype, problem):
         ok = ~want[4] & ~flips
         for name, g, w, rt in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4], (1e-9, 1e-9, 1e-8, 1e-8)):
             _close(name, g[..., ok], w[..., ok], dtype, rt, tol.RICCATI_F32_REL[problem], sens[ok])
+    return kern
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem", ["parking", "quadrotor", "cartpole", "triple"])
+def test_riccati_kernel_matches_plain(dtype, problem):
+    """At each of the problem's ρ, and with luu poisoned negative definite at
+    knot 3 (every lane fails): flags equal on the lanes whose flag a one-ulp
+    move of the inputs does not flip, K, d, ΔV close on those that did not
+    fail, each float64 lane within its sensitivity.  Every instance of the
+    kernel: parking (3,2), quadrotor (13,4), cartpole (4,1), triple
+    integrator (6,2)."""
+    dev = _device()
+    _hold_riccati_kernel(problem, dtype, _riccati_expansions(problem, dtype, dev))
+
+
+@pytest.mark.parametrize("Bz", [1000, 1001, 1])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem", ["parking", "cartpole", "quadrotor", "triple"])
+def test_riccati_kernel_matches_plain_at_ragged_widths(problem, dtype, Bz):
+    """Every Riccati instance at its own horizon (parking N=100, cartpole
+    N=60, quadrotor N=50, triple integrator N=10) and at three batch widths:
+    B=1000 (whole blocks of 8 lanes, 16-byte copies), B=1001 (a last block
+    with one lane, copies element by element) and B=1, held as in
+    test_riccati_kernel_matches_plain."""
+    dev = _device()
+    if problem == "triple":
+        exp = _triple_expansions(dtype, dev, Bz)
+    else:
+        prob, params, Z, al = _own_fleet(problem, dtype, dev, Bz)
+        exp = ALSolverBatched(prob, SolverOptions()).expand(params, al, Z)
+    kern = _hold_riccati_kernel(problem, dtype, exp, seed=Bz)
+    assert kern.geometry(Bz).blocks == -(-Bz // 8)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem,Nh", [("parking", 31), ("parking", 37), ("triple", 13)])
+def test_riccati_kernel_matches_plain_at_horizons(problem, dtype, Nh):
+    """Horizons against the kernel's chunks of knots (the sweep's positions
+    N ... 0, N+1 of them): parking N=31 fills whole chunks exactly (two of
+    16 knots in f32, four of 8 in f64), N=37 leaves a last chunk of 6; the
+    triple integrator at N=13 leaves one of 2 in f32 (chunks of 4) and
+    fills seven of 2 in f64.  B=1001, held as in
+    test_riccati_kernel_matches_plain.  The quadrotor's partial last chunk
+    (N=50, 2 knots in f32) is held by the ragged-width test; at shorter
+    horizons its ρ=0 sweep has lanes on the edge of failing that the
+    one-ulp witness does not always find (f64, N=24: one of 1001)."""
+    dev = _device()
+    Bz = 1001
+    if problem == "triple":
+        exp = _triple_expansions(dtype, dev, Bz, N=Nh)
+    else:
+        rng = np.random.default_rng(0)
+        defn = UnicycleProblem(dtype=dtype, device=dev, N=Nh)
+        prob = defn.make_problem().compile()
+        ev = ALSolverBatched(prob, SolverOptions())
+        params = prob.params.replace(x0=torch.as_tensor(rng.uniform(-0.3, 0.3, (3, Bz)), device=dev).to(dtype))
+        Z = ev.rollout(params, _fleet_Z(defn, Bz))
+        exp = ev.expand(params, ev.al_state_init(Bz, dtype), Z)
+    knots = RiccatiKernel(exp["A"].shape[1], exp["B"].shape[2], dtype=dtype).geometry(Bz).knots
+    if problem == "parking":
+        assert ((Nh + 1) % knots == 0) == (Nh == 31)
+    _hold_riccati_kernel(problem, dtype, exp, seed=Nh)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
