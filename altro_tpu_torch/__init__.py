@@ -15,6 +15,7 @@ from .problem.constraints import (
     Constraint,
     EQUALITY,
     INEQUALITY,
+    circle_constraint,
     control_bound,
     goal_constraint,
 )
@@ -44,6 +45,7 @@ __all__ = [
     "SolverOptions",
     "SolverStatus",
     "Trajectory",
+    "circle_constraint",
     "control_bound",
     "discretize",
     "euler_step",

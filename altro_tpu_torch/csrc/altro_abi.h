@@ -21,25 +21,33 @@ struct AltroCostFam {
   int k0, k1, stacked, offset;
 };
 
-enum { ALTRO_GOAL = 0, ALTRO_CONTROL_BOUND = 1 };
+enum { ALTRO_GOAL = 0, ALTRO_CONTROL_BOUND = 1, ALTRO_CIRCLE = 2 };
 enum { ALTRO_CONE_ZERO = 0, ALTRO_CONE_NEGATIVE_ORTHANT = 1 };
 
 // A structured constraint family over the knots k0..k1 with p rows.
 //   goal:          c = x - a                      (p = n)
 //   control_bound: c = [a[j] - u[j] for j in lo, u[j] - b[j] for j in hi]
-// where lo and hi are the bits of lo_mask and hi_mask, ascending.
+//                  where lo and hi are the bits of lo_mask and hi_mask,
+//                  ascending
+//   circle:        row o is r[o]² - dx² - dy² with dx = x[xi] - a[o] and
+//                  dy = x[yi] - b[o] (centre a[o], b[o], radius r[o]), in
+//                  compensated arithmetic (lane_algebra.cuh:comp_circle)
 // Its multipliers sit in the packed AL buffers: stage rows
 // stage_row..stage_row+p-1 of lam [N, Ps, B] and row stage_fam of
 // lam_rho [N, Fs, B]; the terminal knot's in lamT [Pt, B] / lamT_rho
 // [Ft, B] at term_row / term_fam.  -1 marks a family without stage (or
-// terminal) knots.
+// terminal) knots.  The circle families of one problem share one (xi, yi)
+// pair: the fused backward kernel keeps one off-diagonal Gauss-Newton word
+// per knot for it.
 struct AltroConFam {
   int kind, cone;
   int k0, k1, p;
   int stage_row, stage_fam, term_row, term_fam;
   int lo_mask, hi_mask;
+  int xi, yi;
   double a[ALTRO_NMAX];
   double b[ALTRO_NMAX];
+  double r[ALTRO_NMAX];
 };
 
 struct AltroProblem {
@@ -135,6 +143,14 @@ ALTRO_FUSED_DECL(unicycle, f32) ALTRO_FUSED_DECL(unicycle, f64)
 ALTRO_FUSED_DECL(cartpole, f32) ALTRO_FUSED_DECL(cartpole, f64)
 ALTRO_FUSED_DECL(quadrotor, f32) ALTRO_FUSED_DECL(quadrotor, f64)
 #undef ALTRO_FUSED_DECL
+// out[i] = the compensated circle row (lane_algebra.cuh:comp_circle) of
+// dx[i], dy[i], r[i], i < count: the arithmetic the fused kernels run on
+// each circle row, exposed so that its rows can be held bit for bit
+// against the plain version's on the card
+int altro_circle_rows_f32(const float* dx, const float* dy, const float* r, float* out, int count,
+                          void* stream);
+int altro_circle_rows_f64(const double* dx, const double* dy, const double* r, double* out,
+                          int count, void* stream);
 // altro_riccati_n{n}m{m}_{f32,f64} for (n, m) in (3,2), (4,1), (6,2), (13,4)
 #define ALTRO_RICCATI_DECL(NN, MM, S) \
   int altro_riccati_n##NN##m##MM##_##S(const AltroRiccatiArgs* args, void* stream);

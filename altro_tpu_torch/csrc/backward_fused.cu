@@ -7,10 +7,11 @@
 // (altro_tpu/ops/backward_fused_pallas.py:302-531, launched by _get_call
 // :533-558).  Per lane, sweeping k = N-1 ... 0: the terminal expansion gives
 // P_N, p_N (and the terminal cost into J); at each knot the quadratic-cost
-// gradient and Hessian, the AL Gauss-Newton terms of the goal and
-// control-bound rows, and the RK4 A, B; then the Q terms, the Cholesky of
-// Quu + ρI with a NaN-safe failure flag, K and d, the gain guard, and the
-// P, p update reusing (Qxu K)ᵀ.  ΔV1, ΔV2 and P, p freeze at a lane's first
+// gradient and Hessian, the AL Gauss-Newton terms of the goal,
+// control-bound and circle rows (the circle rows in compensated
+// arithmetic, with their off-diagonal term), and the RK4 A, B; then the Q
+// terms, the Cholesky of Quu + ρI with a NaN-safe failure flag, K and d,
+// the gain guard, and the P, p update reusing (Qxu K)ᵀ.  ΔV1, ΔV2 and P, p freeze at a lane's first
 // failure; J0 is a Kahan sum over the terminal terms, then k = N-1 ... 0.
 // A pure function of its inputs and ρ, so the regularization retry loop can
 // relaunch it.
@@ -26,10 +27,10 @@
 // takes everything that does not depend on the carry (P, p) off that chain
 // and fills the card with short chains:
 //   - Producer warps build each knot's expansion in parallel over (lane,
-//     knot, column): the cost value and gradient, the AL gradient and
-//     diagonal Gauss-Newton weights, and each column of [A Bd] as one
-//     tangent of the RK4 step (fused_common.cuh:dyn_tangent, 17 parallel
-//     columns at n=13).  They stage the chunk's x, u in shared memory
+//     knot, column): the cost value and gradient, the AL gradient, its
+//     diagonal Gauss-Newton weights and the circle rows' one off-diagonal
+//     weight, and each column of [A Bd] as one tangent of the RK4 step
+//     (fused_common.cuh:dyn_tangent, 17 parallel columns at n=13).  They stage the chunk's x, u in shared memory
 //     first, then write the expansions into one of two shared buffers.
 //   - Consumer warps run the sweep over the other buffer, a group of
 //     threads per lane (4 for the unicycle, 8 for the cartpole, 16 for the
@@ -53,9 +54,10 @@
 // sweep's barriers being of one size there; at n=13 the kernel takes 255
 // registers a thread, so one 256-thread block fills a multiprocessor and
 // the time grows with B from 1024 on.  nvcc -Xptxas=-v, registers / stack
-// bytes / spill-store bytes: unicycle f32 64 / 40 / 0, f64 120 / 64 / 0;
-// cartpole f32 80 / 32 / 0, f64 156 / 48 / 0; quadrotor f32 255 / 16 / 0,
-// f64 255 / 416 / 458.
+// bytes / spill-store bytes: unicycle f32 80 / 40 / 0, f64 128 / 64 / 0;
+// cartpole f32 105 / 32 / 0, f64 128 / 72 / 24; quadrotor f32 255 / 16 / 0,
+// f64 255 / 448 / 534.  The circle branch indexes only shared memory at
+// run time (xi, yi): register arrays indexed so go to local memory.
 #include <cuda_runtime.h>
 
 #include "altro_abi.h"
@@ -76,9 +78,11 @@ template <typename T, class Model>
 struct BwdLayout {
   static constexpr int n = Model::n, m = Model::m;
   static constexpr int G = sweep_group_size<n>();  // threads per lane in the sweep
-  // one (knot, lane) slot of an expansion buffer
+  // one (knot, lane) slot of an expansion buffer: A, Bd, the gradients,
+  // the AL Gauss-Newton diagonals hx, hu and the circle rows' term hxy at
+  // (xi, yi) and (yi, xi), the J terms
   static constexpr int A = 0, Bd = A + n * n, lx = Bd + n * m, lu = lx + n, hx = lu + m,
-                       hu = hx + n, terms = hu + m;
+                       hu = hx + n, hxy = hu + m, terms = hxy + 1;
   static constexpr int slot = (terms + kTerms) | 1;  // odd: column writes spread over the banks
   static constexpr int scratch = SweepScratch<n, m>::size;
 
@@ -110,19 +114,37 @@ __device__ __forceinline__ void add_terms(const AltroProblem& pr, bool terminal,
   }
 }
 
+// The (xi, yi) pair of the problem's circle families ({-1, -1} without
+// any): where the slot's off-diagonal word hxy enters lxx
+struct CirclePair {
+  int xi = -1, yi = -1;
+  __device__ __forceinline__ explicit CirclePair(const AltroProblem& pr) {
+    for (int fi = 0; fi < pr.n_con; ++fi) {
+      if (pr.con[fi].kind == ALTRO_CIRCLE) {
+        xi = pr.con[fi].xi;
+        yi = pr.con[fi].yi;
+      }
+    }
+  }
+  // the column whose lxx entry in row r takes hxy (-1: none)
+  __device__ __forceinline__ int partner(int r) const { return r == xi ? yi : r == yi ? xi : -1; }
+};
+
 // The carry-independent expansion of knot k (k == N: the terminal knot) of
-// lane b into its slot: gradient lx, lu, AL diagonals hx, hu, and the J
-// terms (a zero where a family is gated off)
+// lane b into its slot: gradient lx, lu, AL diagonals hx, hu, the circle
+// rows' off-diagonal hxy, and the J terms (a zero where a family is gated
+// off).  The circle rows' terms are added last, at the problem's (xi, yi).
 template <typename T, class Model>
 __device__ __forceinline__ void expand_knot(const AltroBackwardArgs& a, const AltroProblem& pr,
-                                            const T* ctab, int k, int b, const T* x, const T* u,
-                                            T* sl) {
+                                            const T* ctab, CirclePair pair, int k, int b, const T* x,
+                                            const T* u, T* sl) {
   using Lay = BwdLayout<T, Model>;
   constexpr int n = Model::n, m = Model::m;
   const int N = pr.N;
   const long Bl = a.B;
   const bool term = k == N;
   T lx[n], lu[m], hx[n], hu[m];
+  CircleTerms<T> ct;
 #pragma unroll
   for (int i = 0; i < n; ++i) lx[i] = hx[i] = T(0);
 #pragma unroll
@@ -144,11 +166,11 @@ __device__ __forceinline__ void expand_knot(const AltroBackwardArgs& a, const Al
     if (term && f.term_row >= 0) {
       const T* lamT = static_cast<const T*>(a.lamT) + long(f.term_row) * Bl + b;
       const T rho_c = static_cast<const T*>(a.lamT_rho)[long(f.term_fam) * Bl + b];
-      v = al_family<T, n, m, true>(f, x, nullptr, lamT, Bl, rho_c, lx, lu, hx, hu);
+      v = al_family<T, n, m, true>(f, x, nullptr, lamT, Bl, rho_c, lx, lu, hx, hu, &ct);
     } else if (!term && f.stage_row >= 0 && f.k0 <= k && k <= (f.k1 < N - 1 ? f.k1 : N - 1)) {
       const T* lam = static_cast<const T*>(a.lam) + (long(k) * a.Ps + f.stage_row) * Bl + b;
       const T rho_c = static_cast<const T*>(a.lam_rho)[(long(k) * a.Fs + f.stage_fam) * Bl + b];
-      v = al_family<T, n, m, true>(f, x, u, lam, Bl, rho_c, lx, lu, hx, hu);
+      v = al_family<T, n, m, true>(f, x, u, lam, Bl, rho_c, lx, lu, hx, hu, &ct);
     }
     sl[Lay::terms + ALTRO_MAX_FAMS + fi] = v;
   }
@@ -162,14 +184,22 @@ __device__ __forceinline__ void expand_knot(const AltroBackwardArgs& a, const Al
     sl[Lay::lu + i] = lu[i];
     sl[Lay::hu + i] = hu[i];
   }
+  // the circle rows' terms, at the run-time (xi, yi) of the problem's pair
+  sl[Lay::hxy] = ct.hxy;
+  if (pair.xi >= 0) {
+    sl[Lay::lx + pair.xi] += ct.gx;
+    sl[Lay::lx + pair.yi] += ct.gy;
+    sl[Lay::hx + pair.xi] += ct.hxx;
+    sl[Lay::hx + pair.yi] += ct.hyy;
+  }
 }
 
 // Producers: the expansions of chunk c (sweep positions c·knots ...; position
 // q is knot N − q) into `buf`
 template <typename T, class Model>
 __device__ __forceinline__ void produce(const AltroBackwardArgs& a, const AltroProblem& pr,
-                                        const T* ctab, const T* dp, T* xu, T* buf, int c, int ptid,
-                                        int nprod) {
+                                        const T* ctab, const T* dp, CirclePair pair, T* xu, T* buf,
+                                        int c, int ptid, int nprod) {
   using Lay = BwdLayout<T, Model>;
   constexpr int n = Model::n, m = Model::m, nm = n + m;
   const int N = pr.N, L = a.geo.lanes, KC = a.geo.knots, B = a.B;
@@ -210,23 +240,26 @@ __device__ __forceinline__ void produce(const AltroBackwardArgs& a, const AltroP
         for (int i = 0; i < n; ++i) sl[Lay::Bd + i * m + j - n] = col[i];
       }
     } else {
-      expand_knot<T, Model>(a, pr, ctab, k, b0 + l, x, u, sl);
+      expand_knot<T, Model>(a, pr, ctab, pair, k, b0 + l, x, u, sl);
     }
   }
 }
 
 // A knot slot as the shared sweep reads it (sweep_group.cuh): A, Bd and the
 // gradients from the slot; lxx, lxu, luu as the sum of the cost Hessians of
-// the families over the knot (the cost table's rows) plus the diagonal AL
-// weights hx, hu
+// the families over the knot (the cost table's rows) plus the AL weights:
+// the diagonals hx, hu and the circle rows' hxy at (xi, yi) and (yi, xi).
+// The Riccati kernel's accessor reads the full lxx instead (riccati.cu).
 template <typename T, class Model>
 struct FusedKnot {
   using Lay = BwdLayout<T, Model>;
   static constexpr int n = Model::n, m = Model::m;
   const T* sl;
   const T* rows[ALTRO_MAX_FAMS];
-  __device__ __forceinline__ FusedKnot(const AltroProblem& pr, const T* ctab, int k, const T* slot)
-      : sl(slot) {
+  CirclePair cp;
+  __device__ __forceinline__ FusedKnot(const AltroProblem& pr, const T* ctab, int k, const T* slot,
+                                       CirclePair pair)
+      : sl(slot), cp(pair) {
     cost_rows_at<T, n, m>(pr, ctab, k, rows);
   }
   __device__ __forceinline__ T A(int i, int j) const { return sl[Lay::A + i * n + j]; }
@@ -240,6 +273,7 @@ struct FusedKnot {
       if (rows[q]) l += quad_Q<T, n, m>(rows[q], r, c);
     }
     if (c == r) l += sl[Lay::hx + r];
+    if (c == cp.partner(r)) l += sl[Lay::hxy];
     return l;
   }
   __device__ __forceinline__ T lxu(int r, int c) const {
@@ -279,6 +313,7 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ prg)
   const int chunks = (N + 1 + KC - 1) / KC;
   const int buf_len = KC * L * Lay::slot;
   const DynParams<T, Model> dp(pr);
+  const CirclePair pair(pr);
 
   // consumer identity: lane l of the block, row r of its group
   const int l = tid / G, r = tid % G;
@@ -295,7 +330,7 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ prg)
   for (int c = 0; c <= chunks; ++c) {
     if (tid >= ncons) {
       if (c < chunks) {
-        produce<T, Model>(a, pr, ctab, dp.p, xu, expb + (c & 1) * buf_len, c, tid - ncons,
+        produce<T, Model>(a, pr, ctab, dp.p, pair, xu, expb + (c & 1) * buf_len, c, tid - ncons,
                           blockDim.x - ncons);
       }
     } else if (c > 0 && l < L) {
@@ -305,7 +340,7 @@ backward_fused_kernel(AltroBackwardArgs a, const AltroProblem* __restrict__ prg)
         if (pos > N) break;
         const T* sl = buf + (kc * L + l) * Lay::slot;
         if (r == 0) add_terms<T>(pr, pos == 0, sl + Lay::terms, J, comp);
-        const FusedKnot<T, Model> src(pr, ctab, N - pos, sl);
+        const FusedKnot<T, Model> src(pr, ctab, N - pos, sl, pair);
         if (pos == 0) {
           sweep_terminal_group<T, Model::n, Model::m>(src, sc, r);
         } else {
@@ -350,9 +385,37 @@ int launch_backward(const AltroBackwardArgs* args, const AltroProblem* prob, voi
   return static_cast<int>(cudaGetLastError());
 }
 
+// out[i] = comp_circle(dx[i], dy[i], r[i]): the circle rows' arithmetic
+// alone (altro_circle_rows_*), one thread per row
+template <typename T>
+__global__ void circle_rows_kernel(const T* __restrict__ dx, const T* __restrict__ dy,
+                                   const T* __restrict__ r, T* __restrict__ out, int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < count) out[i] = comp_circle(dx[i], dy[i], r[i]);
+}
+
+template <typename T>
+int launch_circle_rows(const T* dx, const T* dy, const T* r, T* out, int count, void* stream) {
+  if (count > 0) {
+    circle_rows_kernel<T><<<(count + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        dx, dy, r, out, count);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace altro
 
 extern "C" {
+
+int altro_circle_rows_f32(const float* dx, const float* dy, const float* r, float* out, int count,
+                          void* stream) {
+  return altro::launch_circle_rows(dx, dy, r, out, count, stream);
+}
+
+int altro_circle_rows_f64(const double* dx, const double* dy, const double* r, double* out,
+                          int count, void* stream) {
+  return altro::launch_circle_rows(dx, dy, r, out, count, stream);
+}
 
 void altro_abi_sizes(int* out) {
   out[0] = static_cast<int>(sizeof(AltroProblem));

@@ -5,7 +5,8 @@
 // Replaces the TPU kernel ForwardKernel._make_kernel(check_bounds)
 // (altro_tpu/ops/forward_pallas.py:534-685, launched by _get_call
 // :687-713).  Per lane, forward over k = 0 ... N-1: ū = u + K(x̄−x) + αd;
-// the stage quadratic cost and the AL value of the stage constraints; the
+// the stage quadratic cost and the AL value of the stage constraints (circle
+// rows in compensated arithmetic, fused_common.cuh:al_family); the
 // RK4 step; with check_bounds, the divergence guard (freeze the state at
 // the first ‖x‖² > state_max² or ‖ū‖² > control_max², status STATE_LIMIT /
 // CONTROL_LIMIT); then the terminal cost and terminal AL terms.  J is a
@@ -41,8 +42,8 @@
 // Measured on an H100 (kernel_scaling, PERF.md): the chain alone is most of
 // a launch at B <= 4096, about 2 µs per knot for the unicycle, so what is
 // left is the chain's own latency.  nvcc -Xptxas=-v, registers / stack
-// bytes, no spill stores in any instance: unicycle f32 48 / 32, f64 74 /
-// 40; cartpole f32 56 / 32, f64 96 / 40; quadrotor f32 128 / 0, f64 168 / 0.
+// bytes, no spill stores in any instance: unicycle f32 70 / 32, f64 112 /
+// 40; cartpole f32 87 / 32, f64 130 / 40; quadrotor f32 162 / 0, f64 192 / 0.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -139,7 +140,7 @@ __device__ __forceinline__ void add_cost_terms(const AltroForwardArgs& a, const 
       const T rho_c = static_cast<const T*>(a.lamT_rho)[long(f.term_fam) * Bl + b];
       kahan_add(J, comp,
                 al_family<T, n, m, false>(f, x, nullptr, static_cast<const T*>(a.lamT) + long(f.term_row) * Bl + b,
-                                          Bl, rho_c, nullptr, nullptr, nullptr, nullptr));
+                                          Bl, rho_c, nullptr, nullptr, nullptr, nullptr, nullptr));
     }
     return;
   }
@@ -158,7 +159,7 @@ __device__ __forceinline__ void add_cost_terms(const AltroForwardArgs& a, const 
     if (k >= f.k0 && k <= hi) {
       const T rho_c = s[(Lay::lam + a.Ps + f.stage_fam) * L];
       Jc = al_family<T, n, m, false>(f, x, ub, s + (Lay::lam + f.stage_row) * L, L, rho_c, nullptr,
-                                     nullptr, nullptr, nullptr);
+                                     nullptr, nullptr, nullptr, nullptr);
     }
     kahan_add(J, comp, Jc);
   }
@@ -170,7 +171,10 @@ __device__ __forceinline__ void add_cost_terms(const AltroForwardArgs& a, const 
 // into the buffer those terms were read from.  The barrier ends each
 // iteration.
 template <typename T, class Model>
-__global__ void __launch_bounds__(kFwdThreads)
+// minBlocksPerMultiprocessor 1: left to itself ptxas holds the kernel to 64
+// registers and spills in f32 (the cartpole's, with the circle rows); the
+// chain is what bounds it, not the blocks an SM holds
+__global__ void __launch_bounds__(kFwdThreads, 1)
 forward_kernel(AltroForwardArgs a, const AltroProblem* __restrict__ prg) {
   using Lay = FwdLayout<T, Model>;
   constexpr int n = Model::n;

@@ -1,6 +1,6 @@
 // Problem evaluation shared by the fused backward and forward kernels: the
 // quadratic cost and its expansion, the AL terms of the structured
-// constraints, the integrator step and its tangents, and the staging of
+// constraints (goal, control bound, circle), the integrator step and its tangents, and the staging of
 // the problem descriptor and of device rows into shared memory.
 //
 // Counterparts of _tile_quad / _tile_con_rows / _al_value
@@ -140,15 +140,27 @@ __device__ __forceinline__ void al_row(int cone, T lam, T rho, T c, T& acc, T& l
   hw = rho * dp;
 }
 
+// The circle rows' expansion terms of a knot, summed over the rows of
+// every circle family: the gradient's entries at xi and yi, the
+// Gauss-Newton diagonal's, and the off-diagonal term at (xi, yi) and
+// (yi, xi).  The fused backward kernel adds them into the knot's slot in
+// shared memory, where xi and yi may index at run time: register arrays
+// indexed so would be moved to local memory.
+template <typename T>
+struct CircleTerms {
+  T gx = T(0), gy = T(0), hxx = T(0), hyy = T(0), hxy = T(0);
+};
+
 // AL value (‖Π(λ−ρc)‖² − ‖λ‖²)/2ρ of one family at one knot; with EXP
-// its gradient is added into lx, lu and its Gauss-Newton Hessian, which is
-// diagonal for these structures, into hx, hu.  lam points at the family's
-// first multiplier of this lane, rows `stride` apart; u == nullptr
-// evaluates a control bound at u = 0 (terminal knot).
+// its gradient is added into lx, lu and its Gauss-Newton Hessian into hx,
+// hu (the goal and control-bound Hessians are diagonal), and a circle
+// family's terms into `ct`.  lam points at the family's first multiplier
+// of this lane, rows `stride` apart; u == nullptr evaluates a control
+// bound at u = 0 (terminal knot).
 template <typename T, int n, int m, bool EXP>
 __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T* u,
                                        const T* lam, long stride, T rho,
-                                       T* lx, T* lu, T* hx, T* hu) {
+                                       T* lx, T* lu, T* hx, T* hu, CircleTerms<T>* ct) {
   T acc = T(0), lam2 = T(0), w, hw;
   if (f.kind == ALTRO_GOAL) {
 #pragma unroll
@@ -158,6 +170,35 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
         lx[i] -= w;
         hx[i] += hw;
       }
+    }
+  } else if (f.kind == ALTRO_CIRCLE) {
+    // c = r² − dx² − dy²: C_x = (−2dx, −2dy) at (xi, yi)
+    // (backward_fused_pallas.py:225-240).  x[xi] and x[yi] as masked
+    // sums, which keep x in registers (exact for a finite x).
+    T px = T(0), py = T(0);
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      px += T(i == f.xi) * x[i];
+      py += T(i == f.yi) * x[i];
+    }
+    T gx = T(0), gy = T(0), hxx = T(0), hyy = T(0), hxy = T(0);
+    for (int o = 0; o < f.p; ++o) {
+      const T dx = px - T(f.a[o]), dy = py - T(f.b[o]);
+      al_row(f.cone, lam[o * stride], rho, comp_circle(dx, dy, T(f.r[o])), acc, lam2, w, hw);
+      if (EXP) {
+        gx += T(2) * dx * w;
+        gy += T(2) * dy * w;
+        hxx += T(4) * hw * dx * dx;
+        hyy += T(4) * hw * dy * dy;
+        hxy += T(4) * hw * dx * dy;
+      }
+    }
+    if (EXP) {
+      ct->gx += gx;
+      ct->gy += gy;
+      ct->hxx += hxx;
+      ct->hyy += hyy;
+      ct->hxy += hxy;
     }
   } else {  // ALTRO_CONTROL_BOUND
     int r = 0;

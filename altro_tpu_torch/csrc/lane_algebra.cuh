@@ -13,13 +13,16 @@
 namespace altro {
 
 // ------------------------------------------------------------ rounding
-// Kahan summation only works if the compiler neither contracts nor
-// reorders its adds; the _rn intrinsics are never contracted into FMAs or
-// reassociated, whatever the flags.
+// Kahan summation and the compensated circle rows only work if the
+// compiler neither contracts nor reorders their operations; the _rn
+// intrinsics are never contracted into FMAs or reassociated, whatever the
+// flags.
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 
 // J += term with compensation `comp` (forward_pallas.py:576-580)
 template <typename T>
@@ -28,6 +31,41 @@ __device__ __forceinline__ void kahan_add(T& J, T& comp, T term) {
   const T t = add_rn(J, y);
   comp = sub_rn(sub_rn(t, J), y);
   J = t;
+}
+
+// r² − dx² − dy² of one circle row in compensated arithmetic, the TPU
+// kernel's _comp_circle (altro_tpu/ops/forward_pallas.py:457-492) operation
+// for operation: Dekker-split squares (split constant 4097 in f32 and f64
+// alike, as there) and error-free differences, the error terms summed and
+// added last.  The plain f32 expression's error is ε·O(r²) absolute, which
+// the AL penalties (up to 1e8) amplify; this one's is ε·|c|.  Every
+// operation is an _rn intrinsic, so the rows equal the plain version's
+// (ops/backward_fused.py:comp_circle) bit for bit.
+template <typename T>
+__device__ __forceinline__ void two_sq(T a, T& sq, T& err) {
+  const T t = mul_rn(a, T(4097));
+  const T hi = sub_rn(t, sub_rn(t, a));
+  const T lo = sub_rn(a, hi);
+  sq = mul_rn(a, a);
+  err = add_rn(add_rn(sub_rn(mul_rn(hi, hi), sq), mul_rn(mul_rn(T(2), hi), lo)), mul_rn(lo, lo));
+}
+
+template <typename T>
+__device__ __forceinline__ void two_diff(T a, T b, T& s, T& err) {
+  s = sub_rn(a, b);
+  const T bb = sub_rn(s, a);
+  err = sub_rn(sub_rn(a, sub_rn(s, bb)), add_rn(b, bb));
+}
+
+template <typename T>
+__device__ __forceinline__ T comp_circle(T dx, T dy, T r) {
+  T r2, r2e, x2, x2e, y2, y2e, s1, e1, s2, e2;
+  two_sq(r, r2, r2e);
+  two_sq(dx, x2, x2e);
+  two_sq(dy, y2, y2e);
+  two_diff(r2, x2, s1, e1);
+  two_diff(s1, y2, s2, e2);
+  return add_rn(s2, add_rn(add_rn(sub_rn(sub_rn(r2e, x2e), y2e), e1), e2));
 }
 
 // max(s, lo) that keeps a NaN s, like jnp.maximum

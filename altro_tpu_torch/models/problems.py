@@ -1,12 +1,12 @@
 """Canned benchmark problems (`altro_tpu/models/problems.py`).
 
-`UnicycleProblem`, turn-90 parking scenario (`examples/problems/unicycle.cpp:
-11-89`), and `TripleIntegratorProblem` (`examples/problems/
+`UnicycleProblem`, scenarios kTurn90 (parking) and kThreeObstacles
+(`examples/problems/unicycle.cpp:11-89`), and `TripleIntegratorProblem` (`examples/problems/
 triple_integrator.hpp:22-105`), with the reference's horizon, weights,
 bounds and initial guess so its golden values apply; and the model zoo's
 fleet problems `zoo_quadrotor` and `zoo_cartpole` (`perf/benchmark_zoo.py:
 54-97`).  All build their tensors on the card unless `device` says
-otherwise.  The three-obstacle scenario is not ported yet.
+otherwise.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..problem.constraints import control_bound, goal_constraint
+from ..problem.constraints import circle_constraint, control_bound, goal_constraint
 from ..problem.costs import lqr_cost
 from ..problem.problem import Problem
 from ..types import Trajectory, default_device, initial_trajectory
@@ -25,11 +25,13 @@ from .triple_integrator import triple_integrator_rk4
 from .unicycle import unicycle_rk4
 
 TURN90 = "turn90"
+THREE_OBSTACLES = "three_obstacles"
 
 
 @dataclasses.dataclass
 class UnicycleProblem:
-    """Unicycle parking benchmark (`examples/problems/unicycle.hpp:26-122`)."""
+    """Unicycle parking / obstacle-avoidance benchmark
+    (`examples/problems/unicycle.hpp:26-122`)."""
 
     scenario: str = TURN90
     N: int = 100
@@ -38,24 +40,44 @@ class UnicycleProblem:
 
     def __post_init__(self):
         self.device = default_device(self.device)
-        if self.scenario != TURN90:
-            raise ValueError(f"Unknown or unported scenario {self.scenario!r}")
         self.n = 3
         self.m = 2
         self.v_bnd = 1.5
         self.w_bnd = 1.5
-        self.tf = 3.0
-        # the reference computes h = tf/N in float32 (`unicycle.hpp:79`)
-        h = float(np.float32(self.tf) / np.float32(self.N))
-        self.h = h
-        self.Q = np.eye(3) * (1e-2 * h)
-        self.R = np.eye(2) * (1e-2 * h)
-        self.Qf = np.eye(3) * 100.0
-        self.x0 = np.zeros(3)
-        self.xf = np.array([1.5, 1.5, np.pi / 2])
-        self.u0 = np.full(2, 0.1)
-        self.lb = np.array([-self.v_bnd, -self.w_bnd])
-        self.ub = np.array([+self.v_bnd, +self.w_bnd])
+        if self.scenario == TURN90:
+            self.tf = 3.0
+            # the reference computes h = tf/N in float32 (`unicycle.hpp:79`)
+            h = float(np.float32(self.tf) / np.float32(self.N))
+            self.h = h
+            self.Q = np.eye(3) * (1e-2 * h)
+            self.R = np.eye(2) * (1e-2 * h)
+            self.Qf = np.eye(3) * 100.0
+            self.x0 = np.zeros(3)
+            self.xf = np.array([1.5, 1.5, np.pi / 2])
+            self.u0 = np.full(2, 0.1)
+            self.lb = np.array([-self.v_bnd, -self.w_bnd])
+            self.ub = np.array([+self.v_bnd, +self.w_bnd])
+            self.obstacles = None
+        elif self.scenario == THREE_OBSTACLES:
+            self.tf = 5.0
+            h = float(np.float32(self.tf) / np.float32(self.N))
+            self.h = h
+            self.Q = np.eye(3) * (1.0 * h)
+            self.R = np.eye(2) * (0.5 * h)
+            self.Qf = np.eye(3) * 10.0
+            self.x0 = np.zeros(3)
+            self.xf = np.array([3.0, 3.0, 0.0])
+            self.u0 = np.full(2, 0.01)
+            self.lb = np.array([0.0, -3.0])
+            self.ub = np.array([3.0, +3.0])
+            scaling = 3.0
+            self.obstacles = (
+                np.array([0.25, 0.5, 0.75]) * scaling,  # cx
+                np.array([0.25, 0.5, 0.75]) * scaling,  # cy
+                np.full(3, 0.425),  # radii
+            )
+        else:
+            raise ValueError(f"Unknown scenario {self.scenario!r}")
         self.uref = np.zeros(2)
 
     def _t(self, a) -> torch.Tensor:
@@ -74,6 +96,10 @@ class UnicycleProblem:
         prob.set_cost(stage, range(N))
         prob.set_cost(term, N)
         prob.set_dynamics(unicycle_rk4(), range(N))
+        if self.obstacles is not None:
+            cx, cy, cr = self.obstacles
+            obs = circle_constraint(self._t(cx), self._t(cy), self._t(cr))
+            prob.set_constraint(obs, range(1, N))  # `unicycle.cpp:54-58`
         if add_constraints:
             prob.set_constraint(
                 control_bound(self._t(self.lb), self._t(self.ub)), range(N)

@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 MAX_FAMS = 4
 NMAX = 16
 NDYN = 8
-GOAL, CONTROL_BOUND = 0, 1
+GOAL, CONTROL_BOUND, CIRCLE = 0, 1, 2
 CONE_ZERO, CONE_NEGATIVE_ORTHANT = 0, 1
 
 _int, _dbl, _ptr = ctypes.c_int, ctypes.c_double, ctypes.c_void_p
@@ -48,8 +48,8 @@ class ConFam(ctypes.Structure):
     _fields_ = [
         ("kind", _int), ("cone", _int), ("k0", _int), ("k1", _int), ("p", _int),
         ("stage_row", _int), ("stage_fam", _int), ("term_row", _int), ("term_fam", _int),
-        ("lo_mask", _int), ("hi_mask", _int),
-        ("a", _dbl * NMAX), ("b", _dbl * NMAX),
+        ("lo_mask", _int), ("hi_mask", _int), ("xi", _int), ("yi", _int),
+        ("a", _dbl * NMAX), ("b", _dbl * NMAX), ("r", _dbl * NMAX),
     ]
 
 
@@ -132,6 +132,14 @@ class KernelLibrary:
         if err != 0:
             raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
+    def circle_rows(self, suffix: str, dx: int, dy: int, r: int, out: int, count: int,
+                    stream: int) -> None:
+        """altro_circle_rows_{suffix}: the fused kernels' compensated
+        circle rows of `count` device values; raise on a refused launch."""
+        err = getattr(self.lib, f"altro_circle_rows_{suffix}")(dx, dy, r, out, count, stream)
+        if err != 0:
+            raise RuntimeError(f"altro_circle_rows_{suffix}: CUDA launch failed with cudaError_t {err}")
+
 
 def _nvcc() -> str:
     for cand in (
@@ -213,6 +221,10 @@ def load() -> KernelLibrary:
     for name, nargs in ENTRY_POINTS.items():
         fn = getattr(lib, name)
         fn.argtypes = [_ptr] * nargs  # args (host), [problem (device),] stream
+        fn.restype = _int
+    for s in ("f32", "f64"):
+        fn = getattr(lib, f"altro_circle_rows_{s}")
+        fn.argtypes = [_ptr] * 4 + [_int, _ptr]  # dx, dy, r, out, count, stream
         fn.restype = _int
     sizes = (ctypes.c_int * 4)()
     lib.altro_abi_sizes(ctypes.addressof(sizes))

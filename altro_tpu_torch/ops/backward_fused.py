@@ -20,15 +20,18 @@ against its own.
 
 The kernel is specialised at build time to the model (a device functor
 named by the model's `cuda_model`), the scalar type and n, m; quadratic
-costs and goal / control-bound constraints arrive as batch-shared scalars
-in a problem descriptor.  Any other structure raises `Ineligible` when the
-wrapper is built, and the solver then runs the eager passes — a decision
-made once, from the problem's structure.
+costs and goal / control-bound / circle constraints arrive as
+batch-shared scalars in a problem descriptor.  Any other structure raises
+`Ineligible` when the wrapper is built, and the solver then runs the eager
+passes — a decision made once, from the problem's structure.  Circle rows
+are evaluated in compensated arithmetic (`comp_circle`), as the TPU
+kernels evaluate them.
 
 Beside the kernel: its plain PyTorch version (`plain`, the eager
-`expand` + `riccati_scan` + `total_cost` composition), which the wrapper
-runs only for CPU tensors, and a launch counter (`launches`).  For CUDA
-tensors the wrapper launches the kernel or raises.
+`expand` + `riccati_scan` + `total_cost` composition, with circle rows
+through `comp_circle`), which the wrapper runs only for CPU tensors, and a
+launch counter (`launches`).  For CUDA tensors the wrapper launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -84,6 +87,56 @@ def sweep_group(n: int) -> int:
     return 4 if n < 4 else 8 if n < 8 else 16
 
 
+def comp_circle(dx: torch.Tensor, dy: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """r² − dx² − dy² in compensated arithmetic, operation for operation
+    the TPU kernels' `_comp_circle` (altro_tpu/ops/forward_pallas.py:
+    457-492) and the CUDA kernels' (csrc/lane_algebra.cuh:comp_circle):
+    Dekker-split squares (split constant 4097 in both scalar types, as
+    there) and error-free differences, the error terms added last.  The
+    plain f32 expression's error is ε·O(r²) absolute, which the AL
+    penalties (up to 1e8) amplify; this one's is ε·|c|.  Each torch
+    operation rounds once, so the rows equal the kernels' bit for bit."""
+    split = 4097.0
+
+    def two_sq(a):
+        t = a * split
+        hi = t - (t - a)
+        lo = a - hi
+        sq = a * a
+        err = ((hi * hi - sq) + 2.0 * hi * lo) + lo * lo
+        return sq, err
+
+    def two_diff(a, b):
+        s = a - b
+        bb = s - a
+        err = (a - (s - bb)) - (b + bb)
+        return s, err
+
+    r2, r2e = two_sq(r + torch.zeros_like(dx))
+    x2, x2e = two_sq(dx)
+    y2, y2e = two_sq(dy)
+    s1, e1 = two_diff(r2, x2)
+    s2, e2 = two_diff(s1, y2)
+    return s2 + (((r2e - x2e) - y2e) + e1 + e2)
+
+
+def circle_rows_on_card(dx: torch.Tensor, dy: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """`comp_circle` of CUDA tensors of one shape and scalar type, by the
+    device function the fused kernels run on each circle row
+    (csrc/backward_fused.cu:circle_rows_kernel): the probe that holds the
+    kernels' rows against `comp_circle`'s bit for bit."""
+    if dx.device.type != "cuda" or dx.dtype not in _SUFFIX:
+        raise ValueError("circle_rows_on_card takes float32 or float64 CUDA tensors")
+    dx, dy, r = (t.contiguous() for t in torch.broadcast_tensors(dx, dy, r))
+    out = torch.empty_like(dx)
+    with torch.cuda.device(dx.device):
+        _build.load().circle_rows(
+            _SUFFIX[dx.dtype], dx.data_ptr(), dy.data_ptr(), r.data_ptr(), out.data_ptr(), dx.numel(),
+            torch.cuda.current_stream(dx.device).cuda_stream,
+        )
+    return out
+
+
 def sweep_scratch(n: int, m: int) -> int:
     """Values of one lane's sweep scratch (csrc/sweep_group.cuh:
     SweepScratch): P, p, PB, Quu, Qu, K, d, QK."""
@@ -92,9 +145,9 @@ def sweep_scratch(n: int, m: int) -> int:
 
 def backward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int) -> int:
     """Bytes of csrc/backward_fused.cu:BwdLayout: descriptor, cost table,
-    the chunk's x, u, two expansion buffers, the cooperative sweep's
-    scratch."""
-    slot = (n * n + n * m + 2 * n + 2 * m + 2 * _build.MAX_FAMS) | 1
+    the chunk's x, u, two expansion buffers (a slot: A, Bd, lx, lu, hx, hu,
+    hxy, the J terms), the cooperative sweep's scratch."""
+    slot = (n * n + n * m + 2 * n + 2 * m + 1 + 2 * _build.MAX_FAMS) | 1
     return (
         _align16(ctypes.sizeof(_build.Problem)) + _align16(tab_smem * itemsize)
         + _align16(knots * lanes * (n + m) * itemsize) + _align16(2 * knots * lanes * slot * itemsize)
@@ -232,15 +285,21 @@ class FusedKernel:
 
         self._con_fams = []
         Ps = Fs = Pt = Ft = 0
+        pairs = set()
         for fi, fam in enumerate(prob.constraint_families):
             con = fam.constraint
             if con is None or con.structure is None:
                 raise Ineligible("opaque constraint fn")
             kind = con.structure[0]
-            if kind not in ("goal", "control_bound"):
+            if kind not in ("goal", "control_bound", "circle"):
                 raise Ineligible(f"constraint structure {kind!r} not in the kernels")
             if kind == "goal" and fam.dim != n:
                 raise Ineligible("goal constraint of the wrong dimension")
+            if kind == "circle":
+                _, xi, yi = con.structure
+                if not (0 <= xi < n and 0 <= yi < n and xi != yi) or fam.dim > _build.NMAX:
+                    raise Ineligible("circle constraint the descriptor cannot hold")
+                pairs.add((xi, yi))
             if not fam.shared:
                 raise Ineligible("per-knot constraint params")
             if fam.cone not in (Cone.ZERO, Cone.NEGATIVE_ORTHANT):
@@ -259,6 +318,9 @@ class FusedKernel:
                 Pt += fam.dim
                 Ft += 1
             self._con_fams.append(f)
+        # one off-diagonal Gauss-Newton word per knot (csrc/backward_fused.cu)
+        if len(pairs) > 1:
+            raise Ineligible("circle families on different coordinate pairs")
         # `_shared_runs` may split a cost family in two
         if 2 * len(self._cost_fams) > _build.MAX_FAMS or len(self._con_fams) > _build.MAX_FAMS:
             raise Ineligible("more families than the descriptor holds")
@@ -373,6 +435,13 @@ class FusedKernel:
             if f["structure"][0] == "goal":
                 c.kind = _build.GOAL
                 c.a[:n] = host(cp["xf"], n).tolist()
+            elif f["structure"][0] == "circle":
+                p = f["p"]
+                c.kind = _build.CIRCLE
+                _, c.xi, c.yi = f["structure"]
+                c.a[:p] = host(cp["cx"], p).tolist()
+                c.b[:p] = host(cp["cy"], p).tolist()
+                c.r[:p] = host(cp["r"], p).tolist()
             else:
                 _, lo_idx, hi_idx = f["structure"]
                 c.kind = _build.CONTROL_BOUND
@@ -391,7 +460,8 @@ class FusedKernel:
 
     # ------------------------------------------------------------ launching
     def _eager_solver(self, check_bounds: bool = True):
-        """The eager solver whose passes are the plain versions."""
+        """The eager solver whose passes are the plain versions; it
+        evaluates circle rows as the kernels do (`comp_circle`)."""
         if check_bounds not in self._eager:
             from ..solver.batched import ALSolverBatched
 
@@ -401,6 +471,7 @@ class FusedKernel:
                     backward_pass="scan", forward_pass="scan",
                     check_forwardpass_bounds=check_bounds,
                 ),
+                compensated_circles=True,
             )
         return self._eager[check_bounds]
 
@@ -453,7 +524,8 @@ class FusedKernel:
 class BackwardFusedKernel(FusedKernel):
     """`__call__(params, al_pad, Z, rho)` returns
     `(K [N,m,n,B], d [N,m,B], dV1 [B], dV2 [B], failed [B] bool, J0 [B])`,
-    equal to `expand` + `riccati_scan` + `total_cost` up to rounding."""
+    equal to `expand` + `riccati_scan` + `total_cost` (circle rows through
+    `comp_circle`) up to rounding."""
 
     KIND = "backward_fused"
 

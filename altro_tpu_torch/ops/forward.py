@@ -19,8 +19,9 @@ times the chain alone.
 Eligibility, the problem descriptor, `pad_al` and the geometry's
 bookkeeping are shared with the backward kernel
 (`ops/backward_fused.py:FusedKernel`).  Beside the kernel: its plain
-PyTorch version (`plain`: `closed_loop_rollout` + `total_cost`), which the
-wrapper runs only for CPU tensors, and a launch counter.
+PyTorch version (`plain`: `closed_loop_rollout` + `total_cost`, circle
+rows through `comp_circle` as in the kernel), which the wrapper runs only
+for CPU tensors, and a launch counter.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ __all__ = ["ForwardKernel", "Ineligible"]
 class ForwardKernel(FusedKernel):
     """`__call__(params, al_pad, Z, K, d, alpha, check_bounds=)` returns
     `(Xnext [N,n,B], Ubar [N,m,B], J [B], valid [B] bool, status [B] int32)`,
-    equal to `closed_loop_rollout` + `total_cost` up to rounding."""
+    equal to `closed_loop_rollout` + `total_cost` (circle rows through
+    `comp_circle`) up to rounding."""
 
     KIND = "forward"
 

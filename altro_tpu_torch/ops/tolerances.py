@@ -74,6 +74,14 @@ ZOO_F32_REL = dict(
     cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=2e-5, dV2=2e-5, J0=2e-6, Xn=4e-6, Ubar=1e-5, J=1.5e-5),
 )
 
+# the fused kernels on the three-obstacle problem, at chip_smoke.py's
+# field_case inputs (positions over the obstacle field, circle rows
+# penalized).  Observed on an H100 (700 W), largest over the cases at
+# B=4096 and 1001: K 4.7e-7, d 5.1e-7, dV1 7.3e-7, dV2 3.6e-7, J0 1.9e-7,
+# Xn 4.0e-7, Ubar 3.8e-7, J 3.3e-7 (the circle rows equal the plain
+# version's bit for bit)
+OBSTACLE_F32_REL = dict(K=5e-6, d=5e-6, dV1=8e-6, dV2=4e-6, J0=2e-6, Xn=4e-6, Ubar=4e-6, J=4e-6)
+
 # observed on an H100 (700 W): the kernel's float32 error against the
 # float64 plain sweep is 0.70-1.37 times the plain float32 sweep's
 F32_VS_F64_RATIO = 4.0
@@ -85,8 +93,10 @@ F32_VS_F64_RATIO = 4.0
 # case), and at ρ=0 every lane fails.  In float32 the same move is 2^29
 # times larger, so float32 is held at ρ=1e3 only (and at ρ=0, flags alone).
 RHOS = dict(
-    f64=dict(parking=(0.0, 0.37), quadrotor=(0.0, 10.0, 1e3), cartpole=(0.0, 0.37), triple=(0.0, 0.37)),
-    f32=dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37), triple=(0.0, 0.37)),
+    f64=dict(parking=(0.0, 0.37), quadrotor=(0.0, 10.0, 1e3), cartpole=(0.0, 0.37), triple=(0.0, 0.37),
+             obstacles=(0.0, 0.37, 10.0)),
+    f32=dict(parking=(0.0, 0.37), quadrotor=(0.0, 1e3), cartpole=(0.0, 0.37), triple=(0.0, 0.37),
+             obstacles=(0.0, 0.37, 10.0)),
 )
 
 

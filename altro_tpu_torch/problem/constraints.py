@@ -3,8 +3,7 @@
 
 The cones the reference ships are elementwise (Zero / Identity /
 NegativeOrthant), so projection Jacobians are diagonal; the batched solver
-applies them in `_al_terms`.  The second-order cone and the circle
-constraint are not ported yet.
+applies them in `_al_terms`.  The second-order cone is not ported yet.
 """
 from __future__ import annotations
 
@@ -47,8 +46,9 @@ class Constraint:
     """A constraint term ``fn(params, x, u) -> c`` with ``c ∈ cone`` required.
 
     ``structure`` tags the algebraic form of canned constraints
-    (("goal",), ("control_bound", lo, hi)) so the fused kernels can
-    evaluate them; None means an opaque function (eager path only).
+    (("goal",), ("control_bound", lo, hi), ("circle", xi, yi)) so the
+    fused kernels can evaluate them; None means an opaque function (eager
+    path only).
     """
 
     params: Any
@@ -125,4 +125,28 @@ def control_bound(lb, ub) -> Constraint:
     return Constraint(
         params=params, fn=eval_fn, cone=INEQUALITY, dim=dim,
         label="Control Bound", structure=("control_bound", lo_idx, hi_idx),
+    )
+
+
+def circle_constraint(cx, cy, radius, x_index: int = 0, y_index: int = 1) -> Constraint:
+    """Keep-out circles: −(‖p−c‖² − r²) <= 0 per obstacle, p the state's
+    entries (x_index, y_index) (`obstacle_constraints.hpp:75-127`)."""
+    cx = torch.atleast_1d(torch.as_tensor(cx))
+    cy = torch.atleast_1d(torch.as_tensor(cy, dtype=cx.dtype, device=cx.device))
+    radius = torch.atleast_1d(torch.as_tensor(radius, dtype=cx.dtype, device=cx.device))
+
+    def eval_fn(params, x, u):
+        del u
+        px = x[x_index]
+        py = x[y_index]
+        d2 = (px - params["cx"]) ** 2 + (py - params["cy"]) ** 2 - params["r"] ** 2
+        return -d2
+
+    return Constraint(
+        params={"cx": cx, "cy": cy, "r": radius},
+        fn=eval_fn,
+        cone=INEQUALITY,
+        dim=int(cx.shape[0]),
+        label="Circle Constraint",
+        structure=("circle", x_index, y_index),
     )

@@ -32,6 +32,7 @@ from typing import Callable
 import torch
 from torch.func import jacfwd, vmap
 
+from ..ops.backward_fused import comp_circle
 from ..options import LogLevel, SolverOptions
 from ..problem.constraints import Cone, dual_cone
 from ..problem.costs import _quadcost_eval, ad_expansion
@@ -221,10 +222,18 @@ class ALSolverBatched:
     scalar type have an instantiation, else the eager `riccati_scan`.  The
     JAX package runs `riccati_scan` whenever B % 1024 != 0; the port's
     kernel takes any B, which changes which code runs, not what is computed.
+
+    `compensated_circles=True` evaluates circle constraint rows in
+    compensated arithmetic (`ops/backward_fused.py:comp_circle`), as the
+    fused kernels (and the TPU kernels) do: the solvers whose passes are
+    the kernels' plain versions set it.  Otherwise every constraint runs its
+    own `fn`, as the JAX package's scan path does.
     """
 
-    def __init__(self, prob: CompiledProblem, opts: SolverOptions = None):
+    def __init__(self, prob: CompiledProblem, opts: SolverOptions = None, *,
+                 compensated_circles: bool = False):
         self.prob = prob
+        self.compensated_circles = bool(compensated_circles)
         self.opts = opts or SolverOptions()
         o = self.opts
         if o.line_search_parallel != 1:
@@ -434,7 +443,13 @@ class ALSolverBatched:
         return out[0], None
 
     def _con_values(self, fam, fp, Xk, Uk):
-        """Constraint values [nk, p, B]."""
+        """Constraint values [nk, p, B]: the family's `fn`, or for a circle
+        family of a `compensated_circles` solver, `comp_circle`."""
+        structure = fam.constraint.structure if fam.constraint is not None else None
+        if self.compensated_circles and structure is not None and structure[0] == "circle":
+            _, xi, yi = structure
+            cx, cy, r = (fp[key].to(Xk.dtype)[..., None] for key in ("cx", "cy", "r"))
+            return comp_circle(Xk[:, xi, None, :] - cx, Xk[:, yi, None, :] - cy, r)
         inner = vmap(fam.fn, in_dims=(None, -1, -1), out_dims=-1)
         return vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)(
             fp, Xk, Uk
@@ -757,9 +772,11 @@ class ALSolverBatched:
         )
 
     # ------------------------------------------------------------- inner solve
-    def ilqr_solve(self, params, al, Z, stats: BatchedStats, outer_active):
-        """Masked batched inner solve; `outer_active` [B] gates instances."""
+    def ilqr_solve(self, params, al, Z, stats: BatchedStats, outer_active, lane_opts=None):
+        """Masked batched inner solve; `outer_active` [B] gates instances.
+        `lane_opts` may set `max_iterations_total` per lane (see `solve`)."""
         opts = self.opts
+        max_total = (lane_opts or {}).get("max_iterations_total", opts.max_iterations_total)
         dt = Z.X.dtype
         dev = Z.X.device
         Bsz = Z.X.shape[-1]
@@ -834,7 +851,7 @@ class ALSolverBatched:
             else:
                 stalled = torch.zeros_like(converged)
             hit_inner = inner >= opts.max_iterations_inner
-            hit_total = total >= opts.max_iterations_total
+            hit_total = total >= max_total
             bad = status != int(SolverStatus.UNSOLVED)
             status = torch.where(
                 converged, int(SolverStatus.SOLVED),
@@ -933,19 +950,31 @@ class ALSolverBatched:
             viol = torch.maximum(viol, v.amax(dim=(0, 1)).to(dtype))
         return viol
 
-    def solve(self, params: ProblemParams, Z: BatchedTrajectory, al=None, active=None):
+    def solve(self, params: ProblemParams, Z: BatchedTrajectory, al=None, active=None,
+              lane_opts=None):
         """Full batched AL solve.  Returns a dict with batch-last results.
 
         `active` [B] (optional) gates instances: inactive lanes are never
         iterated and pass their inputs through — used by the compaction
         tail (`solver/compaction.py`) where padding lanes hold finished
         instances.
+
+        `lane_opts` (optional dict of [B] tensors) sets options per lane:
+        `penalty_scaling`, `max_iterations_outer`, `max_iterations_total`
+        (`altro_tpu/solver/batched.py:1689-1705`); the restart portfolio
+        (`solver/compaction.py`) runs its variants with them.
         """
         self.host_syncs = 0
         opts = self.opts
         dt = Z.X.dtype
         dev = Z.X.device
         Bsz = Z.X.shape[-1]
+        lane_opts = lane_opts or {}
+        ps_lane = lane_opts.get("penalty_scaling", opts.penalty_scaling)
+        if torch.is_tensor(ps_lane):
+            ps_lane = ps_lane.to(dt)
+        max_outer = lane_opts.get("max_iterations_outer", opts.max_iterations_outer)
+        max_total = lane_opts.get("max_iterations_total", opts.max_iterations_total)
         N, n, m = self.prob.N, self.prob.n, self.prob.m
         if active is None:
             active0 = torch.ones((Bsz,), dtype=torch.bool, device=dev)
@@ -963,7 +992,7 @@ class ALSolverBatched:
                 )
         stats = batched_stats_init(Bsz, dt, dev)
         if not self.prob.constraint_families:
-            out = self.ilqr_solve(params, al, Z, stats, active0)
+            out = self.ilqr_solve(params, al, Z, stats, active0, lane_opts)
             return dict(
                 Z=out["Z"], al=al, status=out["status"], stats=out["stats"],
                 K=out["K"], d=out["d"],
@@ -978,7 +1007,7 @@ class ALSolverBatched:
         )
         while self._any(~c["done"]):
             active = ~c["done"]
-            res = self.ilqr_solve(params, c["al"], c["Z"], c["stats"], active)
+            res = self.ilqr_solve(params, c["al"], c["Z"], c["stats"], active, lane_opts)
             Z2 = res["Z"]
             stats = res["stats"]
             inner_solved = res["status"] == int(SolverStatus.SOLVED)
@@ -998,8 +1027,8 @@ class ALSolverBatched:
             )
             sat = viol < opts.constraint_tolerance
             pen_hi = pen > opts.maximum_penalty
-            outer_hi = outer >= opts.max_iterations_outer
-            total_hi = stats.iterations_total >= opts.max_iterations_total
+            outer_hi = outer >= max_outer
+            total_hi = stats.iterations_total >= max_total
             # stalled_feasible_exits=False: a feasible-but-stalled instance
             # keeps escalating the penalty until its inner solve converges
             sat_done = sat if opts.stalled_feasible_exits else (sat & inner_solved)
@@ -1035,7 +1064,7 @@ class ALSolverBatched:
             # scale penalties only for continuing instances
             cont = active & ~done_new
             al_next = tuple(
-                dict(lam=st["lam"], rho=torch.where(cont, st["rho"] * opts.penalty_scaling, st["rho"]))
+                dict(lam=st["lam"], rho=torch.where(cont, st["rho"] * ps_lane, st["rho"]))
                 for st in al_new
             )
             c = dict(

@@ -8,9 +8,11 @@ dense `tail_batch`-wide batch, solves only those with `active` marking the
 real ones, and scatters the results back — round after round until every
 lane has had one uncapped tail solve.  Phase boundaries restart the inner
 solver while duals and penalties carry over (`al_solver.hpp:288-302`).
+Then an optional restart portfolio re-solves the lanes still not SOLVED
+from scratch, under a cascade of penalty-ladder variants.
 
-The f64 polish, the restart portfolio and the infeasibility certificates of
-the JAX package are not ported yet.
+The f64 polish and the infeasibility certificates of the JAX package are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -44,9 +46,18 @@ class CompactedALSolver:
     finish_stalled : tail rounds run with `stalled_feasible_exits=False`
         and treat SOLVED_STALLED as resumable, so feasible-but-stalled
         instances keep escalating the penalty until they converge.
+    restart_portfolio : after the tail rounds, re-solve the lanes not
+        SOLVED from the original initial guess with fresh duals, under each
+        variant in turn, each on the lanes every earlier variant failed
+        (`altro_tpu/solver/compaction.py:291-373`).  A variant is a dict of
+        any of `penalty_scaling`, `initial_penalty`, `max_iterations_outer`,
+        `max_iterations_total`; only lanes it SOLVES are merged.
+    restart_width : lanes per variant's solve (0: `tail_batch`).
+    restart_rounds : passes over the variants.
 
     After each `solve`, `host_syncs` holds the solve's host
-    synchronisations and `telemetry` the iteration distribution.
+    synchronisations and `telemetry` the iteration distribution, the
+    lanes each restart variant took and the host syncs of the cascade.
     """
 
     def __init__(
@@ -57,6 +68,9 @@ class CompactedALSolver:
         phase1_iters: int = 20,
         tail_batch: int = 1024,
         finish_stalled: bool = True,
+        restart_portfolio: tuple = (),
+        restart_width: int = 0,
+        restart_rounds: int = 1,
     ):
         if tail_batch <= 0:
             raise ValueError("tail_batch must be positive")
@@ -65,6 +79,9 @@ class CompactedALSolver:
         self.phase1_iters = int(phase1_iters)
         self.tail_batch = int(tail_batch)
         self.finish_stalled = bool(finish_stalled)
+        self.restart_portfolio = tuple(restart_portfolio)
+        self.restart_width = int(restart_width)
+        self.restart_rounds = int(restart_rounds)
         # phases never update duals from a capped (unconverged) inner solve
         p1_opts = self.opts.replace(
             max_iterations_total=min(self.phase1_iters, self.opts.max_iterations_total),
@@ -82,6 +99,13 @@ class CompactedALSolver:
         if self.finish_stalled:
             codes.append(int(SolverStatus.SOLVED_STALLED))
         self._codes = torch.as_tensor(codes, dtype=torch.int32, device=self._p1.device)
+        # the restart solver: each variant's duals and penalties come in
+        # through its `al` argument, so the solver leaves them as given
+        self._restart = None
+        if self.restart_portfolio:
+            self._restart = ALSolverBatched(prob, self.opts.replace(
+                reset_duals=False, initial_penalty=0.0, update_duals_on_failed_inner=False,
+            ))
         self.host_syncs = 0
         self.telemetry: dict = {}
 
@@ -125,6 +149,56 @@ class CompactedALSolver:
         )
         return res
 
+    def _portfolio(self, params, Z0: BatchedTrajectory, res):
+        """The fresh-restart cascade over `res`, the tail rounds' result:
+        per variant, the (at most `restart_width`) lanes not SOLVED, from
+        their original initial guess `Z0` with zero duals and the variant's
+        initial penalty, under its per-lane options; lanes that come back
+        SOLVED are merged.  Returns (res, the real lanes each variant took,
+        host syncs): one per variant (its lane count, which also ends the
+        cascade once no lane is left), plus its solve's."""
+        opts = self.opts
+        dt, dev = Z0.X.dtype, Z0.X.device
+        R = self.restart_width or self.tail_batch
+        solved = int(SolverStatus.SOLVED)
+        lanes, syncs = [], 0
+        for _ in range(self.restart_rounds):
+            for variant in self.restart_portfolio:
+                undone = res["status"] != solved
+                order = torch.argsort((~undone).to(torch.int8), stable=True)
+                idx = order[:R]
+                real = undone[idx]
+                count = int(real.sum())
+                syncs += 1
+                if count == 0:
+                    return res, lanes, syncs
+                lanes.append(count)
+                W = idx.shape[0]
+                lane_opts = dict(
+                    penalty_scaling=torch.full(
+                        (W,), variant.get("penalty_scaling", opts.penalty_scaling), dtype=dt, device=dev),
+                    max_iterations_outer=torch.full(
+                        (W,), variant.get("max_iterations_outer", opts.max_iterations_outer),
+                        dtype=torch.int32, device=dev),
+                    max_iterations_total=torch.full(
+                        (W,), variant.get("max_iterations_total", opts.max_iterations_total),
+                        dtype=torch.int32, device=dev),
+                )
+                rho0 = variant.get("initial_penalty", opts.initial_penalty)
+                al_r = tuple(
+                    dict(lam=torch.zeros((len(f.knots), f.dim, W), dtype=dt, device=dev),
+                         rho=torch.full((len(f.knots), W), rho0, dtype=dt, device=dev))
+                    for f in self.prob.constraint_families
+                )
+                x0 = params.x0
+                params_r = params.replace(x0=x0[:, idx]) if x0.ndim == 2 else params
+                # from the original initial guess, not the failed trajectory
+                Z_r = Z0.replace(X=Z0.X[..., idx], U=Z0.U[..., idx])
+                sub = self._restart.solve(params_r, Z_r, al_r, active=real, lane_opts=lane_opts)
+                syncs += self._restart.host_syncs
+                res = self._merge(res, sub, idx, real & (sub["status"] == solved))
+        return res, lanes, syncs
+
     def solve(self, params, Z: BatchedTrajectory, al=None):
         """Same contract as `ALSolverBatched.solve` (batch-last dict)."""
         t0 = time.perf_counter()
@@ -154,10 +228,16 @@ class CompactedALSolver:
             syncs += self._tail.host_syncs
             res = self._merge(res, sub, idx, real)
             tried[idx] |= real
+        restart_lanes, restart_syncs = [], 0
+        if self._restart is not None:
+            res, restart_lanes, restart_syncs = self._portfolio(params, Z, res)
+            syncs += restart_syncs
         self.host_syncs = syncs
         it = res["stats"].iterations_total.cpu().numpy()
         self.telemetry = dict(
             tail_rounds=rounds,
+            restart_lanes=restart_lanes,
+            restart_host_syncs=restart_syncs,
             iters_p50=float(np.percentile(it, 50)),
             iters_p99=float(np.percentile(it, 99)),
             iters_max=int(it.max()),

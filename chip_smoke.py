@@ -25,14 +25,24 @@ in parallel), then:
      expansions) through `CompactedALSolver` on the B=4096 parking fleet,
      and the float64 golden through the Riccati kernel;
   6. checks the fused kernels against their plain versions at the zoo's
-     shapes, and drives the model zoo (perf/benchmark_zoo.py) through them:
-     quadrotor and cartpole fleets (B=2048) held against the plain path;
+     shapes;
   7. times each kernel instance in f32 against the batch width
      (kernel_scaling, B = 1024, 2048, 4096 and 16384): the fused kernels at
      parking, cartpole and quadrotor, with the forward kernel's chain alone
      beside them, and the Riccati kernel at its four instances;
   8. traces one solve of each parking path with torch.profiler: device
-     time, busy share, the largest device events.
+     time, busy share, the largest device events;
+  9. drives the model zoo (perf/benchmark_zoo.py) through the fused
+     kernels: quadrotor and cartpole fleets (B=2048);
+ 10. drives the three-obstacle fleet (perf/benchmark_obstacles.py, B=4096,
+     f32) through the fused kernels' circle rows: the rows against the
+     plain version bit for bit, both kernels against their plain versions
+     at the obstacle problem's shapes, the fleet in both of the script's
+     modes (f32_throughput, and complete with its restart cascade), every
+     SOLVED lane clear of every obstacle;
+ 11. solves the zoo's and the obstacle fleet's first 512 lanes on the
+     plain path, all in processes of their own at once, and holds steps 9
+     and 10 against them.
 Each phase prints one JSON line.  `--phase NAME` (repeatable) runs only the
 named phases after the build, for measuring, and then prints the card but
 no kernel summary or result line.  With `--package-root DIR` those phases
@@ -74,12 +84,38 @@ PARITY_BATCH = 1024
 ZOO_BATCH = 2048
 ZOO_PLAIN_LANES = 512  # lanes are independent; the plain path solves these
 ZOO_N = dict(quadrotor=50, cartpole=60)  # the zoo's horizons (perf/benchmark_zoo.py)
-ZOO_TIMEOUT_S = 700  # the plain zoo solves run in their own processes; none may take longer
+PLAIN_TIMEOUT_S = 700  # the plain solves run in their own processes (run_plain); none may take longer
 # the zoo's overrides of the bench options (perf/benchmark_zoo.py:108-111)
 ZOO_OPT_KW = dict(
     initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
     outer_constraints_f64=True,
 )
+# the three-obstacle fleet (perf/benchmark_obstacles.py): its overrides of
+# the bench options (:83-86), and the restart cascade of its complete mode
+# (:63-71)
+OBST_OPT_KW = dict(
+    initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
+    outer_constraints_f64=True,
+)
+OBST_RESTART = dict(
+    restart_portfolio=(
+        dict(),
+        dict(penalty_scaling=4.0, max_iterations_outer=60, max_iterations_total=900),
+        dict(penalty_scaling=1.5, max_iterations_outer=120, max_iterations_total=1100),
+    ),
+    restart_width=1024,
+    restart_rounds=1,
+)
+OBST_RAGGED_B = 1001  # a width whose last block of 8 lanes is part-empty
+# the plain path's comparison: the first 512 lanes in f32_throughput mode,
+# in 4 processes of 128 lanes.  On 512 lanes in one process that solve took
+# 440 s (177 lockstep iterations of eager ops, up to 20 rollouts a line
+# search; H100 700 W); the complete mode's cascade adds variants capped at
+# 300, 900 and 1,100 iterations, more than this script's time limit
+OBST_PLAIN_MODE = "f32_throughput"
+OBST_PLAIN_LANES = 512
+OBST_PLAIN_PROCS = 4
+CLEARANCE_MIN = -1e-3  # metres (example_unicycle_test.cpp:76-83)
 SCALING_B = (1024, 2048, 4096, 16384)  # batch widths of the kernel_scaling phase
 SCALING_REPS = 10
 GOLDEN_J = 0.03893465058924039  # auglag_test.cpp:346-349 (tol 1e-6 solve)
@@ -226,11 +262,25 @@ def step_ops(kern) -> tuple[int, int]:
     return (4, 14) if kern.method == 0 else (1, 2)
 
 
+# operations of one circle row (csrc/fused_common.cuh:al_family): dx and
+# dy (2), the compensated row (csrc/lane_algebra.cuh:comp_circle, 53), its
+# AL value (6; 8 with the weights w, hw) and, in the backward kernel, its
+# gradient and Gauss-Newton terms (18)
+CIRCLE_ROW_OPS = dict(forward=2 + 53 + 6, backward=2 + 53 + 8 + 18)
+
+
+def al_ops(kern, per_row: int, circle_row: int) -> int:
+    """Operations of one knot's stage constraint rows: `per_row` for each
+    goal or control-bound row, `circle_row` for each circle row."""
+    return sum(f["p"] * (circle_row if f["structure"][0] == "circle" else per_row)
+               for f in kern._con_fams if f["stage_row"] >= 0)
+
+
 def fused_work(kern, B, itemsize) -> tuple[float, float]:
     """(bytes, flops) of one fused backward launch: per lane it reads X, U,
     the packed AL state and ρ and writes K, d, ΔV1, ΔV2, J0 and the flags;
     per knot the quadratic cost's value and gradient, its Hessian from the
-    cost rows, the AL rows, the step's value once (the model's evaluations,
+    cost rows, the AL rows (al_ops), the step's value once (the model's evaluations,
     csrc/models.cuh's kFOps, and the step's own arithmetic), the n+m
     columns of [A Bd] as tangents of the step at that value (kTangentOps
     per evaluation, and the step's arithmetic again), and one Riccati
@@ -243,7 +293,7 @@ def fused_work(kern, B, itemsize) -> tuple[float, float]:
     write = N * (m * n + m) + 3
     quad = 2 * _mm_flops(n, n, 1) + 2 * _mm_flops(n, m, 1) + 2 * _mm_flops(m, m, 1) + 6 * (n + m)
     hess = n * n + n * m + m * m
-    al = 8 * Ps
+    al = al_ops(kern, 8, CIRCLE_ROW_OPS["backward"])
     value = evals * f + per_entry * n
     tangents = (n + m) * (evals * tangent + per_entry * n)
     per_knot = quad + hess + al + value + tangents + riccati_step_flops(n, m)
@@ -255,7 +305,7 @@ def forward_work(kern, B, itemsize) -> tuple[float, float]:
     K, d and the packed AL state and writes X̄, Ū, J and two int32 flags;
     per knot the feedback law, the step (the model's evaluations,
     csrc/models.cuh's kFOps, and the step's own arithmetic), the cost and AL
-    value and the guard."""
+    value (al_ops) and the guard."""
     N, n, m = kern.N, kern.n, kern.m
     Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
     f = model_ops(kern)[0]
@@ -263,7 +313,8 @@ def forward_work(kern, B, itemsize) -> tuple[float, float]:
     read = n + 1 + (N + 1) * n + N * m + N * (m * n + m) + N * (Ps + Fs) + Pt + Ft
     write = N * (n + m) + 1
     per_knot = (_mm_flops(m, n, 1) + n + 3 * m + evals * f + per_entry * n
-                + 2 * (n * n + n * m + m * m) + 4 * (n + m) + 6 * Ps + 2 * (n + m))
+                + 2 * (n * n + n * m + m * m) + 4 * (n + m) + al_ops(kern, 6, CIRCLE_ROW_OPS["forward"])
+                + 2 * (n + m))
     return B * ((read + write) * itemsize + 8), float(N * B * per_knot)
 
 
@@ -833,26 +884,65 @@ def zoo_outcome(s, params, res, xf, lanes) -> dict:
     )
 
 
-def zoo_plain_solve(name: str, x0s: np.ndarray, lanes: int, out) -> None:
-    """The plain path's zoo solve in its own process; puts zoo_outcome's
-    dict, the wall time and the kernels' launches on `out`."""
+def zoo_plain_solve(name: str, x0s: np.ndarray, lanes: int) -> dict:
+    """The plain path's zoo solve (run in its own process by run_plain):
+    zoo_outcome's dict, the wall time and the kernels' launches."""
+    import torch
+
+    s, prob, Z0, xf = zoo_solver(name, "plain", torch.device("cuda", 0))
+    params = prob.params.replace(x0=torch.as_tensor(x0s, device=prob.params.x0.device).float())
+    t0 = time.perf_counter()
+    res = s.solve(params, replicate(Z0, x0s.shape[1]))
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = sum(k.launches for k in (s._bwd, s._fwd, s._ric) if k is not None)
+    return dict(name=name, wall_s=wall, host_syncs=s.host_syncs, launches=launches,
+                **zoo_outcome(s, params, res, xf, lanes))
+
+
+def _plain_worker(key, fn, args, out) -> None:
+    """One plain solve in a spawned process: puts (key, fn(*args) with
+    ok=True) on `out`, or (key, the traceback with ok=False)."""
     try:
         sys.path.insert(0, ROOT)
         import torch
 
-        torch.set_num_threads(1)  # two of these share the host's cores
-        dev = torch.device("cuda", 0)
-        s, prob, Z0, xf = zoo_solver(name, "plain", dev)
-        params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).float())
-        t0 = time.perf_counter()
-        res = s.solve(params, replicate(Z0, x0s.shape[1]))
-        _sync()
-        wall = time.perf_counter() - t0
-        launches = sum(k.launches for k in (s._bwd, s._fwd, s._ric) if k is not None)
-        out.put(dict(ok=True, name=name, wall_s=wall, host_syncs=s.host_syncs, launches=launches,
-                     **zoo_outcome(s, params, res, xf, lanes)))
+        torch.set_num_threads(1)  # several of these share the host's cores
+        out.put((key, dict(ok=True, **fn(*args))))
     except Exception:  # noqa: BLE001 - the parent reports it and fails the phase
-        out.put(dict(ok=False, name=name, error=traceback.format_exc()))
+        out.put((key, dict(ok=False, error=traceback.format_exc())))
+
+
+def run_plain(parts) -> dict:
+    """Run the plain-path solves of every part together, each in its own
+    spawned process (they are independent, host-bound, and together the
+    slowest stage of the run), then each part's check on its results.
+    A part is (name, jobs, check): jobs a list of (key, fn, args), check a
+    function of {key: result} whose return value this returns under the
+    part's name.  A failed solve, or none within PLAIN_TIMEOUT_S, fails
+    the run."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    procs = [ctx.Process(target=_plain_worker, args=(key, fn, args, out))
+             for _, jobs, _ in parts for key, fn, args in jobs]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        results = {}
+        for _ in procs:
+            key, r = out.get(timeout=max(1.0, PLAIN_TIMEOUT_S - (time.perf_counter() - t0)))
+            assert r["ok"], f"plain solve {key}:\n{r['error']}"
+            results[key] = r
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    return {name: check({key: results[key] for key, _, _ in jobs}, wall) for name, jobs, check in parts}
 
 
 def phase_fused_zoo_vs_plain(dev) -> None:
@@ -937,20 +1027,19 @@ def phase_fused_zoo_vs_plain(dev) -> None:
                   "backward_bound": bound(*wb, tag), "forward_bound": bound(*wf, tag)})
 
 
-def phase_zoo(dev) -> dict:
+def zoo_part(dev):
     """The model zoo (perf/benchmark_zoo.py) through the fused kernels, as
     the JAX package runs it: quadrotor and cartpole fleets of ZOO_BATCH
     lanes, x0 spread 0.05 from seed 0, f32, bench options with the zoo's
     overrides.  Three timed solves of each on the kernels, with the
     kernels' counts set to 0 before them and read after.  Held to
     benchmark_zoo's contract against the plain path (eager passes, on the
-    first ZOO_PLAIN_LANES lanes, one process per model, run after the
-    kernel solves so that they do not share the card with them): SOLVED
-    rate within 2 points, median relative cost difference on jointly solved
-    lanes < 2e-2, all results finite.  Returns each kernel's launches per
-    solve, per model."""
-    import multiprocessing as mp
-
+    first ZOO_PLAIN_LANES lanes, one process per model, run by run_plain
+    after the kernel solves so that they do not share the card with them):
+    SOLVED rate within 2 points, median relative cost difference on
+    jointly solved lanes < 2e-2, all results finite.  Returns run_plain's
+    part, whose check returns each kernel's launches per solve, per
+    model."""
     import torch
 
     from altro_tpu_torch import SolverStatus
@@ -977,59 +1066,387 @@ def phase_zoo(dev) -> dict:
             launches=dict(backward_fused=s._bwd.launches / 3, forward=s._fwd.launches / 3),
             **zoo_outcome(s, params, res, xf, ZOO_PLAIN_LANES),
         )
-    ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    procs = [
-        ctx.Process(target=zoo_plain_solve, args=(name, x0s[name][:, :ZOO_PLAIN_LANES], ZOO_PLAIN_LANES, out))
-        for name in names
-    ]
+    jobs = [(name, zoo_plain_solve, (name, x0s[name][:, :ZOO_PLAIN_LANES], ZOO_PLAIN_LANES)) for name in names]
+
+    def check(plain, plain_wall):
+        solved = int(SolverStatus.SOLVED)
+        launches = {}
+        for name in names:
+            rk, rs = kern[name], plain[name]
+            L = ZOO_PLAIN_LANES
+            st_all, st_s = rk["status"], rs["status"]
+            st_k = st_all[:L]
+            rate_k, rate_s = float((st_k == solved).mean()), float((st_s == solved).mean())
+            both = (st_k == solved) & (st_s == solved)
+            relj = np.abs(rk["J"] - rs["J"])[both] / np.maximum(np.abs(rs["J"])[both], 1e-9)
+            it = rk["iterations"]
+            emit(dict(
+                phase="zoo", problem=name, N=ZOO_N[name], B=ZOO_BATCH, dtype="f32",
+                launches_per_solve=rk["launches"], wall_s_reps=rk["wall_s_reps"], wall_s=rk["wall_s"],
+                solves_per_s=ZOO_BATCH / rk["wall_s"], host_syncs=rk["host_syncs"],
+                iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)),
+                iters_max=int(it.max()), solved_frac_all=float((st_all == solved).mean()),
+                status_hist={SolverStatus(int(c)).name: int((st_all == c).sum()) for c in sorted(set(st_all.tolist()))},
+                median_terminal_err=float(np.median(rk["terminal_err"])),
+                plain_lanes=L, plain_wall_s=rs["wall_s"], plain_launches=rs["launches"],
+                plain_phase_wall_s=plain_wall, solved_rate_kernel=rate_k, solved_rate_plain=rate_s,
+                status_agreement=float((st_k == st_s).mean()), jointly_solved=int(both.sum()),
+                cost_rel_diff_p50=float(np.median(relj)) if both.any() else None,
+                cost_rel_diff_p99=float(np.percentile(relj, 99)) if both.any() else None,
+            ))
+            assert rk["finite"] and rs["finite"], f"{name}: non-finite result"
+            assert min(rk["launches"].values()) > 0, (name, rk["launches"])
+            assert rs["launches"] == 0, f"{name}: the plain path launched a kernel"
+            assert abs(rate_k - rate_s) <= 0.02, (name, rate_k, rate_s)
+            assert both.any() and float(np.median(relj)) < 2e-2, (name, float(np.median(relj)) if both.any() else None)
+            launches[name] = rk["launches"]
+        return launches
+
+    return "zoo", jobs, check
+
+
+def phase_zoo(dev) -> dict:
+    """zoo_part and its plain solves."""
+    return run_plain([zoo_part(dev)])["zoo"]
+
+
+def obstacle_solver(mode, path, dev):
+    """perf/benchmark_obstacles.py's solver in `mode` ("f32_throughput" or
+    "complete"): `CompactedALSolver(phase1_iters=PHASE1_ITERS,
+    tail_batch=TAIL_BATCH)` on the bench options with the script's
+    overrides, f32, and in complete mode its restart cascade; `path`
+    "kernels" keeps both fused kernels, "plain" runs the eager passes.
+    Returns (solver, problem definition, compiled problem)."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import THREE_OBSTACLES, UnicycleProblem
+    from altro_tpu_torch.solver.compaction import CompactedALSolver
+
+    defn = UnicycleProblem(scenario=THREE_OBSTACLES, dtype=torch.float32, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    opts = SolverOptions(**BENCH_OPT_KW).replace(**OBST_OPT_KW)
+    if path == "plain":
+        opts = opts.replace(backward_pass="scan", forward_pass="scan")
+    kw = OBST_RESTART if mode == "complete" else {}
+    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, **kw)
+    return solver, defn, prob
+
+
+def obstacle_kernels(solver) -> dict:
+    """The fused kernels of a CompactedALSolver's solvers (phase 1, tail,
+    restarts), by name; None where a solver runs the eager pass."""
+    subs = [s for s in (solver._p1, solver._tail, solver._restart) if s is not None]
+    return dict(backward_fused=[s._bwd for s in subs], forward=[s._fwd for s in subs],
+                riccati=[s._ric for s in subs])
+
+
+def obstacle_x0s(B) -> np.ndarray:
+    """bench.make_batch's fleet: x0 uniform in ±0.1 from default_rng(0),
+    lane 0 the canonical x0 = 0."""
+    x0 = np.random.default_rng(0).uniform(-0.1, 0.1, size=(3, B))
+    x0[:, 0] = 0.0
+    return x0
+
+
+def clearance(X, obstacles) -> np.ndarray:
+    """Per lane, the least distance from the position (X [N+1, n, B]) to an
+    obstacle's edge over every knot, metres, in f64."""
+    Xd = X.double()
+    out = None
+    for cx, cy, r in zip(*obstacles):
+        d = ((Xd[:, 0] - cx) ** 2 + (Xd[:, 1] - cy) ** 2).sqrt().amin(dim=0) - r
+        out = d if out is None else out.minimum(d)
+    return out.cpu().numpy()
+
+
+def obstacle_outcome(solver, defn, params, res, lanes) -> dict:
+    """zoo_outcome of an obstacle solve's first `lanes` lanes, with every
+    lane's clearance."""
+    import torch
+
+    xf = torch.as_tensor(defn.xf, device=res["Z"].X.device)
+    out = zoo_outcome(solver._p1, params, res, xf, lanes)
+    out["clearance"] = clearance(res["Z"].X, defn.obstacles)
+    return out
+
+
+def obstacle_plain_solve(mode: str, x0s: np.ndarray) -> dict:
+    """The plain path's solve in `mode` of the obstacle fleet's lanes x0s
+    [3, lanes] (run in its own process by run_plain): obstacle_outcome's
+    dict, the wall time, host syncs, the kernels' launches and the
+    solver's telemetry."""
+    import torch
+
+    s, defn, prob = obstacle_solver(mode, "plain", torch.device("cuda", 0))
+    params = prob.params.replace(x0=torch.as_tensor(x0s, device=prob.params.x0.device).float())
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    try:
-        plain = {}
-        for _ in procs:
-            r = out.get(timeout=ZOO_TIMEOUT_S)
-            assert r["ok"], f"zoo {r['name']} plain:\n{r['error']}"
-            plain[r["name"]] = r
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-    plain_wall = time.perf_counter() - t0
-    solved = int(SolverStatus.SOLVED)
-    launches = {}
-    for name in names:
-        rk, rs = kern[name], plain[name]
-        L = ZOO_PLAIN_LANES
-        st_all, st_s = rk["status"], rs["status"]
-        st_k = st_all[:L]
-        rate_k, rate_s = float((st_k == solved).mean()), float((st_s == solved).mean())
-        both = (st_k == solved) & (st_s == solved)
-        relj = np.abs(rk["J"] - rs["J"])[both] / np.maximum(np.abs(rs["J"])[both], 1e-9)
-        it = rk["iterations"]
+    res = s.solve(params, fleet_trajectory(defn, x0s.shape[1]))
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = sum(_launches(ks) for ks in obstacle_kernels(s).values())
+    return dict(wall_s=wall, host_syncs=s.host_syncs, launches=launches, telemetry=s.telemetry,
+                **obstacle_outcome(s, defn, params, res, x0s.shape[1]))
+
+
+def field_case(dtype, B, dev, rng):
+    """The obstacle problem (N=100) at an expansion point where the circle
+    rows are penalized: positions spread over the obstacle field, headings
+    and controls uniform, x0 beside the first obstacle, and a warm random
+    AL state (warm_al).  Returns (problem, params, Z, al, the share of
+    circle rows with λ − ρc <= 0)."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import THREE_OBSTACLES, UnicycleProblem
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    defn = UnicycleProblem(scenario=THREE_OBSTACLES, dtype=dtype, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    t = lambda a: torch.as_tensor(a, device=dev).to(dtype)  # noqa: E731
+    X = np.concatenate([rng.uniform(0.3, 2.7, (N + 1, 2, B)), rng.uniform(-np.pi, np.pi, (N + 1, 1, B))], axis=1)
+    U = np.stack([rng.uniform(0.0, 1.5, (N, B)), rng.uniform(-1.0, 1.0, (N, B))], axis=1)
+    x0 = np.concatenate([rng.uniform(0.3, 1.2, (2, B)), rng.uniform(-np.pi, np.pi, (1, B))])
+    Z0 = defn.initial_trajectory()
+    Z = replicate(Z0, B).replace(X=t(X).contiguous(), U=t(U).contiguous())
+    ev = ALSolverBatched(prob, SolverOptions(), compensated_circles=True)
+    al = warm_al(ev, B, dtype, dev, rng)
+    fam = [i for i, f in enumerate(prob.constraint_families) if f.constraint.structure[0] == "circle"][0]
+    c = ev.constraint_values(prob.params, Z)[fam]
+    s = al[fam]["lam"] - al[fam]["rho"][:, None, :] * c
+    return prob, prob.params.replace(x0=t(x0)), Z, al, float((s <= 0).double().mean())
+
+
+def obstacle_kernels_vs_plain(dev) -> dict:
+    """Steps 1-2 of phase_obstacles; returns the f32 summary of each kernel
+    at B=B_FLEET (max error, times, work)."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel, circle_rows_on_card, comp_circle
+    from altro_tpu_torch.ops.forward import ForwardKernel
+
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.float64):
+        r = rng.uniform(0.2, 1.0, 1 << 16)
+        phi = rng.uniform(0, 2 * np.pi, r.size)
+        rad = np.concatenate([r[: r.size // 2] * (1 + rng.uniform(-1e-3, 1e-3, r.size // 2)),
+                              rng.uniform(0.0, 3.0, r.size - r.size // 2)])
+        dx, dy, rr = (torch.as_tensor(a, device=dev).to(dtype) for a in (rad * np.cos(phi), rad * np.sin(phi), r))
+        got, want = circle_rows_on_card(dx, dy, rr), comp_circle(dx, dy, rr)
+        _sync()
+        same = bool((got.view(torch.uint8) == want.view(torch.uint8)).all())
+        emit(dict(phase="obstacles_circle_rows", dtype=str(dtype).removeprefix("torch."), rows=r.size,
+                  bitwise_equal=same, max_abs_diff=float((got - want).abs().max())))
+        assert same, "the kernels' circle rows differ from comp_circle's"
+
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        item = torch.finfo(dtype).bits // 8
+        for B in (B_FLEET, OBST_RAGGED_B):
+            prob, params, Zb, al, active = field_case(dtype, B, dev, rng)
+            opts = SolverOptions()
+            bk = BackwardFusedKernel(prob, opts, dtype=dtype, device=dev)
+            fk = ForwardKernel(prob, opts, dtype=dtype, device=dev)
+            ap = bk.pad_al(al)
+            errs_b, errs_f = {}, {}
+            for rho_v in tol.RHOS[tag]["obstacles"]:
+                rho = torch.full((B,), rho_v, dtype=dtype, device=dev)
+                got = bk(params, ap, Zb, rho)
+                want = bk.plain(params, ap, Zb, rho)
+                _sync()
+                assert torch.equal(got[4], want[4]), f"obstacles backward rho={rho_v}: failed flags differ"
+                ok = ~want[4]
+                case = {
+                    key: compare(key, g, w, dtype, mask=ok, f32_rel=tol.OBSTACLE_F32_REL)
+                    for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
+                }
+                case["J0"] = compare("J0", got[5], want[5], dtype, f32_rel=tol.OBSTACLE_F32_REL)
+                case["n_failed"] = int(want[4].sum())
+                errs_b[f"rho={rho_v}"] = case
+                if rho_v == tol.RHOS[tag]["obstacles"][1]:
+                    K, d = want[0], want[1]
+            for alpha, cb, KK, dd in (
+                (1.0, True, K, d), (0.5, True, K, d),
+                (0.0, False, torch.zeros_like(K), torch.zeros_like(d)),
+            ):
+                a = torch.full((B,), alpha, dtype=dtype, device=dev)
+                got = fk(params, ap, Zb, KK, dd, a, check_bounds=cb)
+                want = fk.plain(params, ap, Zb, KK, dd, a, check_bounds=cb)
+                _sync()
+                assert torch.equal(got[3], want[3]), "obstacles forward: valid flags differ"
+                assert torch.equal(got[4], want[4]), "obstacles forward: status differs"
+                errs_f[f"alpha={alpha},guarded={cb}"] = {
+                    key: compare(key, g, w, dtype, f32_rel=tol.OBSTACLE_F32_REL)
+                    for key, g, w in zip(("Xn", "Ubar", "J"), got[:3], want[:3])
+                }
+            line = {"phase": "obstacles_kernel_vs_plain", "dtype": tag, "N": N, "B": B,
+                    "Ps": bk.Ps, "Fs": bk.Fs, "circle_rows_penalized": active,
+                    "backward_fused": errs_b, "forward": errs_f}
+            if B == B_FLEET:
+                rho = torch.full((B,), tol.RHOS[tag]["obstacles"][1], dtype=dtype, device=dev)
+                a1 = torch.ones((B,), dtype=dtype, device=dev)
+                times = dict(
+                    backward_ms=cuda_ms(lambda: bk(params, ap, Zb, rho), 20),
+                    backward_device_ms=device_ms(lambda: bk(params, ap, Zb, rho), 20, "backward_fused_kernel"),
+                    backward_plain_ms=cuda_ms(lambda: bk.plain(params, ap, Zb, rho), 3),
+                    forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 20),
+                    forward_device_ms=device_ms(lambda: fk(params, ap, Zb, K, d, a1), 20, "forward_kernel"),
+                    forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
+                )
+                wb, wf = fused_work(bk, B, item), forward_work(fk, B, item)
+                line.update(times, backward_bound=bound(*wb, tag), forward_bound=bound(*wf, tag))
+                summary[tag] = dict(
+                    backward_fused=dict(
+                        max_abs_err=max(c[k]["max_abs"] for c in errs_b.values() for k in ("K", "d")),
+                        ms=times["backward_ms"], device_ms=times["backward_device_ms"],
+                        plain_ms=times["backward_plain_ms"], work=wb),
+                    forward=dict(
+                        max_abs_err=max(c[k]["max_abs"] for c in errs_f.values() for k in ("Xn", "Ubar")),
+                        ms=times["forward_ms"], device_ms=times["forward_device_ms"],
+                        plain_ms=times["forward_plain_ms"], work=wf),
+                )
+            emit(line)
+            assert active > 0.05, f"only {active:.3f} of the circle rows are penalized"
+    return summary
+
+
+def obstacle_fleet_run(dev) -> dict:
+    """Step 3 of phase_obstacles; returns each mode's result on the first
+    OBST_PLAIN_LANES lanes and its launches per solve."""
+    import torch
+
+    from altro_tpu_torch import SolverStatus
+
+    x0s = obstacle_x0s(B_FLEET)
+    runs = {}
+    for mode in ("f32_throughput", "complete"):
+        solver, defn, prob = obstacle_solver(mode, "kernels", dev)
+        kerns = obstacle_kernels(solver)
+        assert all(k is not None for k in kerns["backward_fused"] + kerns["forward"]), (
+            f"{mode}: the fused kernels refused the obstacle problem")
+        params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).float())
+        Zb = fleet_trajectory(defn, B_FLEET)
+        t0 = time.perf_counter()
+        res = solver.solve(params, Zb)
+        _sync()
+        warm_s = time.perf_counter() - t0
+        for ks in kerns.values():
+            for k in ks:
+                if k is not None:
+                    k.launches = 0
+        walls, syncs = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = solver.solve(params, Zb)
+            _sync()
+            walls.append(time.perf_counter() - t0)
+            syncs.append(solver.host_syncs)
+        launches = {name: _launches(ks) / 3 for name, ks in kerns.items()}
+        out = obstacle_outcome(solver, defn, params, res, OBST_PLAIN_LANES)
+        status, it, clr = out["status"], out["iterations"], out["clearance"]
+        solved = status == int(SolverStatus.SOLVED)
+        wall = float(np.median(walls))
         emit(dict(
-            phase="zoo", problem=name, N=ZOO_N[name], B=ZOO_BATCH, dtype="f32",
-            launches_per_solve=rk["launches"], wall_s_reps=rk["wall_s_reps"], wall_s=rk["wall_s"],
-            solves_per_s=ZOO_BATCH / rk["wall_s"], host_syncs=rk["host_syncs"],
+            phase="obstacles_fleet", mode=mode, path="kernels", B=B_FLEET, N=N, dtype="f32",
+            status_hist={SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))},
+            solved_frac=float(solved.mean()), warmup_s=warm_s, wall_s_reps=walls, wall_s_median=wall,
+            solves_per_s=B_FLEET / wall, host_syncs_per_solve=syncs, launches_per_solve=launches,
             iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)),
-            iters_max=int(it.max()), solved_frac_all=float((st_all == solved).mean()),
-            status_hist={SolverStatus(int(c)).name: int((st_all == c).sum()) for c in sorted(set(st_all.tolist()))},
-            median_terminal_err=float(np.median(rk["terminal_err"])),
-            plain_lanes=L, plain_wall_s=rs["wall_s"], plain_launches=rs["launches"],
-            plain_phase_wall_s=plain_wall, solved_rate_kernel=rate_k, solved_rate_plain=rate_s,
-            status_agreement=float((st_k == st_s).mean()), jointly_solved=int(both.sum()),
+            iters_max=int(it.max()), telemetry=solver.telemetry,
+            lane0_min_clearance_m=float(clr[0]), solved_min_clearance_m=float(clr[solved].min()),
+        ))
+        assert out["finite"], f"{mode}: non-finite result"
+        assert launches["backward_fused"] > 0 and launches["forward"] > 0 and launches["riccati"] == 0, launches
+        assert float(clr[solved].min()) >= CLEARANCE_MIN, f"{mode}: a SOLVED lane enters an obstacle"
+        runs[mode] = dict(out, launches=launches)
+    status = runs["complete"]["status"]
+    assert int(status[0]) == int(SolverStatus.SOLVED), "complete mode: lane 0 not SOLVED"
+    frac = float((status == int(SolverStatus.SOLVED)).mean())
+    assert frac >= 0.99, f"complete mode: {frac:.4f} SOLVED"
+    return runs
+
+
+def obstacles_part(dev):
+    """The three-obstacle unicycle fleet (perf/benchmark_obstacles.py: the
+    scenario of the reference's 31.768 ms anchor), on both fused kernels:
+      1. the kernels' circle rows (csrc/lane_algebra.cuh:comp_circle,
+         through circle_rows_on_card) against comp_circle, bit for bit, on
+         rows near the obstacles' edges and away from them, f32 and f64;
+      2. both fused kernels against their plain versions at the obstacle
+         problem's shapes (N=100; 7 stage multiplier rows, 2 penalty rows)
+         at B=4096 and OBST_RAGGED_B, f64 and f32, at field_case's inputs
+         (circle rows penalized): the backward kernel at each of
+         tolerances.RHOS' obstacle ρ, the forward kernel rolling out the
+         plain gains of the second (0.37) at α = 1 and 0.5 (guarded) and
+         the open-loop α = 0; CUDA event and device times and the bounds at
+         B=4096;
+      3. the B=4096 fleet (bench.make_batch's x0) in f32 on the kernels, in
+         both of the script's modes, f32_throughput and complete (its
+         restart cascade): a warm-up and three timed solves each, the
+         kernels' counts set to 0 before the timed solves;
+      4. the fleet's first OBST_PLAIN_LANES lanes on the plain path (eager
+         passes, on the card) in OBST_PLAIN_MODE, split over
+         OBST_PLAIN_PROCS processes that run_plain runs after the kernel
+         solves (the lanes are independent), held to
+         perf/benchmark_zoo.py's contract against the kernels' solve in
+         that mode: SOLVED shares within 2 points, median relative cost
+         difference on lanes both solved < 2e-2.
+    Asserts as well that every SOLVED lane of either path clears every
+    obstacle by CLEARANCE_MIN at every knot (example_unicycle_test.cpp:
+    76-83), that lane 0 is SOLVED and >= 99% of lanes are in complete
+    mode.  Returns (step 2's f32 summary, run_plain's part, whose check
+    returns each kernel's launches per solve in each mode)."""
+    from altro_tpu_torch import SolverStatus
+
+    summary = obstacle_kernels_vs_plain(dev)
+    runs = obstacle_fleet_run(dev)
+    L, P = OBST_PLAIN_LANES, OBST_PLAIN_PROCS
+    x0s = obstacle_x0s(B_FLEET)[:, :L]
+    jobs = [(("obstacles", i), obstacle_plain_solve, (OBST_PLAIN_MODE, x0s[:, i * L // P:(i + 1) * L // P]))
+            for i in range(P)]
+
+    def check(parts, plain_wall):
+        parts = [parts[key] for key, _, _ in jobs]
+        plain = {key: np.concatenate([r[key] for r in parts]) for key in ("status", "J", "clearance")}
+        rk = runs[OBST_PLAIN_MODE]
+        solved = int(SolverStatus.SOLVED)
+        st_k, st_p = rk["status"][:L], plain["status"]
+        rate_k, rate_p = float((st_k == solved).mean()), float((st_p == solved).mean())
+        both = (st_k == solved) & (st_p == solved)
+        relj = np.abs(rk["J"] - plain["J"])[both] / np.maximum(np.abs(plain["J"])[both], 1e-9)
+        clr = plain["clearance"]
+        launches = sum(r["launches"] for r in parts)
+        emit(dict(
+            phase="obstacles_vs_plain", mode=OBST_PLAIN_MODE, lanes=L, processes=P,
+            plain_wall_s=[r["wall_s"] for r in parts], plain_stage_wall_s=plain_wall,
+            plain_host_syncs=[r["host_syncs"] for r in parts], plain_launches=launches,
+            plain_iters_max=[r["telemetry"]["iters_max"] for r in parts],
+            plain_status_hist={SolverStatus(int(c)).name: int((st_p == c).sum()) for c in sorted(set(st_p.tolist()))},
+            solved_rate_kernel=rate_k, solved_rate_plain=rate_p, status_agreement=float((st_k == st_p).mean()),
+            jointly_solved=int(both.sum()),
             cost_rel_diff_p50=float(np.median(relj)) if both.any() else None,
             cost_rel_diff_p99=float(np.percentile(relj, 99)) if both.any() else None,
+            plain_solved_min_clearance_m=float(clr[st_p == solved].min()) if (st_p == solved).any() else None,
         ))
-        assert rk["finite"] and rs["finite"], f"{name}: non-finite result"
-        assert min(rk["launches"].values()) > 0, (name, rk["launches"])
-        assert rs["launches"] == 0, f"{name}: the plain path launched a kernel"
-        assert abs(rate_k - rate_s) <= 0.02, (name, rate_k, rate_s)
-        assert both.any() and float(np.median(relj)) < 2e-2, (name, float(np.median(relj)) if both.any() else None)
-        launches[name] = rk["launches"]
-    return launches
+        assert all(r["finite"] for r in parts), "obstacles plain: non-finite result"
+        assert launches == 0, "obstacles: the plain path launched a kernel"
+        assert (st_p != solved).all() or float(clr[st_p == solved].min()) >= CLEARANCE_MIN, (
+            "plain: a SOLVED lane enters an obstacle")
+        assert abs(rate_k - rate_p) <= 0.02, (rate_k, rate_p)
+        assert both.any() and float(np.median(relj)) < 2e-2, float(np.median(relj)) if both.any() else None
+        return {mode: r["launches"] for mode, r in runs.items()}
+
+    return summary, ("obstacles", jobs, check)
+
+
+def phase_obstacles(dev) -> tuple:
+    """obstacles_part and its plain solves; returns (its f32 kernel
+    summary, each kernel's launches per solve in each mode)."""
+    summary, part = obstacles_part(dev)
+    return summary, run_plain([part])["obstacles"]
 
 
 def scaling_fleet(name, B, dev, dtype=None):
@@ -1364,19 +1781,29 @@ def main(argv) -> int:
         timed(phase_golden_f64_riccati)
         timed(phase_fused_zoo_vs_plain)
         timed(phase_kernel_scaling)
-        zoo_launches = timed(phase_zoo)
         timed(phase_profile)
+        zoo = timed(zoo_part)
+        obst_kern, obst = timed(obstacles_part)
+
+        def plain_stage(_dev):
+            """The zoo's and the obstacle fleet's plain solves, together,
+            after every timed kernel measurement."""
+            return run_plain([zoo, obst])
+
+        plain = timed(plain_stage)
+        zoo_launches, obst_launches = plain["zoo"], plain["obstacles"]
         emit(dict(phase="seconds", **seconds))
     except Exception:  # noqa: BLE001 - report any failed phase and exit non-zero
         traceback.print_exc()
         return 1
     print(card)
     # each kernel's launches on the paths that run it: the fused kernels on
-    # the main path (5 solves) and the zoo (per solve), the Riccati kernel
-    # on backward_pass="pallas" (3 solves)
+    # the main path (5 solves), the zoo and the obstacle fleet's two modes
+    # (per solve), the Riccati kernel on backward_pass="pallas" (3 solves)
     by_path = {
         name: dict(main_path=main_launches[name], riccati_path=ric_launches[name],
-                   **{f"zoo_{z}_per_solve": zoo_launches[z][name] for z in zoo_launches})
+                   **{f"zoo_{z}_per_solve": zoo_launches[z][name] for z in zoo_launches},
+                   **{f"obstacles_{mode}_per_solve": obst_launches[mode][name] for mode in obst_launches})
         for name in ("backward_fused", "forward")
     }
     by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])
@@ -1396,6 +1823,11 @@ def main(argv) -> int:
             device_ms=k["device_ms"], plain_ms=k["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=None,
         ))
+        if name in obst_kern["f32"]:  # the same kernel at the obstacle problem's shapes
+            o = obst_kern["f32"][name]
+            ob_ms, ob_by = bound(*o["work"], "f32")
+            rows[-1]["obstacles"] = dict(max_abs_err=o["max_abs_err"], ms=o["ms"], device_ms=o["device_ms"],
+                                         plain_ms=o["plain_ms"], bound_ms=ob_ms, bound_by=ob_by)
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

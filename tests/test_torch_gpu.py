@@ -411,6 +411,57 @@ def test_fused_kernels_match_plain_with_a_cost_per_knot(problem, dtype):
     _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al)
 
 
+def _obstacle_fleet(dtype, dev, Bz):
+    """The three-obstacle problem (N=100, 7 stage multiplier rows) at Bz
+    lanes whose positions spread over the obstacle field, so that the
+    circle rows are penalized (chip_smoke.py's field_case), under a warm
+    random AL state."""
+    rng = np.random.default_rng(4)
+    defn = UnicycleProblem(scenario="three_obstacles", dtype=dtype, device=dev)
+    prob = defn.make_problem().compile()
+    t = lambda a: torch.as_tensor(a, device=dev).to(dtype)  # noqa: E731
+    Nh = defn.N
+    X = np.concatenate([rng.uniform(0.3, 2.7, (Nh + 1, 2, Bz)), rng.uniform(-np.pi, np.pi, (Nh + 1, 1, Bz))], axis=1)
+    U = np.stack([rng.uniform(0.0, 1.5, (Nh, Bz)), rng.uniform(-1.0, 1.0, (Nh, Bz))], axis=1)
+    x0 = np.concatenate([rng.uniform(0.3, 1.2, (2, Bz)), rng.uniform(-np.pi, np.pi, (1, Bz))])
+    Z = _fleet_Z(defn, Bz).replace(X=t(X).contiguous(), U=t(U).contiguous())
+    al = tuple(
+        dict(lam=t(rng.uniform(-0.5, 0.0, st["lam"].shape)), rho=t(rng.uniform(1.0, 10.0, st["rho"].shape)))
+        for st in ALSolverBatched(prob, SolverOptions()).al_state_init(Bz, dtype)
+    )
+    return prob, prob.params.replace(x0=t(x0)), Z, al
+
+
+@pytest.mark.parametrize("Bz", [1000, 1001, 1])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_fused_kernels_match_plain_on_the_obstacle_problem(dtype, Bz):
+    """Both fused kernels take the three-obstacle problem (circle rows in
+    compensated arithmetic, their off-diagonal Gauss-Newton term) and match
+    their plain versions as at the ragged widths."""
+    dev = _device()
+    prob, params, Z, al = _obstacle_fleet(dtype, dev, Bz)
+    kern = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    assert (kern.Ps, kern.Fs) == (7, 2)
+    _hold_fused_kernels("obstacles", dtype, dev, prob, params, Z, al)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_circle_rows_match_comp_circle_bitwise(dtype):
+    """The kernels' circle rows (csrc/lane_algebra.cuh:comp_circle, through
+    circle_rows_on_card) equal the plain version's bit for bit, near the
+    obstacles' edges, where the squares cancel, and away from them."""
+    from altro_tpu_torch.ops.backward_fused import circle_rows_on_card, comp_circle
+
+    dev = _device()
+    rng = np.random.default_rng(6)
+    r = rng.uniform(0.2, 1.0, 1 << 14)
+    phi = rng.uniform(0, 2 * np.pi, r.size)
+    rad = np.concatenate([r[:8192] * (1 + rng.uniform(-1e-3, 1e-3, 8192)), rng.uniform(0.0, 3.0, r.size - 8192)])
+    dx, dy, rr = (torch.as_tensor(a, device=dev).to(dtype) for a in (rad * np.cos(phi), rad * np.sin(phi), r))
+    got, want = circle_rows_on_card(dx, dy, rr), comp_circle(dx, dy, rr)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
 def _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al):
     """The backward kernel at each of the problem's ρ (flags, K, d, ΔV
     within each float64 lane's sensitivity, J0), the forward kernel rolling
@@ -418,7 +469,7 @@ def _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al):
     plain version."""
     Bz = Z.X.shape[-1]
     tag = "f64" if dtype == torch.float64 else "f32"
-    f32_rel = tol.F32_REL if problem == "parking" else tol.ZOO_F32_REL[problem]
+    f32_rel = dict(parking=tol.F32_REL, obstacles=tol.OBSTACLE_F32_REL).get(problem) or tol.ZOO_F32_REL[problem]
     bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
     fk = ForwardKernel(prob, SolverOptions(), dtype=dtype, device=dev)
     ap = bk.pad_al(al)
