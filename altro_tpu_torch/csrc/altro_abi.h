@@ -62,6 +62,30 @@ struct AltroProblem {
   AltroConFam con[ALTRO_MAX_FAMS];
 };
 
+// Per-instance params (a trailing batch axis on a param leaf,
+// altro_tpu_torch/solver/batched.py:batch_axes) reach the lane-params
+// instantiations of the fused kernels (the `_lanes` entry points) in a lane
+// table [rows, B] of the launch's scalar type, batch last like X and U: per
+// knot k = 0..N, `knot_rows` rows of the per-knot leaves (stacked cost
+// params of a family over every knot) from row k * knot_rows on, then
+// `static_rows` rows of the other per-lane leaves.  A leaf's source gives
+// the row of its entry 0 among its knot's rows (kstride != 0) or among the
+// static rows (kstride == 0); off = -1 marks a leaf the batch shares, which
+// the kernel reads from AltroProblem or the cost table as it does without
+// lanes (where the descriptor then holds a zero).  The shared-param entry
+// points and their structs are left as they were, so that their code stays
+// what it was.
+struct AltroLaneSrc {
+  int off, kstride;
+};
+
+struct AltroLanes {
+  int knot_rows, static_rows;
+  AltroLaneSrc dyn[ALTRO_NDYN];          // AltroProblem.dyn[i]
+  AltroLaneSrc cost[ALTRO_MAX_FAMS][6];  // AltroProblem.cost[f]'s Q, R, H, q, r, c
+  AltroLaneSrc con[ALTRO_MAX_FAMS][3];   // AltroProblem.con[f]'s a, b, r (goal: xf; control bound: lb, ub; circle: cx, cy, r)
+};
+
 // Launch geometry of a kernel, chosen by its wrapper
 // (ops/backward_fused.py:FusedKernel.geometry, ops/riccati.py:
 // RiccatiKernel.geometry); the grid is ceil(B / lanes) blocks.  The kernel
@@ -127,7 +151,7 @@ struct AltroRiccatiArgs {
 #ifdef __cplusplus
 extern "C" {
 #endif
-// sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs
+// sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs, AltroLanes
 void altro_abi_sizes(int* out);
 // (kFOps, kTangentOps) of the unicycle, cartpole and quadrotor functors
 // (csrc/models.cuh), six ints
@@ -135,10 +159,19 @@ void altro_model_ops(int* out);
 // Each entry point launches on `stream` and returns cudaGetLastError().
 // altro_{backward_fused,forward}_{model}_{f32,f64} for the models of
 // csrc/models.cuh: unicycle, cartpole, quadrotor
+// and their lane-params instantiations altro_{backward_fused,forward}_lanes_*,
+// which take the lanes descriptor twice (on the host, where the launcher
+// checks the geometry against it, and on the device) and the lane table
 #define ALTRO_FUSED_DECL(MODEL, S)                                                        \
   int altro_backward_fused_##MODEL##_##S(const AltroBackwardArgs* args, const AltroProblem* prob, \
                                          void* stream);                                   \
-  int altro_forward_##MODEL##_##S(const AltroForwardArgs* args, const AltroProblem* prob, void* stream);
+  int altro_forward_##MODEL##_##S(const AltroForwardArgs* args, const AltroProblem* prob, void* stream); \
+  int altro_backward_fused_lanes_##MODEL##_##S(const AltroBackwardArgs* args, const AltroProblem* prob, \
+                                               const AltroLanes* lanes, const AltroLanes* lanes_dev, \
+                                               const void* lane_tab, void* stream);                \
+  int altro_forward_lanes_##MODEL##_##S(const AltroForwardArgs* args, const AltroProblem* prob,      \
+                                        const AltroLanes* lanes, const AltroLanes* lanes_dev,       \
+                                        const void* lane_tab, void* stream);
 ALTRO_FUSED_DECL(unicycle, f32) ALTRO_FUSED_DECL(unicycle, f64)
 ALTRO_FUSED_DECL(cartpole, f32) ALTRO_FUSED_DECL(cartpole, f64)
 ALTRO_FUSED_DECL(quadrotor, f32) ALTRO_FUSED_DECL(quadrotor, f64)

@@ -30,20 +30,66 @@ __device__ __forceinline__ const T* cost_row(const T* tab, const AltroCostFam& f
   return tab + f.offset + (f.stacked ? (k - f.k0) * CostRow<n, m>::size : 0);
 }
 
-// Q[i][j], R[i][j] of a cost row, read from the upper triangle
+// A cost row of the lane-params instantiations: each leaf (Q, R, H, q, r,
+// c) from the cost table's row, or from this lane's staged rows when it is
+// the lane's own (lane[leaf]: its entry 0, entries L apart).  Indexed as a
+// row is; the index is a constant once the loops are unrolled, so the leaf
+// it falls in is too.
 template <typename T, int n, int m>
-__device__ __forceinline__ T quad_Q(const T* cr, int i, int j) {
+struct LaneCostRow {
+  const T* tab;
+  const T* lane[6];
+  int L;
+  __device__ __forceinline__ T operator[](int idx) const {
+    using C = CostRow<n, m>;
+    const int leaf = idx < C::R ? 0 : idx < C::H ? 1 : idx < C::q ? 2 : idx < C::r ? 3 : idx < C::c ? 4 : 5;
+    const int start = leaf == 0 ? C::Q : leaf == 1 ? C::R : leaf == 2 ? C::H : leaf == 3 ? C::q
+                      : leaf == 4 ? C::r : C::c;
+    return lane[leaf] != nullptr ? lane[leaf][(idx - start) * L] : tab[idx];
+  }
+};
+
+// One lane's staged lane rows (csrc/altro_abi.h:AltroLanes): its knot's
+// per-knot rows (row w at knot[w * L]) and the static rows (row s at
+// stat[s * L])
+template <typename T>
+struct LaneView {
+  const T* knot;
+  const T* stat;
+  int L;
+  // the lane's entry 0 of the leaf at `src`, or nullptr for a shared leaf
+  __device__ __forceinline__ const T* at(const AltroLaneSrc& src) const {
+    return src.off < 0 ? nullptr : (src.kstride != 0 ? knot : stat) + src.off * L;
+  }
+};
+
+// cost family fi's row at knot k as the lane reads it
+template <typename T, int n, int m>
+__device__ __forceinline__ LaneCostRow<T, n, m> lane_cost_row(const AltroLanes& ln, const LaneView<T>& v,
+                                                              const T* tab_row, int fi) {
+  LaneCostRow<T, n, m> r;
+  r.tab = tab_row;
+  r.L = v.L;
+#pragma unroll
+  for (int leaf = 0; leaf < 6; ++leaf) r.lane[leaf] = v.at(ln.cost[fi][leaf]);
+  return r;
+}
+
+// Q[i][j], R[i][j] of a cost row, read from the upper triangle
+template <typename T, int n, int m, class Row = const T*>
+__device__ __forceinline__ T quad_Q(const Row cr, int i, int j) {
   return cr[CostRow<n, m>::Q + (i < j ? i : j) * n + (i < j ? j : i)];
 }
-template <typename T, int n, int m>
-__device__ __forceinline__ T quad_R(const T* cr, int i, int j) {
+template <typename T, int n, int m, class Row = const T*>
+__device__ __forceinline__ T quad_R(const Row cr, int i, int j) {
   return cr[CostRow<n, m>::R + (i < j ? i : j) * m + (i < j ? j : i)];
 }
 
-// ½xᵀQx + xᵀHu + ½uᵀRu + qᵀx + rᵀu + c of one cost row, reading Q and R's
-// upper triangle; u == nullptr drops the control terms (terminal knot)
-template <typename T, int n, int m>
-__device__ __forceinline__ T quad_value(const T* __restrict__ cr, const T* x, const T* u) {
+// ½xᵀQx + xᵀHu + ½uᵀRu + qᵀx + rᵀu + c of one cost row (the table's, or a
+// LaneCostRow), reading Q and R's upper triangle; u == nullptr drops the
+// control terms (terminal knot)
+template <typename T, int n, int m, class Row>
+__device__ __forceinline__ T quad_value(const Row cr, const T* x, const T* u) {
   using L = CostRow<n, m>;
   T J = cr[L::c];
 #pragma unroll
@@ -71,16 +117,15 @@ __device__ __forceinline__ T quad_value(const T* __restrict__ cr, const T* x, co
 }
 
 // gradient of quad_value added into lx (and lu when u != nullptr)
-template <typename T, int n, int m>
-__device__ __forceinline__ void quad_grad_add(const T* __restrict__ cr, const T* x, const T* u,
-                                              T* lx, T* lu) {
+template <typename T, int n, int m, class Row>
+__device__ __forceinline__ void quad_grad_add(const Row cr, const T* x, const T* u, T* lx, T* lu) {
   using L = CostRow<n, m>;
 #pragma unroll
   for (int i = 0; i < n; ++i) {
     T g = cr[L::q + i] + cr[L::Q + i * n + i] * x[i];
 #pragma unroll
     for (int j = 0; j < n; ++j) {
-      if (j != i) g += quad_Q<T, n, m>(cr, i, j) * x[j];
+      if (j != i) g += quad_Q<T, n, m, Row>(cr, i, j) * x[j];
     }
     if (u != nullptr) {
 #pragma unroll
@@ -94,7 +139,7 @@ __device__ __forceinline__ void quad_grad_add(const T* __restrict__ cr, const T*
     T g = cr[L::r + i] + cr[L::R + i * m + i] * u[i];
 #pragma unroll
     for (int j = 0; j < m; ++j) {
-      if (j != i) g += quad_R<T, n, m>(cr, i, j) * u[j];
+      if (j != i) g += quad_R<T, n, m, Row>(cr, i, j) * u[j];
     }
 #pragma unroll
     for (int j = 0; j < n; ++j) g += cr[L::H + j * m + i] * x[j];
@@ -151,21 +196,51 @@ struct CircleTerms {
   T gx = T(0), gy = T(0), hxx = T(0), hyy = T(0), hxy = T(0);
 };
 
+// The lane's own constraint params of the lane-params instantiations: for
+// each of AltroConFam's a, b, r, the lane's entry 0 (entries L apart), or
+// nullptr where the family's is shared
+template <typename T>
+struct LaneCon {
+  const T* p[3] = {nullptr, nullptr, nullptr};
+  int L = 0;
+};
+
+// constraint family fi's LaneCon as the lane reads it (empty without LP)
+template <typename T, bool LP>
+__device__ __forceinline__ LaneCon<T> lane_con(const AltroLanes* ln, const LaneView<T>& v, int fi) {
+  LaneCon<T> c;
+  if constexpr (LP) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) c.p[j] = v.at(ln->con[fi][j]);
+    c.L = v.L;
+  }
+  return c;
+}
+
 // AL value (‖Π(λ−ρc)‖² − ‖λ‖²)/2ρ of one family at one knot; with EXP
 // its gradient is added into lx, lu and its Gauss-Newton Hessian into hx,
 // hu (the goal and control-bound Hessians are diagonal), and a circle
 // family's terms into `ct`.  lam points at the family's first multiplier
 // of this lane, rows `stride` apart; u == nullptr evaluates a control
-// bound at u = 0 (terminal knot).
-template <typename T, int n, int m, bool EXP>
+// bound at u = 0 (terminal knot).  With LP, the params in `lc` are the
+// lane's own.
+template <typename T, int n, int m, bool EXP, bool LP = false>
 __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T* u,
                                        const T* lam, long stride, T rho,
-                                       T* lx, T* lu, T* hx, T* hu, CircleTerms<T>* ct) {
+                                       T* lx, T* lu, T* hx, T* hu, CircleTerms<T>* ct,
+                                       const LaneCon<T>& lc = LaneCon<T>()) {
+  // entry i of the family's param a, b or r (which = 0, 1, 2)
+  const auto par = [&](int which, int i) -> T {
+    if constexpr (LP) {
+      if (lc.p[which] != nullptr) return lc.p[which][i * lc.L];
+    }
+    return T(which == 0 ? f.a[i] : which == 1 ? f.b[i] : f.r[i]);
+  };
   T acc = T(0), lam2 = T(0), w, hw;
   if (f.kind == ALTRO_GOAL) {
 #pragma unroll
     for (int i = 0; i < n; ++i) {
-      al_row(f.cone, lam[i * stride], rho, x[i] - T(f.a[i]), acc, lam2, w, hw);
+      al_row(f.cone, lam[i * stride], rho, x[i] - par(0, i), acc, lam2, w, hw);
       if (EXP) {
         lx[i] -= w;
         hx[i] += hw;
@@ -183,8 +258,8 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
     }
     T gx = T(0), gy = T(0), hxx = T(0), hyy = T(0), hxy = T(0);
     for (int o = 0; o < f.p; ++o) {
-      const T dx = px - T(f.a[o]), dy = py - T(f.b[o]);
-      al_row(f.cone, lam[o * stride], rho, comp_circle(dx, dy, T(f.r[o])), acc, lam2, w, hw);
+      const T dx = px - par(0, o), dy = py - par(1, o);
+      al_row(f.cone, lam[o * stride], rho, comp_circle(dx, dy, par(2, o)), acc, lam2, w, hw);
       if (EXP) {
         gx += T(2) * dx * w;
         gy += T(2) * dy * w;
@@ -206,7 +281,7 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
     for (int j = 0; j < m; ++j) {
       if ((f.lo_mask >> j) & 1) {
         const T uj = u != nullptr ? u[j] : T(0);
-        al_row(f.cone, lam[r * stride], rho, T(f.a[j]) - uj, acc, lam2, w, hw);
+        al_row(f.cone, lam[r * stride], rho, par(0, j) - uj, acc, lam2, w, hw);
         if (EXP && u != nullptr) {
           lu[j] += w;
           hu[j] += hw;
@@ -218,7 +293,7 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
     for (int j = 0; j < m; ++j) {
       if ((f.hi_mask >> j) & 1) {
         const T uj = u != nullptr ? u[j] : T(0);
-        al_row(f.cone, lam[r * stride], rho, uj - T(f.b[j]), acc, lam2, w, hw);
+        al_row(f.cone, lam[r * stride], rho, uj - par(1, j), acc, lam2, w, hw);
         if (EXP && u != nullptr) {
           lu[j] -= w;
           hu[j] += hw;
@@ -232,13 +307,20 @@ __device__ __forceinline__ T al_family(const AltroConFam& f, const T* x, const T
 
 // ------------------------------------------------------------ dynamics
 // The model's parameters (AltroProblem.dyn) in the kernel's scalar type;
-// every lane reads the same entries
+// every lane reads the same entries, or with lanes each its own where a
+// parameter is per lane (`stat`: the lane's static lane rows, L apart)
 template <typename T, class Model>
 struct DynParams {
   T p[Model::np > 0 ? Model::np : 1];
   __device__ __forceinline__ explicit DynParams(const AltroProblem& pr) {
 #pragma unroll
     for (int i = 0; i < Model::np; ++i) p[i] = T(pr.dyn[i]);
+  }
+  __device__ __forceinline__ DynParams(const AltroProblem& pr, const AltroLanes& ln, const T* stat, int L) {
+#pragma unroll
+    for (int i = 0; i < Model::np; ++i) {
+      p[i] = ln.dyn[i].off >= 0 ? stat[ln.dyn[i].off * L] : T(pr.dyn[i]);
+    }
   }
 };
 

@@ -1,6 +1,6 @@
 // One knot of the Riccati backward sweep for one batch lane on a group of
 // threads: the step of both backward kernels, the fused one
-// (backward_fused.cu, over the expansions its producers build in shared
+// (backward_fused.cuh, over the expansions its producers build in shared
 // memory) and the stand-alone one (riccati.cu, over materialized
 // expansions staged in shared memory).  It is the only copy of the step.
 //

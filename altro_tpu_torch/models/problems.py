@@ -3,10 +3,11 @@
 `UnicycleProblem`, scenarios kTurn90 (parking) and kThreeObstacles
 (`examples/problems/unicycle.cpp:11-89`), and `TripleIntegratorProblem` (`examples/problems/
 triple_integrator.hpp:22-105`), with the reference's horizon, weights,
-bounds and initial guess so its golden values apply; and the model zoo's
+bounds and initial guess so its golden values apply; the model zoo's
 fleet problems `zoo_quadrotor` and `zoo_cartpole` (`perf/benchmark_zoo.py:
-54-97`).  All build their tensors on the card unless `device` says
-otherwise.
+54-97`); and the randomized three-obstacle fleet's per-lane params
+(`randomized_fleet`, `perf/benchmark_randomized.py:48-93`).  All build
+their tensors on the card unless `device` says otherwise.
 """
 from __future__ import annotations
 
@@ -208,3 +209,43 @@ def zoo_cartpole(N: int = 60, tf: float = 2.0, *, dtype=torch.float32, device=No
     prob.set_constraint(control_bound(t([-10.0]), t([10.0])), range(N))
     Z0 = initial_trajectory(n, m, N, h, u0=np.full(m, 0.01), dtype=dtype, device=dev)
     return prob.compile(), Z0, x0, xf
+
+
+def randomized_fleet(defn: UnicycleProblem, prob, B: int, *, seed: int = 0):
+    """The randomized three-obstacle fleet's per-lane params
+    (`perf/benchmark_randomized.py:make_randomized_fleet`), drawn from
+    numpy's `default_rng(seed)` in its order: per lane, the obstacle
+    centres jittered by ±0.2 and the radii scaled by U(0.8, 1.1) [3, B]; the
+    goal xf moved by U(0, 0.3) in x and y and by ±0.3 in θ [3, B], which
+    enters the goal constraint and the tracking cost's q = −Q_k xf
+    [N+1, 3, B] and c = ½ xfᵀQ_k xf [N+1, B] (the stage and terminal costs
+    are one stacked family); x0 in ±0.1 [3, B].  `prob` is
+    `defn.make_problem().compile()` of the three-obstacle scenario.  Returns
+    (params, the obstacles (cx, cy, r) as float64 numpy arrays [3, B], xf
+    likewise)."""
+    if defn.obstacles is None:
+        raise ValueError("randomized_fleet takes the three-obstacle scenario")
+    rng = np.random.default_rng(seed)
+    cx0, cy0, r0 = defn.obstacles
+    cx = cx0[:, None] + rng.uniform(-0.2, 0.2, (3, B))
+    cy = cy0[:, None] + rng.uniform(-0.2, 0.2, (3, B))
+    rr = r0[:, None] * rng.uniform(0.8, 1.1, (3, B))
+    xf = np.broadcast_to(defn.xf[:, None], (3, B)).copy()
+    xf[0] += rng.uniform(0.0, 0.3, B)
+    xf[1] += rng.uniform(0.0, 0.3, B)
+    xf[2] += rng.uniform(-0.3, 0.3, B)
+    x0 = rng.uniform(-0.1, 0.1, (3, B))
+    params = prob.params
+    kinds = [f.constraint.structure[0] for f in prob.constraint_families]
+    cons = list(params.constraints)
+    ci, gi = kinds.index("circle"), kinds.index("goal")
+    cons[ci] = dict(cons[ci], cx=defn._t(cx), cy=defn._t(cy), r=defn._t(rr))
+    xf_t = defn._t(xf)
+    cons[gi] = dict(cons[gi], xf=xf_t)
+    cp0 = params.costs[0]
+    Q = cp0["Q"]  # [N+1, 3, 3]: the stage and terminal rows of one family
+    q = -torch.einsum("kij,jb->kib", Q, xf_t)
+    c = 0.5 * torch.einsum("ib,kij,jb->kb", xf_t, Q, xf_t)
+    params = params.replace(x0=defn._t(x0), constraints=tuple(cons),
+                            costs=(dict(cp0, q=q.contiguous(), c=c.contiguous()),))
+    return params, (cx, cy, rr), xf

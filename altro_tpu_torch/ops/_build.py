@@ -61,6 +61,17 @@ class Problem(ctypes.Structure):
     ]
 
 
+class LaneSrc(ctypes.Structure):
+    _fields_ = [("off", _int), ("kstride", _int)]
+
+
+class Lanes(ctypes.Structure):
+    _fields_ = [
+        ("knot_rows", _int), ("static_rows", _int), ("dyn", LaneSrc * NDYN),
+        ("cost", (LaneSrc * 6) * MAX_FAMS), ("con", (LaneSrc * 3) * MAX_FAMS),
+    ]
+
+
 class Geometry(ctypes.Structure):
     _fields_ = [(name, _int) for name in ("lanes", "knots", "group", "threads", "smem", "tab_smem")]
 
@@ -100,9 +111,13 @@ RICCATI_SHAPES = ((3, 2), (4, 1), (6, 2), (13, 4))
 FUSED_MODELS = ("unicycle", "cartpole", "quadrotor")
 
 # entry point -> pointer arguments: (args, problem, stream) for the fused
-# kernels, (args, stream) for the Riccati sweep
+# kernels, (args, problem, lanes on the host, lanes on the device, lane
+# table, stream) for their lane-params instantiations, (args, stream) for the
+# Riccati sweep
 ENTRY_POINTS = {
     **{f"altro_{kind}_{model}_{s}": 3
+       for kind in ("backward_fused", "forward") for model in FUSED_MODELS for s in ("f32", "f64")},
+    **{f"altro_{kind}_lanes_{model}_{s}": 6
        for kind in ("backward_fused", "forward") for model in FUSED_MODELS for s in ("f32", "f64")},
     **{f"altro_riccati_n{n}m{m}_{s}": 2 for n, m in RICCATI_SHAPES for s in ("f32", "f64")},
 }
@@ -220,17 +235,17 @@ def load() -> KernelLibrary:
         getattr(lib, name).restype = None
     for name, nargs in ENTRY_POINTS.items():
         fn = getattr(lib, name)
-        fn.argtypes = [_ptr] * nargs  # args (host), [problem (device),] stream
+        fn.argtypes = [_ptr] * nargs  # args (host), [problem, [lanes (host), lanes, lane table] (device),] stream
         fn.restype = _int
     for s in ("f32", "f64"):
         fn = getattr(lib, f"altro_circle_rows_{s}")
         fn.argtypes = [_ptr] * 4 + [_int, _ptr]  # dx, dy, r, out, count, stream
         fn.restype = _int
-    sizes = (ctypes.c_int * 4)()
+    sizes = (ctypes.c_int * 5)()
     lib.altro_abi_sizes(ctypes.addressof(sizes))
     want = (
         ctypes.sizeof(Problem), ctypes.sizeof(BackwardArgs), ctypes.sizeof(ForwardArgs),
-        ctypes.sizeof(RiccatiArgs),
+        ctypes.sizeof(RiccatiArgs), ctypes.sizeof(Lanes),
     )
     if tuple(sizes) != want:
         raise RuntimeError(f"ABI mismatch: C sizes {tuple(sizes)} vs ctypes {want}")

@@ -1,4 +1,4 @@
-"""Fused expansion + Riccati backward kernel (CUDA, `csrc/backward_fused.cu`).
+"""Fused expansion + Riccati backward kernel (CUDA, `csrc/backward_fused.cuh`).
 
 Replaces the TPU kernel `altro_tpu/ops/backward_fused_pallas.py:
 BackwardFusedKernel` (body `_make_kernel`, :302-531).  Per lane it sweeps
@@ -7,7 +7,7 @@ knot instead of reading materialized [N,·,·,B] tensors, and Kahan-sums the
 trajectory's AL cost J0 on the way.
 
 What bounds it on the H100 is the dependent chain of each lane's sweep,
-not bytes or operations (`csrc/backward_fused.cu` gives the numbers).  So
+not bytes or operations (`csrc/backward_fused.cuh` gives the numbers).  So
 a block of LANES lanes splits its threads: producer warps build the next
 chunk of knots' expansions in parallel (each Jacobian column one tangent
 of the RK4 step, `step_jacobian_by_tangents` below is that arithmetic in
@@ -26,6 +26,20 @@ batch-shared scalars in a problem descriptor.  Any other structure raises
 passes — a decision made once, from the problem's structure.  Circle rows
 are evaluated in compensated arithmetic (`comp_circle`), as the TPU
 kernels evaluate them.
+
+Per-instance params (any param leaf with a trailing batch axis,
+`solver/batched.py:batch_axes`) are read per lane, as the TPU kernels
+stream them (`forward_pallas.py:225-265`, `backward_fused_pallas.py:
+74-146`): `param_sig` names them, and a second instantiation of each
+kernel per model and scalar type (`_lanes` entry points,
+`csrc/altro_abi.h:AltroLanes`) reads each named leaf from a lane table
+[rows, B] built on the device (`lane_table`), batch last like X and U,
+and every other leaf from the descriptor.  A layout the TPU kernels
+refuse raises `Ineligible` from `param_sig`, and `takes` is False for it
+and for nothing else; the solver then runs the eager passes for that
+solve.  Every lane table that `param_sig` admits leaves a chunk within
+the shared memory (the largest the descriptor's limits allow is held in
+`tests/test_torch_geometry.py`), so no other layout is routed away.
 
 Beside the kernel: its plain PyTorch version (`plain`, the eager
 `expand` + `riccati_scan` + `total_cost` composition, with circle rows
@@ -143,28 +157,44 @@ def sweep_scratch(n: int, m: int) -> int:
     return 2 * n * n + n + 2 * n * m + m * m + 2 * m
 
 
-def backward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int) -> int:
-    """Bytes of csrc/backward_fused.cu:BwdLayout: descriptor, cost table,
+def _desc_bytes(lane) -> int:
+    """The descriptors staged first: AltroProblem, and AltroLanes for the
+    lane-params instantiations (`lane` = (knot rows, static rows))."""
+    return _align16(ctypes.sizeof(_build.Problem)) + (
+        _align16(ctypes.sizeof(_build.Lanes)) if lane is not None else 0)
+
+
+def backward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int,
+                  lane=None) -> int:
+    """Bytes of csrc/backward_fused.cuh:BwdLayout: descriptor, cost table,
     the chunk's x, u, two expansion buffers (a slot: A, Bd, lx, lu, hx, hu,
-    hxy, the J terms), the cooperative sweep's scratch."""
-    slot = (n * n + n * m + 2 * n + 2 * m + 1 + 2 * _build.MAX_FAMS) | 1
+    hxy, the J terms), the cooperative sweep's scratch.  With `lane` =
+    (knot rows W, static rows S), the lane-params instantiation's: the
+    chunk's W lane rows per knot beside x, u, the cost Hessians' sums in
+    each slot, and the S static lane rows."""
+    W, S = lane or (0, 0)
+    hess = n * n + n * m + m * m if lane is not None else 0
+    slot = (n * n + n * m + 2 * n + 2 * m + 1 + 2 * _build.MAX_FAMS + hess) | 1
     return (
-        _align16(ctypes.sizeof(_build.Problem)) + _align16(tab_smem * itemsize)
-        + _align16(knots * lanes * (n + m) * itemsize) + _align16(2 * knots * lanes * slot * itemsize)
-        + _align16(lanes * sweep_scratch(n, m) * itemsize)
+        _desc_bytes(lane) + _align16(tab_smem * itemsize)
+        + _align16(knots * lanes * (n + m + W) * itemsize) + _align16(2 * knots * lanes * slot * itemsize)
+        + _align16(lanes * sweep_scratch(n, m) * itemsize) + _align16(S * lanes * itemsize)
     )
 
 
 def forward_smem(n: int, m: int, itemsize: int, lanes: int, knots: int, tab_smem: int,
-                 Ps: int, Fs: int) -> int:
-    """Bytes of csrc/forward.cu:FwdLayout: descriptor, cost table, two
+                 Ps: int, Fs: int, lane=None) -> int:
+    """Bytes of csrc/forward.cuh:FwdLayout: descriptor, cost table, two
     stages of knots × (x, u, K, d, λ, ρ rows) × lanes, two trails of knots
-    × (x, ū) × lanes and x_N."""
-    rows = n + 2 * m + m * n + Ps + Fs
+    × (x, ū) × lanes and x_N.  With `lane` = (knot rows W, static rows S),
+    the lane-params instantiation's: W lane rows more per staged knot, and
+    knot N's W rows and the S static rows once."""
+    W, S = lane or (0, 0)
+    rows = n + 2 * m + m * n + Ps + Fs + W
     return (
-        _align16(ctypes.sizeof(_build.Problem)) + _align16(tab_smem * itemsize)
+        _desc_bytes(lane) + _align16(tab_smem * itemsize)
         + _align16(2 * knots * rows * lanes * itemsize)
-        + _align16((2 * knots * (n + m) + n) * lanes * itemsize)
+        + _align16((2 * knots * (n + m) + n) * lanes * itemsize) + _align16((W + S) * lanes * itemsize)
     )
 
 
@@ -229,6 +259,38 @@ def _contiguous(knots: np.ndarray) -> tuple[int, int]:
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+# param keys of each constraint structure (forward_pallas.py:_STRUCT_KEYS),
+# in the order of AltroLanes.con's sources a, b, r
+_STRUCT_KEYS = {"goal": ("xf",), "control_bound": ("lb", "ub"), "circle": ("cx", "cy", "r")}
+_COST_LEAVES = ("Q", "R", "H", "q", "r", "c")
+
+
+def _ndim(leaf) -> int:
+    return torch.as_tensor(leaf).ndim
+
+
+def _numel(shape) -> int:
+    return int(np.prod(shape, dtype=np.int64))
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneLayout:
+    """Where the per-lane leaves of one signature sit in the lane table
+    [(N+1)·knot_rows + static_rows, B]: the per-knot leaves (stacked cost
+    params, per knot and per lane) take knot_rows rows per knot, knot k's
+    from row k·knot_rows on; the others take static_rows rows after them.
+    `leaves`: name -> (row of its entry 0, within a knot's rows or the
+    static rows, per-knot?, entries)."""
+
+    knot_rows: int
+    static_rows: int
+    leaves: dict
+
+    @property
+    def words(self) -> tuple[int, int]:
+        return self.knot_rows, self.static_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,7 +380,7 @@ class FusedKernel:
                 Pt += fam.dim
                 Ft += 1
             self._con_fams.append(f)
-        # one off-diagonal Gauss-Newton word per knot (csrc/backward_fused.cu)
+        # one off-diagonal Gauss-Newton word per knot (csrc/backward_fused.cuh)
         if len(pairs) > 1:
             raise Ineligible("circle families on different coordinate pairs")
         # `_shared_runs` may split a cost family in two
@@ -326,13 +388,130 @@ class FusedKernel:
             raise Ineligible("more families than the descriptor holds")
         self.Ps, self.Fs, self.Pt, self.Ft = Ps, Fs, Pt, Ft
         self._itemsize = torch.finfo(dtype).bits // 8
-        self._knots = self._chunk_knots()
+        # the streamable params (forward_pallas.py:_param_info): name ->
+        # (canonical shape, stacked); a stacked cost leaf may be per lane
+        # only when its family covers every knot (`_stacked_full`)
+        self._param_info = {
+            name: (tuple(torch.as_tensor(canon).shape), stacked)
+            for name, canon, stacked, _ in self._iter_params(prob.params)
+        }
+        self._stacked_full = {
+            f"cost{f['fi']}_{p}": f["k0"] == 0 and f["k1"] == N
+            for f in self._cost_fams if f["stacked"] for p in _COST_LEAVES
+        }
         # launches of the CUDA kernel (never of the plain version)
         self.launches = 0
         self._desc_key = None
-        self._desc = None  # (problem descriptor, cost table) on the device
-        self._geo = None  # their launch geometry (`blocks` aside) and its ABI struct
+        # (problem descriptor, cost table) on the device, the lanes
+        # descriptor on the host and on the device (None without per-lane
+        # leaves), and their launch geometry (`blocks` aside) and its ABI struct
+        self._desc = None
+        self._lanes = None
+        self._geo = None
+        self._prep = None  # `_prepare`'s last params object and what it returned
+        self._layouts = {}  # signature -> LaneLayout
         self._eager = {}
+
+    # ------------------------------------------------- per-instance params
+    def _iter_params(self, params):
+        """(name, canonical leaf, stacked, leaf) of every param the kernels
+        read, in the TPU kernels' order and names (`forward_pallas.py:
+        _iter_params`): the dynamics leaves as JAX flattens them (dict keys
+        sorted), then each cost family's Q, R, H, q, r, c, then each
+        constraint family's structure keys."""
+        canon = self.prob.params
+
+        def dyn_leaves(tree):
+            return [tree[k] for k in sorted(tree)] if isinstance(tree, dict) else (
+                [] if tree is None else [tree])
+
+        dc, da = dyn_leaves(canon.dynamics[0]), dyn_leaves(params.dynamics[0])
+        for i, (c, a) in enumerate(zip(dc, da)):
+            yield f"dyn{i}", c, False, a
+        for f in self._cost_fams:
+            fi = f["fi"]
+            for key in _COST_LEAVES:
+                yield f"cost{fi}_{key}", canon.costs[fi][key], f["stacked"], params.costs[fi][key]
+        for f in self._con_fams:
+            fi = f["fi"]
+            for key in _STRUCT_KEYS[f["structure"][0]]:
+                yield f"con{fi}_{key}", canon.constraints[fi][key], False, params.constraints[fi][key]
+
+    def param_sig(self, params) -> frozenset:
+        """The names of the param leaves of `params` that carry a trailing
+        batch axis, as the TPU kernels name them (`forward_pallas.py:
+        param_sig`).  Raises Ineligible where they do: per-knot and
+        per-instance cost params on a partial knot range, or a rank that
+        is neither the canonical one nor one more."""
+        sig = set()
+        for name, canon, stacked, leaf in self._iter_params(params):
+            nd_c, nd_a = _ndim(canon), _ndim(leaf)
+            if nd_a == nd_c + 1:
+                if stacked and not self._stacked_full.get(name, False):
+                    raise Ineligible("per-knot AND per-instance cost params on a partial knot range")
+                sig.add(name)
+            elif nd_a != nd_c:
+                raise Ineligible(f"unexpected rank for param {name!r}")
+        return frozenset(sig)
+
+    def takes(self, params) -> bool:
+        """Whether the kernel takes the per-instance leaves of `params`
+        (the solver's per-solve routing, `forward_pallas.py`'s `_use_fwd`):
+        False exactly for the layouts `param_sig` refuses."""
+        try:
+            self.param_sig(params)
+        except Ineligible:
+            return False
+        return True
+
+    def _lane_layout(self, sig: frozenset) -> LaneLayout:
+        """The lane table's layout for a signature (cached)."""
+        lay = self._layouts.get(sig)
+        if lay is None:
+            knot, static = {}, {}
+            W = S = 0
+            for name, (shape, stacked) in self._param_info.items():
+                if name not in sig:
+                    continue
+                if stacked:
+                    size = _numel(shape[1:])
+                    knot[name] = (W, True, size)
+                    W += size
+                else:
+                    size = _numel(shape)
+                    static[name] = (S, False, size)
+                    S += size
+            lay = LaneLayout(W, S, {**knot, **static})
+            self._layouts[sig] = lay
+        return lay
+
+    def lane_table(self, params, sig: frozenset, B: int) -> torch.Tensor:
+        """The per-lane leaves of `params` as the lane table
+        [(N+1)·W + S, B] in the kernel's scalar type (`LaneLayout`), built
+        on the device by tensor operations: no value passes through the
+        host."""
+        lay = self._lane_layout(sig)
+        N = self.N
+        knot, static = [], []
+        for name, canon, stacked, leaf in self._iter_params(params):
+            if name not in sig:
+                continue
+            shape = tuple(torch.as_tensor(canon).shape)
+            if tuple(leaf.shape) != shape + (B,):
+                raise ValueError(f"per-instance param {name!r} has shape {tuple(leaf.shape)}; "
+                                 f"expected {shape + (B,)}")
+            if leaf.device != self.device:
+                raise ValueError(f"per-instance param {name!r} lies on {leaf.device}")
+            leaf = leaf.to(self.dtype)
+            if stacked:
+                knot.append(leaf.reshape(N + 1, -1, B))
+            else:
+                static.append(leaf.reshape(-1, B))
+        parts = []
+        if knot:
+            parts.append(torch.cat(knot, dim=1).reshape((N + 1) * lay.knot_rows, B))
+        parts.extend(static)
+        return torch.cat(parts, dim=0).contiguous()
 
     # ------------------------------------------------------------ AL state
     def pad_al(self, al) -> PaddedAL:
@@ -369,7 +548,10 @@ class FusedKernel:
         family because both use the same function).  Either way the kernels
         add the same terms to J in the same order: the terminal-only family
         is skipped at the stage knots and the stage family at the terminal
-        knot, as the one family was."""
+        knot, as the one family was.  The rows hold zeros for the leaves
+        read per lane, so the fold is decided on the shared leaves alone;
+        the per-lane rows of a family (which covers every knot) are read
+        at the absolute knot in both of its parts."""
         if stacked and bool((rows == rows[:1]).all()):
             return [(k0, k1, False, rows[:1])]
         N = self.N
@@ -377,54 +559,88 @@ class FusedKernel:
             return [(k0, N - 1, False, rows[:1]), (N, N, False, rows[-1:])]
         return [(k0, k1, stacked, rows)]
 
-    def _problem_desc(self, params) -> tuple[torch.Tensor, torch.Tensor]:
-        """The problem's params on the device: `csrc/altro_abi.h:AltroProblem`
-        as bytes, and the cost table in the kernel's scalar type (one row per
-        knot of a stacked cost family, one per shared family; see
-        `_shared_runs`).  Beside them it sets `_geo`, the launch geometry
-        for that table, which is staged in shared memory when it holds at
-        most TABLE_SMEM bytes.  Rebuilt only when `params` carries other
-        cost, constraint or dynamics data than the last call."""
-        key = (params.costs, params.constraints, params.dynamics)
-        if self._desc_key is not None and all(a is b for a, b in zip(key, self._desc_key)):
+    def _problem_desc(self, params, sig: frozenset = frozenset()):
+        """The problem's batch-shared params on the device:
+        `csrc/altro_abi.h:AltroProblem` as bytes and the cost table in the
+        kernel's scalar type (one row per knot of a stacked cost family,
+        one per shared family; see `_shared_runs`).  For a non-empty
+        signature it sets `_lanes`, `AltroLanes` (on the host, and as bytes
+        on the device): where each per-lane leaf sits in the lane table;
+        the descriptor holds zeros in their place.  Beside
+        them it sets `_geo`, the launch geometry for that table, which is
+        staged in shared memory when it holds at most TABLE_SMEM bytes.
+        Rebuilt only when `params` carries other shared cost, constraint or
+        dynamics leaves, or another signature, than the last call: a tail
+        round's gathered per-lane leaves leave it as it was."""
+        shared = tuple(leaf for name, _, _, leaf in self._iter_params(params) if name not in sig)
+        cached = self._desc_key
+        if cached is not None and cached[0] == sig and len(shared) == len(cached[1]) and all(
+                a is b for a, b in zip(shared, cached[1])):
             return self._desc
         n, m = self.n, self.m
         o = self.opts
+        lay = self._lane_layout(sig) if sig else None
         d = _build.Problem()
         d.N, d.method = self.N, self.method
         d.n_con = len(self._con_fams)
         d.gain_limit = float(o.bp_gain_limit)
         d.state_max2 = float(o.state_max) ** 2
         d.control_max2 = float(o.control_max) ** 2
+        ln = _build.Lanes()
+        if lay is not None:
+            ln.knot_rows, ln.static_rows = lay.knot_rows, lay.static_rows
+            for src in (*ln.dyn, *(x for row in ln.cost for x in row), *(x for row in ln.con for x in row)):
+                src.off = -1
 
-        def host(t, size=None):
+        def host(name, t, size):
+            """A shared leaf on the host in float64, or zeros for a per-lane one."""
+            if name in sig:
+                return torch.zeros(size, dtype=torch.float64)
             a = torch.as_tensor(t).detach().to("cpu", torch.float64)
-            if size is not None and a.numel() != size:
-                raise ValueError(f"param of {a.numel()} entries where {size} were expected")
+            if a.numel() != size:
+                raise ValueError(f"param {name!r} of {a.numel()} entries where {size} were expected")
             return a
 
+        def src(dst, name, entry=0):
+            """Point a lane source at leaf `name`'s entry `entry`."""
+            if name in sig:
+                row, per_knot, _ = lay.leaves[name]
+                dst.off, dst.kstride = row + entry, lay.knot_rows if per_knot else 0
+
         if self._dyn_names:
-            dyn = torch.cat([host(params.dynamics[0][name]).reshape(-1) for name in self._dyn_names])
+            names = sorted(self._dyn_names)  # dyn{i} follows JAX's (sorted) leaf order
+            parts = []
+            for key in self._dyn_names:
+                name = f"dyn{names.index(key)}"
+                size = _numel(self._param_info[name][0])
+                first = sum(p.numel() for p in parts)
+                parts.append(host(name, params.dynamics[0][key], size).reshape(-1))
+                for e in range(size):
+                    if first + e < _build.NDYN:
+                        src(ln.dyn[first + e], name, e)
+            dyn = torch.cat(parts)
             if dyn.numel() > _build.NDYN:
                 raise ValueError(f"{dyn.numel()} dynamics params; the descriptor holds {_build.NDYN}")
             d.dyn[: dyn.numel()] = dyn.tolist()
 
         fams = []
         for f in self._cost_fams:
-            cp = params.costs[f["fi"]]
+            fi, cp = f["fi"], params.costs[f["fi"]]
             nk = f["k1"] - f["k0"] + 1 if f["stacked"] else 1
             parts = [
-                host(cp[name], nk * size).reshape(nk, size)
+                host(f"cost{fi}_{name}", cp[name], nk * size).reshape(nk, size)
                 for name, size in (("Q", n * n), ("R", m * m), ("H", n * m), ("q", n), ("r", m), ("c", 1))
             ]
-            fams.extend(self._shared_runs(f["k0"], f["k1"], f["stacked"], torch.cat(parts, dim=1)))
+            fams.extend((run, fi) for run in self._shared_runs(f["k0"], f["k1"], f["stacked"], torch.cat(parts, dim=1)))
         d.n_cost = len(fams)
         offset = 0
-        for c, (k0, k1, stacked, rows) in zip(d.cost, fams):
+        for j, (c, ((k0, k1, stacked, rows), fi)) in enumerate(zip(d.cost, fams)):
             c.k0, c.k1, c.stacked, c.offset = k0, k1, int(stacked), offset
             offset += rows.numel()
+            for leaf, key in enumerate(_COST_LEAVES):
+                src(ln.cost[j][leaf], f"cost{fi}_{key}")
         for i, f in enumerate(self._con_fams):
-            cp = params.constraints[f["fi"]]
+            fi, cp = f["fi"], params.constraints[f["fi"]]
             c = d.con[i]
             c.cone = (
                 _build.CONE_ZERO if f["cone"] is Cone.ZERO else _build.CONE_NEGATIVE_ORTHANT
@@ -432,30 +648,38 @@ class FusedKernel:
             c.k0, c.k1, c.p = f["k0"], f["k1"], f["p"]
             c.stage_row, c.stage_fam = f["stage_row"], f["stage_fam"]
             c.term_row, c.term_fam = f["term_row"], f["term_fam"]
-            if f["structure"][0] == "goal":
+            kind = f["structure"][0]
+            for j, key in enumerate(_STRUCT_KEYS[kind]):
+                src(ln.con[i][j], f"con{fi}_{key}")
+            if kind == "goal":
                 c.kind = _build.GOAL
-                c.a[:n] = host(cp["xf"], n).tolist()
-            elif f["structure"][0] == "circle":
+                c.a[:n] = host(f"con{fi}_xf", cp["xf"], n).tolist()
+            elif kind == "circle":
                 p = f["p"]
                 c.kind = _build.CIRCLE
                 _, c.xi, c.yi = f["structure"]
-                c.a[:p] = host(cp["cx"], p).tolist()
-                c.b[:p] = host(cp["cy"], p).tolist()
-                c.r[:p] = host(cp["r"], p).tolist()
+                c.a[:p] = host(f"con{fi}_cx", cp["cx"], p).tolist()
+                c.b[:p] = host(f"con{fi}_cy", cp["cy"], p).tolist()
+                c.r[:p] = host(f"con{fi}_r", cp["r"], p).tolist()
             else:
                 _, lo_idx, hi_idx = f["structure"]
                 c.kind = _build.CONTROL_BOUND
                 c.lo_mask = sum(1 << j for j in lo_idx)
                 c.hi_mask = sum(1 << j for j in hi_idx)
-                c.a[:m] = host(cp["lb"], m).tolist()
-                c.b[:m] = host(cp["ub"], m).tolist()
-        raw = torch.frombuffer(bytearray(bytes(d)), dtype=torch.uint8)
-        table = torch.cat([f[3].reshape(-1) for f in fams]) if fams else torch.zeros(1, dtype=torch.float64)
+                c.a[:m] = host(f"con{fi}_lb", cp["lb"], m).tolist()
+                c.b[:m] = host(f"con{fi}_ub", cp["ub"], m).tolist()
+
+        def dev_bytes(struct):
+            return torch.frombuffer(bytearray(bytes(struct)), dtype=torch.uint8).to(self.device)
+
+        table = torch.cat([run[3].reshape(-1) for run, _ in fams]) if fams else torch.zeros(1, dtype=torch.float64)
         tab = table.numel() if table.numel() * self._itemsize <= TABLE_SMEM else 0
-        geo = self._layout(tab)
+        geo = self._layout(tab, lay.words if lay is not None else None)
         self._geo = (geo, geo.abi())
-        self._desc = (raw.to(self.device), table.to(self.device, self.dtype))
-        self._desc_key = key
+        self._desc = (dev_bytes(d), table.to(self.device, self.dtype))
+        self._lanes = (ln, dev_bytes(ln)) if lay is not None else None
+        self._desc_key = (sig, shared)
+        self._prep = None
         return self._desc
 
     # ------------------------------------------------------------ launching
@@ -509,12 +733,42 @@ class FusedKernel:
     def geometry(self, B: int, params=None) -> Geometry:
         """The launch geometry at batch width B for `params` (the problem's
         own when None)."""
-        self._problem_desc(self.prob.params if params is None else params)
+        params = self.prob.params if params is None else params
+        self._problem_desc(params, self.param_sig(params))
         geo = self._geo[0]
         return dataclasses.replace(geo, blocks=-(-B // geo.lanes))
 
-    def _entry(self) -> str:
-        return f"altro_{self.KIND}_{self.model_name}_{_SUFFIX[self.dtype]}"
+    def _entry(self, sig: frozenset) -> str:
+        lanes = "lanes_" if sig else ""
+        return f"altro_{self.KIND}_{lanes}{self.model_name}_{_SUFFIX[self.dtype]}"
+
+    def _prepare(self, params, B: int):
+        """(signature, cost table, lane table or None) of `params`, with the
+        descriptor and the geometry built for them.  The last params
+        object's are kept: the launches of one solve all get the same params
+        and prepare nothing again, and a new params object (a tail or
+        restart round's gathered leaves) gets its own lane table."""
+        if self._prep is None or self._prep[0] is not params:
+            sig = self.param_sig(params)
+            _, table = self._problem_desc(params, sig)
+            self._prep = (params, sig, table, self.lane_table(params, sig, B) if sig else None)
+        _, sig, table, lane_tab = self._prep
+        if lane_tab is not None and lane_tab.shape[1] != B:
+            raise ValueError(f"per-instance params of batch {lane_tab.shape[1]} for a launch of batch {B}")
+        return sig, table, lane_tab
+
+    def _launch(self, args, sig: frozenset, lane_tab, like: torch.Tensor) -> None:
+        """Launch the kernel with its args struct: the shared-param entry
+        point for an empty signature, else the lane-params one with the
+        lanes descriptor and the lane table."""
+        lib = _build.load()
+        ptrs = [self._desc[0].data_ptr()]
+        if sig:
+            ln, ln_dev = self._lanes
+            ptrs += [ctypes.addressof(ln), ln_dev.data_ptr(), lane_tab.data_ptr()]
+        with torch.cuda.device(like.device):
+            lib.launch(self._entry(sig), args, *ptrs, self._stream(like))
+        self.launches += 1
 
     @staticmethod
     def _stream(t: torch.Tensor) -> int:
@@ -529,23 +783,29 @@ class BackwardFusedKernel(FusedKernel):
 
     KIND = "backward_fused"
 
-    def _chunk_knots(self) -> int:
+    def _chunk_knots(self, lane=None) -> int:
         """Knots per chunk: PRODUCER_ROUNDS rounds of the producers, an item
         being one column of [A Bd] or the cost and AL terms of a knot and
         lane."""
         n, m = self.n, self.m
         return chunk_knots(
             LANES * (n + m + 1), PRODUCER_ROUNDS * PRODUCERS,
-            lambda knots: backward_smem(n, m, self._itemsize, LANES, knots, TABLE_SMEM // self._itemsize),
+            lambda knots: backward_smem(n, m, self._itemsize, LANES, knots, TABLE_SMEM // self._itemsize, lane),
         )
 
-    def _layout(self, tab: int) -> Geometry:
+    def _layout(self, tab: int, lane=None) -> Geometry:
         """Consumer warps (a group of `sweep_group(n)` threads per lane) and
-        PRODUCERS producer threads, with `tab` cost-table entries staged."""
+        PRODUCERS producer threads, with `tab` cost-table entries staged and
+        `lane` = (knot rows, static rows) of a lane table (None: the
+        shared-param instantiation)."""
         n, m, g = self.n, self.m, sweep_group(self.n)
+        knots = self._chunk_knots(lane)
+        smem = backward_smem(n, m, self._itemsize, LANES, knots, tab, lane)
+        if smem > SMEM_MAX:  # beyond every layout `param_sig` admits
+            raise ValueError(f"{smem} bytes of shared memory for one chunk of knots")
         return Geometry(
-            lanes=LANES, knots=self._knots, group=g, threads=-(-LANES * g // 32) * 32 + PRODUCERS,
-            smem=backward_smem(n, m, self._itemsize, LANES, self._knots, tab), tab_smem=tab,
+            lanes=LANES, knots=knots, group=g, threads=-(-LANES * g // 32) * 32 + PRODUCERS,
+            smem=smem, tab_smem=tab,
         )
 
     def plain(self, params, al_pad: PaddedAL, Z, rho):
@@ -566,8 +826,7 @@ class BackwardFusedKernel(FusedKernel):
         self._check("U", Z.U, (N, m, B))
         self._check("rho", rho, (B,))
         self._check_al(al_pad, B)
-        lib = _build.load()
-        desc, table = self._problem_desc(params)
+        sig, table, lane_tab = self._prepare(params, B)
         new = Z.X.new_empty
         K, d = new((N, m, n, B)), new((N, m, B))
         dV1, dV2, J0 = new((B,)), new((B,)), new((B,))
@@ -580,8 +839,6 @@ class BackwardFusedKernel(FusedKernel):
             failed=_ptr(failed), B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
             geo=self._geo[1],
         )
-        with torch.cuda.device(Z.X.device):
-            lib.launch(self._entry(), args, desc.data_ptr(), self._stream(Z.X))
-        self.launches += 1
+        self._launch(args, sig, lane_tab, Z.X)
         return K, d, dV1, dV2, failed != 0, J0
 

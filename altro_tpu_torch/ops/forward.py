@@ -1,4 +1,4 @@
-"""Fused closed-loop rollout + cost kernel (CUDA, `csrc/forward.cu`).
+"""Fused closed-loop rollout + cost kernel (CUDA, `csrc/forward.cuh`).
 
 Replaces the TPU kernel `altro_tpu/ops/forward_pallas.py:ForwardKernel`
 (body `_make_kernel(check_bounds)`, :534-685).  One thread per batch lane
@@ -9,16 +9,20 @@ terminal terms, with the state carry in registers and J Kahan-summed.  With
 that starts each inner solve.
 
 What bounds it on the H100 is the latency of each lane's chain (numbers in
-`csrc/forward.cu`); the streamed bytes are small.  A block owns LANES
+`csrc/forward.cuh`); the streamed bytes are small.  A block owns LANES
 lanes: one warp runs their chains over a chunk of knots from shared
 memory, while the other adds the previous chunk's cost terms, off the
 chain, and copies the next chunk's inputs in with cp.async.  B >= 2048
 fills the card's 132 multiprocessors (`geometry`).  `chain_only=True`
 times the chain alone.
 
-Eligibility, the problem descriptor, `pad_al` and the geometry's
+Eligibility, the problem descriptor, `pad_al`, the per-instance
+signature (`param_sig`, `takes`), the lane table and the geometry's
 bookkeeping are shared with the backward kernel
-(`ops/backward_fused.py:FusedKernel`).  Beside the kernel: its plain
+(`ops/backward_fused.py:FusedKernel`).  Params with per-lane leaves launch
+the lane-params instantiation, whose staging warp copies a knot's lane
+rows with its inputs and whose chain reads its lane's dynamics params once,
+before the first knot.  Beside the kernel: its plain
 PyTorch version (`plain`: `closed_loop_rollout` + `total_cost`, circle
 rows through `comp_circle` as in the kernel), which the wrapper runs only
 for CPU tensors, and a launch counter.
@@ -29,8 +33,8 @@ import torch
 
 from . import _build
 from .backward_fused import (
-    FWD_THREADS, LANES, STAGE_WORDS, TABLE_SMEM, FusedKernel, Geometry, Ineligible, PaddedAL, _ptr,
-    chunk_knots, forward_smem,
+    FWD_THREADS, LANES, SMEM_MAX, STAGE_WORDS, TABLE_SMEM, FusedKernel, Geometry, Ineligible, PaddedAL,
+    _ptr, chunk_knots, forward_smem,
 )
 
 __all__ = ["ForwardKernel", "Ineligible"]
@@ -44,23 +48,28 @@ class ForwardKernel(FusedKernel):
 
     KIND = "forward"
 
-    def _chunk_knots(self) -> int:
-        """Knots per chunk: at most STAGE_WORDS staged input words."""
+    def _chunk_knots(self, lane=None) -> int:
+        """Knots per chunk: at most STAGE_WORDS staged input words, the
+        per-lane rows of a knot (`lane` = (knot rows, static rows))
+        included."""
         n, m, item, Ps, Fs = self.n, self.m, self._itemsize, self.Ps, self.Fs
+        W = lane[0] if lane is not None else 0
         return chunk_knots(
-            LANES * (n + 2 * m + m * n + Ps + Fs), STAGE_WORDS,
-            lambda knots: forward_smem(n, m, item, LANES, knots, TABLE_SMEM // item, Ps, Fs),
+            LANES * (n + 2 * m + m * n + Ps + Fs + W), STAGE_WORDS,
+            lambda knots: forward_smem(n, m, item, LANES, knots, TABLE_SMEM // item, Ps, Fs, lane),
         )
 
-    def _layout(self, tab: int) -> Geometry:
+    def _layout(self, tab: int, lane=None) -> Geometry:
         """Two warps per block, the first LANES threads of each running the
         lanes' rollouts and their cost terms, with `tab` cost-table entries
-        staged."""
+        staged and `lane` = (knot rows, static rows) of a lane table (None:
+        the shared-param instantiation)."""
         n, m, item = self.n, self.m, self._itemsize
-        return Geometry(
-            lanes=LANES, knots=self._knots, group=1, threads=FWD_THREADS,
-            smem=forward_smem(n, m, item, LANES, self._knots, tab, self.Ps, self.Fs), tab_smem=tab,
-        )
+        knots = self._chunk_knots(lane)
+        smem = forward_smem(n, m, item, LANES, knots, tab, self.Ps, self.Fs, lane)
+        if smem > SMEM_MAX:  # beyond every layout `param_sig` admits
+            raise ValueError(f"{smem} bytes of shared memory for one chunk of knots")
+        return Geometry(lanes=LANES, knots=knots, group=1, threads=FWD_THREADS, smem=smem, tab_smem=tab)
 
     @staticmethod
     def _alpha(alpha, Z) -> torch.Tensor:
@@ -78,7 +87,7 @@ class ForwardKernel(FusedKernel):
                  chain_only=False):
         """`chain_only` times the rollout's chain alone: the kernel replays
         its first chunk of inputs for every chunk, so the outputs are wrong
-        (csrc/forward.cu); the plain version has no such mode."""
+        (csrc/forward.cuh); the plain version has no such mode."""
         if self._use_plain(Z.X):
             if chain_only:
                 raise ValueError("chain_only exists only for the CUDA kernel")
@@ -99,8 +108,7 @@ class ForwardKernel(FusedKernel):
         self._check("K", K, (N, m, n, B))
         self._check("d", d, (N, m, B))
         self._check_al(al_pad, B)
-        lib = _build.load()
-        desc, table = self._problem_desc(params)
+        sig, table, lane_tab = self._prepare(params, B)
         new = Z.X.new_empty
         Xn, Ubar, J = new((N, n, B)), new((N, m, B)), new((B,))
         valid = torch.empty((B,), dtype=torch.int32, device=Z.X.device)
@@ -115,7 +123,5 @@ class ForwardKernel(FusedKernel):
             check_bounds=int(bool(check_bounds)), chain_only=int(bool(chain_only)),
             geo=self._geo[1],
         )
-        with torch.cuda.device(Z.X.device):
-            lib.launch(self._entry(), args, desc.data_ptr(), self._stream(Z.X))
-        self.launches += 1
+        self._launch(args, sig, lane_tab, Z.X)
         return Xn, Ubar, J, valid != 0, status

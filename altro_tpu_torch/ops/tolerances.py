@@ -79,7 +79,9 @@ ZOO_F32_REL = dict(
 # penalized).  Observed on an H100 (700 W), largest over the cases at
 # B=4096 and 1001: K 4.7e-7, d 5.1e-7, dV1 7.3e-7, dV2 3.6e-7, J0 1.9e-7,
 # Xn 4.0e-7, Ubar 3.8e-7, J 3.3e-7 (the circle rows equal the plain
-# version's bit for bit)
+# version's bit for bit).  The randomized fleet (per-lane obstacle layouts,
+# goals and tracking costs; the kernels' lane-params instantiations) is held
+# to the same bounds, and to F64_RTOL / F64_ATOL in float64
 OBSTACLE_F32_REL = dict(K=5e-6, d=5e-6, dV1=8e-6, dV2=4e-6, J0=2e-6, Xn=4e-6, Ubar=4e-6, J=4e-6)
 
 # observed on an H100 (700 W): the kernel's float32 error against the

@@ -134,6 +134,57 @@ def _tree_map(fn: Callable, tree):
     return fn(tree)
 
 
+def _tree_map2(fn: Callable, canon, tree):
+    """Map `fn(canonical_leaf, leaf)` over two param trees of one structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map2(fn, canon[k], v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map2(fn, c, v) for c, v in zip(canon, tree))
+    return fn(canon, tree)
+
+
+def _leaves(tree) -> list:
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for v in tree for leaf in _leaves(v)]
+    return [tree]
+
+
+def per_instance(canon, leaf) -> bool:
+    """A param leaf is per-instance when it carries a trailing batch axis:
+    its rank exceeds the canonical (unbatched) leaf's by one."""
+    return torch.as_tensor(leaf).ndim == torch.as_tensor(canon).ndim + 1
+
+
+def batch_axes(canon, actual):
+    """Per-leaf vmap axis spec for possibly per-instance problem params
+    (`altro_tpu/solver/batched.py:batch_axes`): -1 for the leaves with a
+    trailing batch axis (goal `q` [n] -> [n, B], obstacle centres [n_obs]
+    -> [n_obs, B], masses () -> [B]), None for shared ones; usable as a
+    `torch.func.vmap` in_dims tree."""
+    return _tree_map2(lambda c, a: -1 if per_instance(c, a) else None, canon, actual)
+
+
+def any_batched(canon, actual) -> bool:
+    """True if any leaf of `actual` carries a trailing batch axis."""
+    return any(per_instance(c, a) for c, a in zip(_leaves(canon), _leaves(actual)))
+
+
+def gather_params(canon: ProblemParams, params: ProblemParams, idx) -> ProblemParams:
+    """`params` with every per-instance leaf (x0 included) gathered to the
+    lanes `idx`; shared leaves stay as they are
+    (`altro_tpu/solver/compaction.py:222-232`).  `canon`: the compiled
+    problem's own params."""
+    take = lambda c, leaf: leaf[..., idx] if per_instance(c, leaf) else leaf  # noqa: E731
+    return ProblemParams(*(_tree_map2(take, getattr(canon, f.name), getattr(params, f.name))
+                           for f in dataclasses.fields(params)))
+
+
 def al_select(mask, a, b):
     """Masked select over two AL-state tuples of {lam, rho} dicts."""
     return tuple(
@@ -212,11 +263,16 @@ def zselect(mask, Za: BatchedTrajectory, Zb: BatchedTrajectory) -> BatchedTrajec
 class ALSolverBatched:
     """Throughput-oriented batched AL-iLQR.
 
-    `x0` may vary per instance as [n, B]; the other problem data are shared
-    by the batch.  One shared dynamics family (the shipped problems) is
-    supported.  `backward_pass="fused"` and `forward_pass="cuda"` run the
-    CUDA kernels when the problem's structure is one they take (decided
-    once, here); other problems run the eager passes.  The backward pass
+    Any problem datum may vary per instance: `x0` as [n, B], and any cost,
+    constraint or dynamics param leaf by carrying a trailing batch axis
+    beside its canonical shape (goal refs [n] -> [n, B], obstacle layouts
+    [n_obs] -> [n_obs, B], masses () -> [B]; `batch_axes`).  One shared
+    dynamics family (the shipped problems) is supported.
+    `backward_pass="fused"` and `forward_pass="cuda"` run the CUDA kernels
+    when the problem's structure is one they take (decided once, here) and
+    the per-instance leaves of the params of a solve are laid out so that
+    the TPU kernels take them too (`FusedKernel.takes`, decided per solve);
+    other problems run the eager passes.  The backward pass
     of a problem the fused kernel refuses, and of `backward_pass="riccati"`,
     runs the Riccati kernel over the eager expansions when its (n, m) and
     scalar type have an instantiation, else the eager `riccati_scan`.  The
@@ -281,6 +337,14 @@ class ALSolverBatched:
             except Ineligible:
                 self._ric = None
         self._knot_idx: dict[int, torch.Tensor] = {}
+        # each cost and constraint family's canonical (unbatched) params,
+        # which tell its per-instance leaves apart (`batch_axes`)
+        self._canon = {
+            id(fam): cp
+            for fams, cps in ((prob.cost_families, prob.params.costs),
+                              (prob.constraint_families, prob.params.constraints))
+            for fam, cp in zip(fams, cps)
+        }
         # host synchronisations of the last `solve` (one per loop exit test)
         self.host_syncs = 0
 
@@ -305,7 +369,9 @@ class ALSolverBatched:
 
     def dyn_step(self, fp, x, u, t, h):
         """One discrete step of the shared family (params `fp`), batch-last:
-        the model takes x [n, B] as it takes x [n] (see problem/dynamics)."""
+        the model takes x [n, B] as it takes x [n] (see problem/dynamics),
+        and a per-instance param leaf's trailing batch axis broadcasts as
+        x's does."""
         model = self._dyn.model
         if model is not None and model.method == "rk4":
             f = model.continuous_fn
@@ -326,23 +392,25 @@ class ALSolverBatched:
         """
         fam = self._dyn
         fp = params.dynamics[0]
+        # per-instance leaves map with the batch (`batch_axes`)
+        pax = batch_axes(self.prob.params.dynamics[0], fp)
         X, U, t, h = Z.X[:-1], Z.U, Z.t[:-1], Z.h
         n = X.shape[1]
         method = fam.model.method if fam.model is not None else None
         if method not in ("rk4", "euler"):
             jac = jacfwd(fam.fn, argnums=(1, 2))
             return vmap(
-                vmap(jac, in_dims=(None, -1, -1, None, None), out_dims=-1),
+                vmap(jac, in_dims=(pax, -1, -1, None, None), out_dims=-1),
                 in_dims=(None, 0, 0, 0, 0), out_dims=0,
             )(fp, X, U, t, h)
         # knots outer, batch inner
         cfn = fam.model.continuous_fn
         cf = vmap(
-            vmap(cfn, in_dims=(None, -1, -1, None), out_dims=-1),
+            vmap(cfn, in_dims=(pax, -1, -1, None), out_dims=-1),
             in_dims=(None, 0, 0, 0), out_dims=0,
         )
         cj = vmap(
-            vmap(jacfwd(cfn, argnums=(1, 2)), in_dims=(None, -1, -1, None), out_dims=-1),
+            vmap(jacfwd(cfn, argnums=(1, 2)), in_dims=(pax, -1, -1, None), out_dims=-1),
             in_dims=(None, 0, 0, 0), out_dims=0,
         )
         hk = h[:, None, None]
@@ -381,17 +449,22 @@ class ALSolverBatched:
     def _quad_terms(self, fam, fp, Xk, Uk, want_expansion):
         """Closed-form quadratic cost family, batch-last
         (`quadratic_cost.cpp:8-28`).  Params are shared ([n,n]) or stacked
-        per knot ([nk,n,n])."""
+        per knot ([nk,n,n]), either with a trailing per-instance batch axis
+        (told apart by the family's canonical params)."""
         nk, n, Bsz = Xk.shape
+        cp = self._canon[id(fam)]
 
-        def norm(name):
-            leaf = fp[name].to(Xk.dtype)[..., None]  # shared by the batch
-            if fam.shared:
-                leaf = leaf[None]
+        def norm(name, core_nd):
+            # broadcastable [NK, *core, BB] with NK in {1, nk}, BB in {1, B}
+            leaf = torch.as_tensor(fp[name]).to(Xk.dtype)
+            if not per_instance(cp[name], leaf):
+                leaf = leaf[..., None]
+            if leaf.ndim != core_nd + 2:
+                leaf = leaf[None]  # not per knot
             return leaf
 
-        Q, R, H = norm("Q"), norm("R"), norm("H")
-        q, r, c = norm("q"), norm("r"), norm("c")
+        Q, R, H = norm("Q", 2), norm("R", 2), norm("H", 2)
+        q, r, c = norm("q", 1), norm("r", 1), norm("c", 0)
 
         def matvec(Mat, V):
             return (Mat * V[:, None, :, :]).sum(dim=2)
@@ -422,7 +495,8 @@ class ALSolverBatched:
         return J, (lx, lu, bc(Q), bc(H), bc(R))
 
     def _generic_cost_terms(self, fam, fp, Xk, Uk, want_expansion):
-        """Arbitrary cost fns: AD expansion, mapped over knots and batch."""
+        """Arbitrary cost fns: AD expansion, mapped over knots and batch
+        (per-instance leaves with the batch)."""
 
         def one(p, x, u):
             if want_expansion:
@@ -434,7 +508,7 @@ class ALSolverBatched:
                 return t.J, t.lx, t.lu, t.lxx, t.lxu, t.luu
             return (fam.fn(p, x, u),)
 
-        inner = vmap(one, in_dims=(None, -1, -1), out_dims=-1)
+        inner = vmap(one, in_dims=(batch_axes(self._canon[id(fam)], fp), -1, -1), out_dims=-1)
         outer = vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)
         out = outer(fp, Xk, Uk)
         if want_expansion:
@@ -444,13 +518,20 @@ class ALSolverBatched:
 
     def _con_values(self, fam, fp, Xk, Uk):
         """Constraint values [nk, p, B]: the family's `fn`, or for a circle
-        family of a `compensated_circles` solver, `comp_circle`."""
+        family of a `compensated_circles` solver, `comp_circle`; each
+        per-instance leaf maps with the batch."""
         structure = fam.constraint.structure if fam.constraint is not None else None
+        cp = self._canon[id(fam)]
         if self.compensated_circles and structure is not None and structure[0] == "circle":
             _, xi, yi = structure
-            cx, cy, r = (fp[key].to(Xk.dtype)[..., None] for key in ("cx", "cy", "r"))
+
+            def leaf(key):
+                v = torch.as_tensor(fp[key]).to(Xk.dtype)
+                return v if per_instance(cp[key], v) else v[..., None]
+
+            cx, cy, r = leaf("cx"), leaf("cy"), leaf("r")
             return comp_circle(Xk[:, xi, None, :] - cx, Xk[:, yi, None, :] - cy, r)
-        inner = vmap(fam.fn, in_dims=(None, -1, -1), out_dims=-1)
+        inner = vmap(fam.fn, in_dims=(batch_axes(cp, fp), -1, -1), out_dims=-1)
         return vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)(
             fp, Xk, Uk
         )
@@ -460,7 +541,7 @@ class ALSolverBatched:
         jfn = fam.jac_fn
         if jfn is None:
             jfn = jacfwd(fam.fn, argnums=(1, 2))
-        inner = vmap(jfn, in_dims=(None, -1, -1), out_dims=-1)
+        inner = vmap(jfn, in_dims=(batch_axes(self._canon[id(fam)], fp), -1, -1), out_dims=-1)
         return vmap(inner, in_dims=(None if fam.shared else 0, 0, 0), out_dims=0)(
             fp, Xk, Uk
         )
@@ -619,13 +700,13 @@ class ALSolverBatched:
             out = res
         return out, rho, drho
 
-    def backward_pass_fused(self, params, al_pad, Z, rho, drho):
-        """Backward pass through the fused expansion+Riccati kernel
+    def backward_pass_fused(self, bwd, params, al_pad, Z, rho, drho):
+        """Backward pass through the fused expansion+Riccati kernel `bwd`
         (`ops/backward_fused.py`), with the retry semantics of
         :meth:`backward_pass`; the trajectory's AL cost J0 comes out of the
         same pass."""
         (K, d, dV1, dV2, failed, J0), rho, drho = self._retry(
-            lambda r: self._bwd(params, al_pad, Z, r), rho, drho
+            lambda r: bwd(params, al_pad, Z, r), rho, drho
         )
         return dict(K=K, d=d, dV1=dV1, dV2=dV2, failed=failed, J0=J0, rho=rho, drho=drho)
 
@@ -690,23 +771,23 @@ class ALSolverBatched:
         Zb = Z.replace(X=torch.stack(Xs, dim=0), U=torch.stack(Us, dim=0))
         return Zb, valid, status
 
-    def _fwd_rollout_cost(self, params, al_pad, Z, K, d, alpha, check_bounds):
-        """Fused rollout + cost through the forward kernel; returns
+    def _fwd_rollout_cost(self, fwd, params, al_pad, Z, K, d, alpha, check_bounds):
+        """Fused rollout + cost through the forward kernel `fwd`; returns
         (Zbar, valid, status, J)."""
         x0 = self._x0(params, Z.X.shape[-1], Z.X.dtype)
-        Xn, Ubar, J, valid, status = self._fwd(
+        Xn, Ubar, J, valid, status = fwd(
             params, al_pad, Z, K, d, alpha, check_bounds=check_bounds
         )
         Zbar = Z.replace(X=torch.cat([x0[None], Xn], dim=0), U=Ubar)
         return Zbar, valid, status, J
 
-    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None):
+    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None, fwd=None):
         """Per-instance backtracking line search (`ilqr.hpp:512-558`).
 
         `rho`/`drho` are the post-decrease regularization; a failed search
-        increases them from there.  With `al_pad` (the padded AL state of
-        the inner solve) each try runs the fused forward kernel; without it,
-        the eager rollout + cost.
+        increases them from there.  With the forward kernel `fwd` and
+        `al_pad` (the padded AL state of the inner solve) each try runs the
+        kernel; without them, the eager rollout + cost.
         """
         opts = self.opts
         dt = Z.X.dtype
@@ -727,9 +808,9 @@ class ALSolverBatched:
         more = max_it > 0  # every lane is active on the first try
         while more:
             active = (~c["success"]) & (c["it"] < max_it)
-            if al_pad is not None:
+            if fwd is not None:
                 Zbar, valid, status, J_try = self._fwd_rollout_cost(
-                    params, al_pad, Z, bp["K"], bp["d"], c["alpha"],
+                    fwd, params, al_pad, Z, bp["K"], bp["d"], c["alpha"],
                     opts.check_forwardpass_bounds,
                 )
             else:
@@ -781,7 +862,9 @@ class ALSolverBatched:
         dev = Z.X.device
         Bsz = Z.X.shape[-1]
         N, n, m = self.prob.N, self.prob.n, self.prob.m
-        fwd, bwd = self._fwd, self._bwd
+        # the kernels run when they take this solve's per-instance leaves
+        fwd = self._fwd if self._fwd is not None and self._fwd.takes(params) else None
+        bwd = self._bwd if self._bwd is not None and self._bwd.takes(params) else None
         al_pad = None
         if bwd is not None:
             al_pad = bwd.pad_al(al)
@@ -791,7 +874,7 @@ class ALSolverBatched:
             # K=d=α=0 turns the fused kernel into the open-loop rollout + cost
             # (unguarded, like the reference's Rollout, `ilqr.hpp:453-459`)
             Zro, _, _, J_init = self._fwd_rollout_cost(
-                params, al_pad, Z, Z.X.new_zeros((N, m, n, Bsz)),
+                fwd, params, al_pad, Z, Z.X.new_zeros((N, m, n, Bsz)),
                 Z.X.new_zeros((N, m, Bsz)), Z.X.new_zeros((Bsz,)), False,
             )
             Z = zselect(outer_active, Zro, Z)
@@ -819,17 +902,14 @@ class ALSolverBatched:
             stats = c["stats"]
             if bwd is not None:
                 # expansions inside the sweep; J0 from the kernel's Kahan sum
-                bp = self.backward_pass_fused(params, al_pad, c["Z"], c["rho"], c["drho"])
+                bp = self.backward_pass_fused(bwd, params, al_pad, c["Z"], c["rho"], c["drho"])
                 J0 = bp["J0"]
             else:
                 exp = self.expand(params, al, c["Z"])
                 J0 = exp["costs"].sum(dim=0)
                 bp = self.backward_pass(exp, c["rho"], c["drho"])
             rho_d, drho_d = _decrease_reg(bp["rho"], bp["drho"], opts)
-            fp = self.forward_pass(
-                params, al, c["Z"], bp, J0, rho_d, drho_d,
-                al_pad if fwd is not None else None,
-            )
+            fp = self.forward_pass(params, al, c["Z"], bp, J0, rho_d, drho_d, al_pad, fwd)
             status = torch.where(
                 bp["failed"], int(SolverStatus.BACKWARD_PASS_REGULARIZATION_FAILED),
                 fp["status"],

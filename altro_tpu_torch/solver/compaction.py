@@ -4,8 +4,9 @@
 A lockstep batched solve runs until its slowest instance converges.
 `CompactedALSolver` runs the full batch for a capped iteration budget, then
 gathers the unconverged lanes (a stable argsort puts them first) into a
-dense `tail_batch`-wide batch, solves only those with `active` marking the
-real ones, and scatters the results back — round after round until every
+dense `tail_batch`-wide batch (every per-instance param leaf gathered with
+them, `gather_params`), solves only those with `active` marking the real
+ones, and scatters the results back — round after round until every
 lane has had one uncapped tail solve.  Phase boundaries restart the inner
 solver while duals and penalties carry over (`al_solver.hpp:288-302`).
 Then an optional restart portfolio re-solves the lanes still not SOLVED
@@ -24,7 +25,7 @@ import torch
 from ..options import SolverOptions
 from ..problem.problem import CompiledProblem
 from ..types import SolverStatus
-from .batched import ALSolverBatched, BatchedTrajectory
+from .batched import ALSolverBatched, BatchedTrajectory, gather_params
 
 # statuses that mean "ran out of a phase budget, still making progress";
 # after an uncapped tail round they are terminal (`al_solver.hpp:378-381`)
@@ -190,8 +191,7 @@ class CompactedALSolver:
                          rho=torch.full((len(f.knots), W), rho0, dtype=dt, device=dev))
                     for f in self.prob.constraint_families
                 )
-                x0 = params.x0
-                params_r = params.replace(x0=x0[:, idx]) if x0.ndim == 2 else params
+                params_r = gather_params(self.prob.params, params, idx)
                 # from the original initial guess, not the failed trajectory
                 Z_r = Z0.replace(X=Z0.X[..., idx], U=Z0.U[..., idx])
                 sub = self._restart.solve(params_r, Z_r, al_r, active=real, lane_opts=lane_opts)
@@ -220,8 +220,7 @@ class CompactedALSolver:
             if not bool(real.any()):
                 break
             rounds += 1
-            x0 = params.x0
-            params_t = params.replace(x0=x0[:, idx]) if x0.ndim == 2 else params
+            params_t = gather_params(self.prob.params, params, idx)
             Z_t = res["Z"].replace(X=res["Z"].X[..., idx], U=res["Z"].U[..., idx])
             al_t = tuple(dict(lam=s["lam"][..., idx], rho=s["rho"][..., idx]) for s in res["al"])
             sub = self._tail.solve(params_t, Z_t, al_t, active=real)

@@ -40,7 +40,16 @@ in parallel), then:
      at the obstacle problem's shapes, the fleet in both of the script's
      modes (f32_throughput, and complete with its restart cascade), every
      SOLVED lane clear of every obstacle;
- 11. solves the zoo's and the obstacle fleet's first 512 lanes on the
+ 11. drives the randomized three-obstacle fleet (perf/benchmark_randomized.py,
+     B=4096, f32_throughput: per-lane x0, obstacle layouts, goals and
+     tracking costs) through the fused kernels' lane-params
+     instantiations: both kernels against their plain versions at its
+     shapes, per-lane leaves broadcast from the shared values bit for bit
+     with the shared launch, a permutation of the lanes bit for bit, the
+     cartpole's and the quadrotor's per-lane dynamics params against
+     plain, and the fleet's solve, every SOLVED lane clear of its own
+     obstacles and at its own goal;
+ 12. solves the zoo's and the obstacle fleet's first 512 lanes on the
      plain path, all in processes of their own at once, and holds steps 9
      and 10 against them.
 Each phase prints one JSON line.  `--phase NAME` (repeatable) runs only the
@@ -57,6 +66,7 @@ fails, it exits non-zero and prints no result.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -107,6 +117,7 @@ OBST_RESTART = dict(
     restart_rounds=1,
 )
 OBST_RAGGED_B = 1001  # a width whose last block of 8 lanes is part-empty
+OBST_REPS = 3  # timed solves of each obstacle-fleet mode after its warm-up
 # the plain path's comparison: the first 512 lanes in f32_throughput mode,
 # in 4 processes of 128 lanes.  On 512 lanes in one process that solve took
 # 440 s (177 lockstep iterations of eager ops, up to 20 rollouts a line
@@ -116,6 +127,16 @@ OBST_PLAIN_MODE = "f32_throughput"
 OBST_PLAIN_LANES = 512
 OBST_PLAIN_PROCS = 4
 CLEARANCE_MIN = -1e-3  # metres (example_unicycle_test.cpp:76-83)
+# the randomized three-obstacle fleet (perf/benchmark_randomized.py,
+# f32_throughput mode: the obstacle fleet's solver and options, :138-145),
+# per-lane leaves drawn from seed 0 (models.problems.randomized_fleet)
+RAND_SEED = 0
+# timed solves after one warm-up, median reported: 3, not the script's 5,
+# to keep chip_smoke within its time limit (a solve takes 26-44 s on an
+# H100's host, PERF.md)
+RAND_REPS = 3
+RAND_SOLVED_MIN = 0.65  # the JAX package's record on this data: 2913/4096 (perf/benchmark_randomized.out)
+RAND_DYN_SEED = 9  # the per-lane dynamics params' scales (part 2)
 SCALING_B = (1024, 2048, 4096, 16384)  # batch widths of the kernel_scaling phase
 SCALING_REPS = 10
 GOLDEN_J = 0.03893465058924039  # auglag_test.cpp:346-349 (tol 1e-6 solve)
@@ -276,7 +297,17 @@ def al_ops(kern, per_row: int, circle_row: int) -> int:
                for f in kern._con_fams if f["stage_row"] >= 0)
 
 
-def fused_work(kern, B, itemsize) -> tuple[float, float]:
+def lane_words(kern, params) -> int:
+    """Words per lane of the lane table that a launch with `params` reads
+    (ops/backward_fused.py:LaneLayout): N+1 knots' per-knot rows and the
+    static rows; 0 when every param is shared."""
+    if params is None or not kern.param_sig(params):
+        return 0
+    lay = kern._lane_layout(kern.param_sig(params))
+    return (kern.N + 1) * lay.knot_rows + lay.static_rows
+
+
+def fused_work(kern, B, itemsize, params=None) -> tuple[float, float]:
     """(bytes, flops) of one fused backward launch: per lane it reads X, U,
     the packed AL state and ρ and writes K, d, ΔV1, ΔV2, J0 and the flags;
     per knot the quadratic cost's value and gradient, its Hessian from the
@@ -284,12 +315,13 @@ def fused_work(kern, B, itemsize) -> tuple[float, float]:
     csrc/models.cuh's kFOps, and the step's own arithmetic), the n+m
     columns of [A Bd] as tangents of the step at that value (kTangentOps
     per evaluation, and the step's arithmetic again), and one Riccati
-    step."""
+    step.  With per-lane `params`, each lane reads its lane table too
+    (lane_words)."""
     N, n, m = kern.N, kern.n, kern.m
     Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
     f, tangent = model_ops(kern)
     evals, per_entry = step_ops(kern)
-    read = (N + 1) * n + N * m + N * (Ps + Fs) + Pt + Ft + 1
+    read = (N + 1) * n + N * m + N * (Ps + Fs) + Pt + Ft + 1 + lane_words(kern, params)
     write = N * (m * n + m) + 3
     quad = 2 * _mm_flops(n, n, 1) + 2 * _mm_flops(n, m, 1) + 2 * _mm_flops(m, m, 1) + 6 * (n + m)
     hess = n * n + n * m + m * m
@@ -300,17 +332,19 @@ def fused_work(kern, B, itemsize) -> tuple[float, float]:
     return B * ((read + write) * itemsize + 4), float(N * B * per_knot)
 
 
-def forward_work(kern, B, itemsize) -> tuple[float, float]:
+def forward_work(kern, B, itemsize, params=None) -> tuple[float, float]:
     """(bytes, flops) of one forward launch: per lane it reads x0, α, X, U,
     K, d and the packed AL state and writes X̄, Ū, J and two int32 flags;
     per knot the feedback law, the step (the model's evaluations,
     csrc/models.cuh's kFOps, and the step's own arithmetic), the cost and AL
-    value (al_ops) and the guard."""
+    value (al_ops) and the guard.  With per-lane `params`, each lane reads
+    its lane table too (lane_words)."""
     N, n, m = kern.N, kern.n, kern.m
     Ps, Fs, Pt, Ft = kern.Ps, kern.Fs, kern.Pt, kern.Ft
     f = model_ops(kern)[0]
     evals, per_entry = step_ops(kern)
-    read = n + 1 + (N + 1) * n + N * m + N * (m * n + m) + N * (Ps + Fs) + Pt + Ft
+    read = (n + 1 + (N + 1) * n + N * m + N * (m * n + m) + N * (Ps + Fs) + Pt + Ft
+            + lane_words(kern, params))
     write = N * (n + m) + 1
     per_knot = (_mm_flops(m, n, 1) + n + 3 * m + evals * f + per_entry * n
                 + 2 * (n * n + n * m + m * m) + 4 * (n + m) + al_ops(kern, 6, CIRCLE_ROW_OPS["forward"])
@@ -954,6 +988,20 @@ def phase_fused_zoo_vs_plain(dev) -> None:
     forward kernel rolls out the plain gains of the largest ρ."""
     import torch
 
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(0)
+        for name in ("quadrotor", "cartpole"):
+            zoo_kernels_vs_plain(dev, name, dtype, rng)
+
+
+def zoo_kernels_vs_plain(dev, name, dtype, rng, lane_key=None) -> dict:
+    """phase_fused_zoo_vs_plain's checks of one zoo problem in one scalar
+    type, drawing from `rng`.  With `lane_key`, that dynamics param is per
+    lane (each lane's scaled by U(0.8, 1.2), RAND_DYN_SEED), so the kernels'
+    lane-params instantiations run (the randomized phase's part 2).  Emits
+    the line and returns it."""
+    import torch
+
     from altro_tpu_torch import SolverOptions
     from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
     from altro_tpu_torch.ops import tolerances as tol
@@ -962,69 +1010,78 @@ def phase_fused_zoo_vs_plain(dev) -> None:
     from altro_tpu_torch.ops.tolerances import sensitivity, ulp_moved
     from altro_tpu_torch.solver.batched import ALSolverBatched
 
-    for dtype in (torch.float64, torch.float32):
-        tag = "f64" if dtype == torch.float64 else "f32"
-        item = torch.finfo(dtype).bits // 8
-        rng = np.random.default_rng(0)
-        for name, build in (("quadrotor", zoo_quadrotor), ("cartpole", zoo_cartpole)):
-            prob, Z0, x0, _ = build(dtype=dtype, device=dev)
-            opts = SolverOptions()
-            ev = ALSolverBatched(prob, opts)
-            B = ZOO_BATCH
-            params = prob.params.replace(x0=zoo_x0s(x0, B, rng).to(dtype))
-            Zb = ev.rollout(params, replicate(Z0, B))
-            al = warm_al(ev, B, dtype, dev, rng)
-            bk = BackwardFusedKernel(prob, opts, dtype=dtype, device=dev)
-            fk = ForwardKernel(prob, opts, dtype=dtype, device=dev)
-            ap = bk.pad_al(al)
-            Zms = [Zb.replace(X=ulp_moved(Zb.X, rng), U=ulp_moved(Zb.U, rng)) for _ in range(tol.SENS_DRAWS)]
-            f32_rel = tol.ZOO_F32_REL[name]
-            errs_b, errs_f = {}, {}
-            for r in tol.RHOS[tag][name]:
-                rho = torch.full((B,), r, dtype=dtype, device=dev)
-                got = bk(params, ap, Zb, rho)
-                want = bk.plain(params, ap, Zb, rho)
-                moved = [bk.plain(params, ap, Zm, rho) for Zm in Zms]
-                _sync()
-                sens, flips = sensitivity(want, moved)
-                steady = ~flips
-                assert torch.equal(got[4][steady], want[4][steady]), f"{name} backward rho={r}: flags differ"
-                ok = ~want[4] & steady
-                case = {
-                    key: compare(key, g, w, dtype, mask=ok, f32_rel=f32_rel, sens=sens[ok])
-                    for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
-                }
-                case["J0"] = compare("J0", got[5], want[5], dtype, f32_rel=f32_rel)
-                case.update(n_failed=int(want[4].sum()), **witness(sens, flips, ok),
-                            max_abs_K=float(want[0][..., ok].abs().max()) if bool(ok.any()) else None)
-                errs_b[f"rho={r}"] = case
-                K, d = want[0], want[1]
-            for alpha, cb, KK, dd in (
-                (1.0, True, K, d), (0.5, True, K, d),
-                (0.0, False, torch.zeros_like(K), torch.zeros_like(d)),
-            ):
-                a = torch.full((B,), alpha, dtype=dtype, device=dev)
-                got = fk(params, ap, Zb, KK, dd, a, check_bounds=cb)
-                want = fk.plain(params, ap, Zb, KK, dd, a, check_bounds=cb)
-                _sync()
-                assert torch.equal(got[3], want[3]), f"{name} forward: valid flags differ"
-                assert torch.equal(got[4], want[4]), f"{name} forward: status differs"
-                errs_f[f"alpha={alpha},guarded={cb}"] = {
-                    key: compare(key, g, w, dtype, f32_rel=f32_rel)
-                    for key, g, w in zip(("Xn", "Ubar", "J"), got[:3], want[:3])
-                }
-            rho = torch.full((B,), tol.RHOS[tag][name][-1], dtype=dtype, device=dev)
-            a1 = torch.ones((B,), dtype=dtype, device=dev)
-            times = dict(
-                backward_ms=cuda_ms(lambda: bk(params, ap, Zb, rho), 10),
-                backward_plain_ms=cuda_ms(lambda: bk.plain(params, ap, Zb, rho), 3),
-                forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 10),
-                forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
-            )
-            wb, wf = fused_work(bk, B, item), forward_work(fk, B, item)
-            emit({"phase": "fused_zoo_vs_plain", "problem": name, "dtype": tag, "n": prob.n, "m": prob.m,
-                  "N": prob.N, "B": B, "backward_fused": errs_b, "forward": errs_f, **times,
-                  "backward_bound": bound(*wb, tag), "forward_bound": bound(*wf, tag)})
+    tag = "f64" if dtype == torch.float64 else "f32"
+    item = torch.finfo(dtype).bits // 8
+    build = zoo_quadrotor if name == "quadrotor" else zoo_cartpole
+    prob, Z0, x0, _ = build(dtype=dtype, device=dev)
+    opts = SolverOptions()
+    ev = ALSolverBatched(prob, opts)
+    B = ZOO_BATCH
+    params = prob.params.replace(x0=zoo_x0s(x0, B, rng).to(dtype))
+    if lane_key is not None:
+        leaf = params.dynamics[0][lane_key]
+        scale = np.random.default_rng(RAND_DYN_SEED).uniform(0.8, 1.2, tuple(leaf.shape) + (B,))
+        lane = leaf[..., None] * torch.as_tensor(scale, device=dev).to(dtype)
+        params = params.replace(dynamics=(dict(params.dynamics[0], **{lane_key: lane}),))
+    Zb = ev.rollout(params, replicate(Z0, B))
+    al = warm_al(ev, B, dtype, dev, rng)
+    bk = BackwardFusedKernel(prob, opts, dtype=dtype, device=dev)
+    fk = ForwardKernel(prob, opts, dtype=dtype, device=dev)
+    ap = bk.pad_al(al)
+    Zms = [Zb.replace(X=ulp_moved(Zb.X, rng), U=ulp_moved(Zb.U, rng)) for _ in range(tol.SENS_DRAWS)]
+    f32_rel = tol.ZOO_F32_REL[name]
+    errs_b, errs_f = {}, {}
+    for r in tol.RHOS[tag][name]:
+        rho = torch.full((B,), r, dtype=dtype, device=dev)
+        got = bk(params, ap, Zb, rho)
+        want = bk.plain(params, ap, Zb, rho)
+        moved = [bk.plain(params, ap, Zm, rho) for Zm in Zms]
+        _sync()
+        sens, flips = sensitivity(want, moved)
+        steady = ~flips
+        assert torch.equal(got[4][steady], want[4][steady]), f"{name} backward rho={r}: flags differ"
+        ok = ~want[4] & steady
+        case = {
+            key: compare(key, g, w, dtype, mask=ok, f32_rel=f32_rel, sens=sens[ok])
+            for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
+        }
+        case["J0"] = compare("J0", got[5], want[5], dtype, f32_rel=f32_rel)
+        case.update(n_failed=int(want[4].sum()), **witness(sens, flips, ok),
+                    max_abs_K=float(want[0][..., ok].abs().max()) if bool(ok.any()) else None)
+        errs_b[f"rho={r}"] = case
+        K, d = want[0], want[1]
+    for alpha, cb, KK, dd in (
+        (1.0, True, K, d), (0.5, True, K, d),
+        (0.0, False, torch.zeros_like(K), torch.zeros_like(d)),
+    ):
+        a = torch.full((B,), alpha, dtype=dtype, device=dev)
+        got = fk(params, ap, Zb, KK, dd, a, check_bounds=cb)
+        want = fk.plain(params, ap, Zb, KK, dd, a, check_bounds=cb)
+        _sync()
+        assert torch.equal(got[3], want[3]), f"{name} forward: valid flags differ"
+        assert torch.equal(got[4], want[4]), f"{name} forward: status differs"
+        errs_f[f"alpha={alpha},guarded={cb}"] = {
+            key: compare(key, g, w, dtype, f32_rel=f32_rel)
+            for key, g, w in zip(("Xn", "Ubar", "J"), got[:3], want[:3])
+        }
+    rho = torch.full((B,), tol.RHOS[tag][name][-1], dtype=dtype, device=dev)
+    a1 = torch.ones((B,), dtype=dtype, device=dev)
+    times = dict(
+        backward_ms=cuda_ms(lambda: bk(params, ap, Zb, rho), 10),
+        backward_plain_ms=cuda_ms(lambda: bk.plain(params, ap, Zb, rho), 3),
+        forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 10),
+        forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
+    )
+    wb, wf = fused_work(bk, B, item, params), forward_work(fk, B, item, params)
+    line = {"phase": "fused_zoo_vs_plain" if lane_key is None else "randomized_dynamics_vs_plain",
+            "problem": name, "dtype": tag, "n": prob.n, "m": prob.m, "N": prob.N, "B": B,
+            "backward_fused": errs_b, "forward": errs_f, **times,
+            "backward_bound": bound(*wb, tag), "forward_bound": bound(*wf, tag)}
+    if lane_key is not None:
+        line["per_lane"] = sorted(bk.param_sig(params))
+        assert len(line["per_lane"]) == 1, line["per_lane"]
+    emit(line)
+    return line
 
 
 def zoo_part(dev):
@@ -1151,13 +1208,20 @@ def obstacle_x0s(B) -> np.ndarray:
 
 def clearance(X, obstacles) -> np.ndarray:
     """Per lane, the least distance from the position (X [N+1, n, B]) to an
-    obstacle's edge over every knot, metres, in f64."""
+    obstacle's edge over every knot, metres, in f64.  `obstacles`: (cx, cy,
+    r), each [n_obs] (every lane's) or [n_obs, B] (each lane its own)."""
     Xd = X.double()
     out = None
-    for cx, cy, r in zip(*obstacles):
+    for cx, cy, r in zip(*(torch_f64(a, Xd.device) for a in obstacles)):
         d = ((Xd[:, 0] - cx) ** 2 + (Xd[:, 1] - cy) ** 2).sqrt().amin(dim=0) - r
         out = d if out is None else out.minimum(d)
     return out.cpu().numpy()
+
+
+def torch_f64(a, device):
+    import torch
+
+    return torch.as_tensor(np.asarray(a, np.float64), device=device)
 
 
 def obstacle_outcome(solver, defn, params, res, lanes) -> dict:
@@ -1338,13 +1402,13 @@ def obstacle_fleet_run(dev) -> dict:
                 if k is not None:
                     k.launches = 0
         walls, syncs = [], []
-        for _ in range(3):
+        for _ in range(OBST_REPS):
             t0 = time.perf_counter()
             res = solver.solve(params, Zb)
             _sync()
             walls.append(time.perf_counter() - t0)
             syncs.append(solver.host_syncs)
-        launches = {name: _launches(ks) / 3 for name, ks in kerns.items()}
+        launches = {name: _launches(ks) / OBST_REPS for name, ks in kerns.items()}
         out = obstacle_outcome(solver, defn, params, res, OBST_PLAIN_LANES)
         status, it, clr = out["status"], out["iterations"], out["clearance"]
         solved = status == int(SolverStatus.SOLVED)
@@ -1385,7 +1449,7 @@ def obstacles_part(dev):
          B=4096;
       3. the B=4096 fleet (bench.make_batch's x0) in f32 on the kernels, in
          both of the script's modes, f32_throughput and complete (its
-         restart cascade): a warm-up and three timed solves each, the
+         restart cascade): a warm-up and OBST_REPS timed solves each, the
          kernels' counts set to 0 before the timed solves;
       4. the fleet's first OBST_PLAIN_LANES lanes on the plain path (eager
          passes, on the card) in OBST_PLAIN_MODE, split over
@@ -1447,6 +1511,248 @@ def phase_obstacles(dev) -> tuple:
     summary, each kernel's launches per solve in each mode)."""
     summary, part = obstacles_part(dev)
     return summary, run_plain([part])["obstacles"]
+
+
+def randomized_case(dtype, B, dev, rng):
+    """The randomized fleet's per-lane params (RAND_SEED) at field_case's
+    expansion point (positions over the obstacle field, warm random AL
+    state).  Returns (problem, params, Z, al, the share of circle rows with
+    λ − ρc <= 0 against each lane's own layout)."""
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import THREE_OBSTACLES, UnicycleProblem, randomized_fleet
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    prob, _, Z, al, _ = field_case(dtype, B, dev, rng)
+    defn = UnicycleProblem(scenario=THREE_OBSTACLES, dtype=dtype, device=dev, N=N)
+    params, _, _ = randomized_fleet(defn, prob, B, seed=RAND_SEED)
+    ev = ALSolverBatched(prob, SolverOptions(), compensated_circles=True)
+    fam = [i for i, f in enumerate(prob.constraint_families) if f.constraint.structure[0] == "circle"][0]
+    c = ev.constraint_values(params, Z)[fam]
+    s = al[fam]["lam"] - al[fam]["rho"][:, None, :] * c
+    return prob, params, Z, al, float((s <= 0).double().mean())
+
+
+def bitwise(a, b) -> bool:
+    """Two tuples of outputs equal bit for bit (NaNs included)."""
+    import torch
+
+    return all(x.view(torch.uint8).equal(y.view(torch.uint8)) if x.dtype.is_floating_point else x.equal(y)
+               for x, y in zip(a, b))
+
+
+def broadcast_lanes(prob, params, B):
+    """`params` with the randomized fleet's six leaves per lane again, each
+    the problem's own (shared) value in every lane."""
+    canon = prob.params
+    kinds = [f.constraint.structure[0] for f in prob.constraint_families]
+    cons = list(params.constraints)
+    for kind in ("circle", "goal"):
+        i = kinds.index(kind)
+        cons[i] = {k: v[..., None].expand(*v.shape, B).contiguous() for k, v in canon.constraints[i].items()}
+    cp = canon.costs[0]
+    lane = {k: cp[k][..., None].expand(*cp[k].shape, B).contiguous() for k in ("q", "c")}
+    return params.replace(constraints=tuple(cons), costs=(dict(params.costs[0], **lane),))
+
+
+def randomized_kernels_vs_plain(dev) -> dict:
+    """Part 1 of phase_randomized; returns the f32 summary of each kernel at
+    B=B_FLEET (max error, times, work)."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
+    from altro_tpu_torch.ops.forward import ForwardKernel
+    from altro_tpu_torch.solver.batched import gather_params
+
+    rng = np.random.default_rng(6)
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = "f64" if dtype == torch.float64 else "f32"
+        item = torch.finfo(dtype).bits // 8
+        for B in (B_FLEET, OBST_RAGGED_B):
+            prob, params, Zb, al, active = randomized_case(dtype, B, dev, rng)
+            opts = SolverOptions()
+            bk = BackwardFusedKernel(prob, opts, dtype=dtype, device=dev)
+            fk = ForwardKernel(prob, opts, dtype=dtype, device=dev)
+            sig = sorted(bk.param_sig(params))
+            assert len(sig) == 6 and sig == sorted(fk.param_sig(params)), sig
+            ap = bk.pad_al(al)
+            errs_b, errs_f = {}, {}
+            for rho_v in tol.RHOS[tag]["obstacles"]:
+                rho = torch.full((B,), rho_v, dtype=dtype, device=dev)
+                got = bk(params, ap, Zb, rho)
+                want = bk.plain(params, ap, Zb, rho)
+                _sync()
+                assert torch.equal(got[4], want[4]), f"randomized backward rho={rho_v}: failed flags differ"
+                ok = ~want[4]
+                case = {
+                    key: compare(key, g, w, dtype, mask=ok, f32_rel=tol.OBSTACLE_F32_REL)
+                    for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4])
+                }
+                case["J0"] = compare("J0", got[5], want[5], dtype, f32_rel=tol.OBSTACLE_F32_REL)
+                case["n_failed"] = int(want[4].sum())
+                errs_b[f"rho={rho_v}"] = case
+                if rho_v == tol.RHOS[tag]["obstacles"][1]:
+                    K, d = want[0], want[1]
+            for alpha, cb, KK, dd in (
+                (1.0, True, K, d), (0.5, True, K, d),
+                (0.0, False, torch.zeros_like(K), torch.zeros_like(d)),
+            ):
+                a = torch.full((B,), alpha, dtype=dtype, device=dev)
+                got = fk(params, ap, Zb, KK, dd, a, check_bounds=cb)
+                want = fk.plain(params, ap, Zb, KK, dd, a, check_bounds=cb)
+                _sync()
+                assert torch.equal(got[3], want[3]), "randomized forward: valid flags differ"
+                assert torch.equal(got[4], want[4]), "randomized forward: status differs"
+                errs_f[f"alpha={alpha},guarded={cb}"] = {
+                    key: compare(key, g, w, dtype, f32_rel=tol.OBSTACLE_F32_REL)
+                    for key, g, w in zip(("Xn", "Ubar", "J"), got[:3], want[:3])
+                }
+            line = {"phase": "randomized_kernel_vs_plain", "dtype": tag, "N": N, "B": B, "per_lane": sig,
+                    "circle_rows_penalized": active, "backward_fused": errs_b, "forward": errs_f}
+            if B == B_FLEET:
+                rho = torch.full((B,), tol.RHOS[tag]["obstacles"][1], dtype=dtype, device=dev)
+                a1 = torch.ones((B,), dtype=dtype, device=dev)
+                # per-lane leaves holding the shared values give the shared launch's bits
+                shared = prob.params.replace(x0=params.x0)
+                lanes = broadcast_lanes(prob, shared, B)
+                same_b = bitwise(bk(shared, ap, Zb, rho), bk(lanes, ap, Zb, rho))
+                same_f = bitwise(fk(shared, ap, Zb, K, d, a1), fk(lanes, ap, Zb, K, d, a1))
+                # lanes are independent: a permutation of the inputs permutes the outputs
+                perm = torch.as_tensor(np.random.default_rng(8).permutation(B), device=dev)
+                pp = gather_params(prob.params, params, perm)
+                Zp = Zb.replace(X=Zb.X[..., perm].contiguous(), U=Zb.U[..., perm].contiguous())
+                app = bk.pad_al(tuple(dict(lam=st["lam"][..., perm].contiguous(), rho=st["rho"][..., perm].contiguous())
+                                      for st in al))
+                perm_b = bitwise([x[..., perm] for x in bk(params, ap, Zb, rho)], bk(pp, app, Zp, rho))
+                perm_f = bitwise([x[..., perm] for x in fk(params, ap, Zb, K, d, a1)],
+                                 fk(pp, app, Zp, K[..., perm].contiguous(), d[..., perm].contiguous(), a1))
+                line.update(broadcast_equals_shared=dict(backward=same_b, forward=same_f),
+                            permutation_bitwise=dict(backward=perm_b, forward=perm_f))
+                assert same_b and same_f, "per-lane leaves broadcast from the shared values differ from the shared launch"
+                assert perm_b and perm_f, "a permutation of the lanes does not permute the outputs"
+                times = dict(
+                    backward_ms=cuda_ms(lambda: bk(params, ap, Zb, rho), 20),
+                    backward_device_ms=device_ms(lambda: bk(params, ap, Zb, rho), 20, "backward_fused_lanes_kernel"),
+                    backward_plain_ms=cuda_ms(lambda: bk.plain(params, ap, Zb, rho), 3),
+                    forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 20),
+                    forward_device_ms=device_ms(lambda: fk(params, ap, Zb, K, d, a1), 20, "forward_lanes_kernel"),
+                    forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
+                )
+                wb, wf = fused_work(bk, B, item, params), forward_work(fk, B, item, params)
+                line.update(times, backward_bound=bound(*wb, tag), forward_bound=bound(*wf, tag),
+                            lane_bytes_per_launch=lane_words(bk, params) * B * item,
+                            backward_geometry=dataclasses.asdict(bk.geometry(B, params)),
+                            forward_geometry=dataclasses.asdict(fk.geometry(B, params)))
+                summary[tag] = dict(
+                    backward_fused=dict(
+                        max_abs_err=max(c[k]["max_abs"] for c in errs_b.values() for k in ("K", "d")),
+                        ms=times["backward_ms"], device_ms=times["backward_device_ms"],
+                        plain_ms=times["backward_plain_ms"], work=wb),
+                    forward=dict(
+                        max_abs_err=max(c[k]["max_abs"] for c in errs_f.values() for k in ("Xn", "Ubar")),
+                        ms=times["forward_ms"], device_ms=times["forward_device_ms"],
+                        plain_ms=times["forward_plain_ms"], work=wf),
+                )
+            emit(line)
+            assert active > 0.05, f"only {active:.3f} of the circle rows are penalized"
+    return summary
+
+
+def randomized_fleet_run(dev) -> dict:
+    """Part 3 of phase_randomized; returns each kernel's launches per
+    solve."""
+    import torch
+
+    from altro_tpu_torch import SolverStatus
+    from altro_tpu_torch.models.problems import randomized_fleet
+
+    solver, defn, prob = obstacle_solver("f32_throughput", "kernels", dev)
+    kerns = obstacle_kernels(solver)
+    params, obstacles, xf = randomized_fleet(defn, prob, B_FLEET, seed=RAND_SEED)
+    sigs = {k.param_sig(params) for k in kerns["backward_fused"] + kerns["forward"]}
+    assert all(k is not None and k.takes(params) for k in kerns["backward_fused"] + kerns["forward"]), (
+        "the fused kernels refused the randomized fleet")
+    sig = sorted(kerns["forward"][0].param_sig(params))
+    assert len(sigs) == 1 and len(sig) == 6, sigs  # circle cx, cy, r + goal xf + cost q, c
+    Zb = fleet_trajectory(defn, B_FLEET)
+    t0 = time.perf_counter()
+    res = solver.solve(params, Zb)
+    _sync()
+    warm_s = time.perf_counter() - t0
+    for ks in kerns.values():
+        for k in ks:
+            if k is not None:
+                k.launches = 0
+    walls, syncs = [], []
+    for _ in range(RAND_REPS):
+        t0 = time.perf_counter()
+        res = solver.solve(params, Zb)
+        _sync()
+        walls.append(time.perf_counter() - t0)
+        syncs.append(solver.host_syncs)
+    launches = {name: _launches(ks) / RAND_REPS for name, ks in kerns.items()}
+    X = res["Z"].X
+    status = res["status"].cpu().numpy()
+    it = res["stats"].iterations_total.cpu().numpy()
+    solved = status == int(SolverStatus.SOLVED)
+    clr = clearance(X, obstacles)  # against each lane's own circles
+    goal_err = (X[-1].double() - torch_f64(xf, X.device)).abs().amax(dim=0).cpu().numpy()  # its own goal
+    finite = bool(torch.isfinite(X).all() and torch.isfinite(res["Z"].U).all())
+    wall = float(np.median(walls))
+    tol_goal = solver.opts.constraint_tolerance  # the goal row's bound when a lane is SOLVED
+    emit(dict(
+        phase="randomized_fleet", mode="f32_throughput", path="kernels", B=B_FLEET, N=N, dtype="f32",
+        per_lane=sig, status_hist={SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))},
+        solved_frac=float(solved.mean()), warmup_s=warm_s, wall_s_reps=walls, wall_s_median=wall,
+        solves_per_s=B_FLEET / wall, host_syncs_per_solve=syncs, launches_per_solve=launches,
+        iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)), iters_max=int(it.max()),
+        telemetry=solver.telemetry, solved_min_clearance_m=float(clr[solved].min()) if solved.any() else None,
+        min_clearance_m=float(clr.min()), goal_err_p99=float(np.percentile(goal_err, 99)),
+        solved_goal_err_max=float(goal_err[solved].max()) if solved.any() else None, goal_tolerance=tol_goal,
+    ))
+    assert finite, "randomized fleet: non-finite result"
+    assert launches["backward_fused"] > 0 and launches["forward"] > 0 and launches["riccati"] == 0, launches
+    assert solved.any() and float(clr[solved].min()) >= CLEARANCE_MIN, "a SOLVED lane enters one of its obstacles"
+    assert float(goal_err[solved].max()) < tol_goal, "a SOLVED lane ends away from its goal"
+    assert float(solved.mean()) >= RAND_SOLVED_MIN, f"{float(solved.mean()):.4f} SOLVED"
+    return launches
+
+
+def phase_randomized(dev) -> tuple:
+    """The randomized three-obstacle fleet (perf/benchmark_randomized.py,
+    BASELINE config 5): per-lane x0, obstacle layouts (cx, cy, r [3, B]),
+    goals (xf [3, B]) and the tracking cost's q [N+1, 3, B], c [N+1, B],
+    read per lane by the fused kernels' lane-params instantiations:
+      1. both kernels against their plain versions at the fleet's shapes
+         (N=100) at B=4096 and OBST_RAGGED_B, f64 and f32, at
+         randomized_case's inputs: the backward kernel at each of
+         tolerances.RHOS' obstacle ρ, the forward kernel rolling out the
+         plain gains of the second at α = 1 and 0.5 (guarded) and the
+         open-loop α = 0, within OBSTACLE_F32_REL (f32) and F64_RTOL /
+         F64_ATOL (f64); at B=4096 per-lane leaves broadcast from the
+         shared values equal the shared launch bit for bit, a permutation
+         of the lanes permutes every output bit for bit, and CUDA event
+         and device times beside the plain version's and the bounds (the
+         lane table's bytes counted);
+      2. per-lane dynamics params: the cartpole's pole mass [B] and the
+         quadrotor's inertia J [3, B] at the zoo's shapes, B=2048, held as
+         phase_fused_zoo_vs_plain holds the zoo;
+      3. the B=4096 fleet in f32_throughput mode on the kernels: one
+         warm-up and RAND_REPS timed solves (the counts set to 0 between),
+         asserting both kernels ran with the six per-lane leaves, every
+         SOLVED lane clear of its own circles by CLEARANCE_MIN at every
+         knot and within the goal constraint's tolerance of its own goal,
+         and at least RAND_SOLVED_MIN SOLVED.
+    Returns (part 1's f32 summary, each kernel's launches per solve)."""
+    import torch
+
+    summary = randomized_kernels_vs_plain(dev)
+    for dtype in (torch.float64, torch.float32):
+        for name, key in (("cartpole", "mass_pole"), ("quadrotor", "J")):
+            zoo_kernels_vs_plain(dev, name, dtype, np.random.default_rng(0), lane_key=key)
+    return summary, randomized_fleet_run(dev)
 
 
 def scaling_fleet(name, B, dev, dtype=None):
@@ -1628,8 +1934,10 @@ def phase_profile(dev) -> None:
     """Where the time of one parking-fleet solve goes, on each path: the
     main path's program (phase_main_path) and the same with
     `backward_pass="pallas"`.  Two warm-up solves, three without the
-    profiler (median wall), then one traced with torch.profiler (CPU and
-    CUDA activities).  Per path: untraced and traced wall, the device time
+    profiler (median wall), then one traced with torch.profiler (CUDA
+    activities only: the device's events, which are all the phase reads;
+    the host operators' events took 60 of its 100 s in key_averages on an
+    H100's host).  Per path: untraced and traced wall, the device time
     summed over the trace's device events (kernels and copies), its share
     of the untraced wall, host syncs, the port's kernel launches, the count
     of device events and the five largest by time."""
@@ -1670,7 +1978,7 @@ def phase_profile(dev) -> None:
         for ks in kerns.values():
             for k in ks:
                 k.launches = 0
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             traced = solve()
         # device events only (kernels, copies, sets): a host op's entry
         # repeats the device time of the kernels it launched
@@ -1784,6 +2092,7 @@ def main(argv) -> int:
         timed(phase_profile)
         zoo = timed(zoo_part)
         obst_kern, obst = timed(obstacles_part)
+        rand_kern, rand_launches = timed(phase_randomized)
 
         def plain_stage(_dev):
             """The zoo's and the obstacle fleet's plain solves, together,
@@ -1803,14 +2112,15 @@ def main(argv) -> int:
     by_path = {
         name: dict(main_path=main_launches[name], riccati_path=ric_launches[name],
                    **{f"zoo_{z}_per_solve": zoo_launches[z][name] for z in zoo_launches},
-                   **{f"obstacles_{mode}_per_solve": obst_launches[mode][name] for mode in obst_launches})
+                   **{f"obstacles_{mode}_per_solve": obst_launches[mode][name] for mode in obst_launches},
+                   randomized_f32_throughput_per_solve=rand_launches[name])
         for name in ("backward_fused", "forward")
     }
     by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])
     sources = dict(
-        backward_fused=("altro_tpu_torch/csrc/backward_fused.cu",
+        backward_fused=("altro_tpu_torch/csrc/backward_fused.cuh",
                         "altro_tpu/ops/backward_fused_pallas.py:546", "main_path"),
-        forward=("altro_tpu_torch/csrc/forward.cu", "altro_tpu/ops/forward_pallas.py:699", "main_path"),
+        forward=("altro_tpu_torch/csrc/forward.cuh", "altro_tpu/ops/forward_pallas.py:699", "main_path"),
         riccati=("altro_tpu_torch/csrc/riccati.cu", "altro_tpu/ops/riccati_pallas.py:268", "riccati_path"),
     )
     rows = []
@@ -1828,6 +2138,11 @@ def main(argv) -> int:
             ob_ms, ob_by = bound(*o["work"], "f32")
             rows[-1]["obstacles"] = dict(max_abs_err=o["max_abs_err"], ms=o["ms"], device_ms=o["device_ms"],
                                          plain_ms=o["plain_ms"], bound_ms=ob_ms, bound_by=ob_by)
+        if name in rand_kern["f32"]:  # its lane-params instantiation on the randomized fleet
+            o = rand_kern["f32"][name]
+            rb_ms, rb_by = bound(*o["work"], "f32")
+            rows[-1]["randomized"] = dict(max_abs_err=o["max_abs_err"], ms=o["ms"], device_ms=o["device_ms"],
+                                          plain_ms=o["plain_ms"], bound_ms=rb_ms, bound_by=rb_by)
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -6,7 +6,7 @@ kernels, at B in {1, 1000, 2048, 4096}: the block's dynamic shared memory
 fits the H100's 232,448 bytes, B >= 2048 launches at least one block per
 multiprocessor (132), every batch lane falls in exactly one block, and the
 geometry passes the checks the kernels' launchers make
-(`csrc/backward_fused.cu:launch_backward`, `csrc/forward.cu:
+(`csrc/backward_fused.cuh:launch_backward`, `csrc/forward.cuh:
 launch_forward`).  The descriptor folds the stacked stage + terminal cost
 family into two shared families only where the kernels then add the same
 J terms in the same order.
@@ -182,3 +182,163 @@ def test_riccati_launch_geometry(n, m, dtype, B):
     assert g.blocks == -(-B // 8)
     lanes = torch.arange(g.blocks)[:, None] * g.lanes + torch.arange(g.lanes)[None, :]
     assert torch.equal(torch.sort(lanes[lanes < B]).values, torch.arange(B))
+
+
+# ---------------------------------------------------------------- per-lane params
+def _randomized(dtype, N=10, B=5):
+    from altro_tpu_torch.models.problems import randomized_fleet
+
+    defn = UnicycleProblem(scenario="three_obstacles", dtype=dtype, device="cpu", N=N)
+    prob = defn.make_problem().compile()
+    return prob, randomized_fleet(defn, prob, B, seed=0)[0]
+
+
+def test_lane_table_packs_per_knot_rows_then_static_rows():
+    """The randomized fleet's lane table: per knot k the cost family's q
+    (3 rows) and c (1 row) from row 4k on, then the static rows of the
+    circle's cx, cy, r and the goal's xf; every value as the leaf holds
+    it."""
+    N, B = 10, 5
+    prob, params = _randomized(torch.float64, N, B)
+    kern = BackwardFusedKernel(prob, SolverOptions(), dtype=torch.float64, device="cpu")
+    sig = kern.param_sig(params)
+    lay = kern._lane_layout(sig)
+    assert (lay.knot_rows, lay.static_rows) == (4, 12)
+    tab = kern.lane_table(params, sig, B)
+    assert tab.shape == ((N + 1) * 4 + 12, B) and tab.is_contiguous()
+    cost = params.costs[0]
+    for k in range(N + 1):
+        assert torch.equal(tab[4 * k: 4 * k + 3], cost["q"][k]) and torch.equal(tab[4 * k + 3], cost["c"][k])
+    kinds = [f.constraint.structure[0] for f in prob.constraint_families]
+    circle, goal = params.constraints[kinds.index("circle")], params.constraints[kinds.index("goal")]
+    static = tab[(N + 1) * 4:]
+    assert torch.equal(static, torch.cat([circle["cx"], circle["cy"], circle["r"], goal["xf"]]))
+    with pytest.raises(ValueError):  # a per-lane leaf of another width than the launch's
+        kern.lane_table(params, sig, B + 1)
+
+
+def test_lane_descriptor_points_each_per_lane_leaf_at_its_rows():
+    """AltroLanes of the randomized fleet: both families the stacked cost
+    folds into (stage knots, terminal knot) read q and c per knot at their
+    rows, every other cost leaf and the dynamics from the descriptor; the
+    circle's a, b, r and the goal's a at their static rows.  The descriptor
+    holds zeros in their place, and the fold is the shared problem's."""
+    N, B = 10, 5
+    prob, params = _randomized(torch.float64, N, B)
+    kern = BackwardFusedKernel(prob, SolverOptions(), dtype=torch.float64, device="cpu")
+    sig = kern.param_sig(params)
+    desc, table = kern._problem_desc(params, sig)
+    ln, ln_dev = kern._lanes
+    assert bytes(ln) == bytes(ln_dev.numpy())
+    d = _build.Problem.from_buffer_copy(bytes(desc.numpy()))
+    assert [(f.k0, f.k1, f.stacked) for f in d.cost[: d.n_cost]] == [(0, N - 1, 0), (N, N, 0)]
+    src = lambda s: (s.off, s.kstride)  # noqa: E731
+    for fam in range(2):
+        assert [src(s) for s in ln.cost[fam]] == [(-1, 0)] * 3 + [(0, 4), (-1, 0), (3, 4)]
+    assert all(s.off == -1 for s in ln.dyn)
+    kinds = [f.constraint.structure[0] for f in prob.constraint_families]
+    ci, gi, bi = kinds.index("circle"), kinds.index("goal"), kinds.index("control_bound")
+    assert [src(s) for s in ln.con[ci]] == [(0, 0), (3, 0), (6, 0)]
+    assert [src(s) for s in ln.con[gi]][0] == (9, 0) and all(s.off == -1 for s in ln.con[bi])
+    assert list(d.con[ci].a[:3]) == list(d.con[ci].b[:3]) == list(d.con[ci].r[:3]) == [0.0] * 3
+    assert list(d.con[gi].a[:3]) == [0.0] * 3
+    row = 9 + 4 + 6 + 3 + 2 + 1  # Q, R, H, q, r, c of n=3, m=2
+    assert table.numel() == 2 * row and bool((table[[9 + 4 + 6 + i for i in (0, 1, 2, 5)]] == 0).all())
+    # a tail round's gathered leaves (new tensors, same shared leaves) keep the descriptor
+    from altro_tpu_torch.solver.batched import gather_params
+
+    kern._problem_desc(gather_params(prob.params, params, torch.tensor([4, 0])), sig)
+    assert kern._desc[0] is desc
+
+
+def _per_lane(model, dtype, B):
+    """(problem, params) with one per-lane leaf: the randomized fleet's six
+    for the unicycle, the pole mass for the cartpole, the inertia J [3, B]
+    for the quadrotor."""
+    if model == "unicycle":
+        return _randomized(dtype, 100, B)
+    prob = _problem(model, dtype)
+    key = "J" if model == "quadrotor" else "mass_pole"
+    leaf = prob.params.dynamics[0][key]
+    return prob, prob.params.replace(
+        dynamics=(dict(prob.params.dynamics[0], **{key: leaf[..., None].expand(*leaf.shape, B).clone()}),))
+
+
+@pytest.mark.parametrize("B", [1, 1001, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("model", ["unicycle", "cartpole", "quadrotor"])
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_lane_geometry_counts_the_lane_rows(kind, model, dtype, B):
+    """The lane-params instantiation's geometry: the layout of
+    csrc/{backward_fused,forward}.cu with the lanes descriptor, the lane
+    rows per knot (W), the static rows (S) and, in the backward slot, the
+    cost Hessians' sums; within the card's shared memory, the forward
+    chunk's staged words within STAGE_WORDS, the checks of
+    test_launch_geometry, and the shared-param geometry where no leaf is
+    per lane."""
+    prob, params = _per_lane(model, dtype, B)
+    kern = KERNELS[kind](prob, SolverOptions(), dtype=dtype, device="cpu")
+    sig = kern.param_sig(params)
+    assert len(sig) == (6 if model == "unicycle" else 1) and kern.takes(params)
+    lay = kern._lane_layout(sig)
+    g = kern.geometry(B, params)
+    item = torch.finfo(dtype).bits // 8
+    n, m = prob.n, prob.m
+    lane = (lay.knot_rows, lay.static_rows)
+    if kind == "backward_fused":
+        assert g.smem == bf.backward_smem(n, m, item, g.lanes, g.knots, g.tab_smem, lane)
+        assert g.knots == bf.chunk_knots(g.lanes * (n + m + 1), bf.PRODUCER_ROUNDS * bf.PRODUCERS,
+                                         lambda k: bf.backward_smem(n, m, item, g.lanes, k, bf.TABLE_SMEM // item, lane))
+    else:
+        assert g.smem == bf.forward_smem(n, m, item, g.lanes, g.knots, g.tab_smem, kern.Ps, kern.Fs, lane)
+        assert g.knots * g.lanes * (n + 2 * m + m * n + kern.Ps + kern.Fs + lay.knot_rows) <= bf.STAGE_WORDS
+    assert g.smem <= bf.SMEM_MAX and g.blocks == -(-B // g.lanes) and g.threads % 32 == 0
+    shared = kern.geometry(B)
+    assert kern._layout(g.tab_smem).knots >= g.knots
+    assert dataclasses.replace(g, smem=0, knots=0) == dataclasses.replace(shared, smem=0, knots=0, tab_smem=g.tab_smem)
+
+
+def test_lane_rows_shrink_the_chunks_until_no_chunk_fits():
+    """Per-knot and per-lane Q, R, H and q of the quadrotor in f64 (254 lane
+    rows a knot) still fit the card's shared memory: the backward chunk
+    shrinks from 4 knots to 2.  Rows beyond every layout `param_sig` admits
+    (here 5,000 a knot) leave no chunk, and the layout raises instead of
+    routing the solve away from the kernel; `takes` is False only for what
+    `param_sig` refuses."""
+    prob = _problem("quadrotor", torch.float64)
+    B = 4
+    costs = dict(prob.params.costs[0])
+    for key in ("Q", "R", "H", "q"):
+        costs[key] = costs[key][..., None].expand(*costs[key].shape, B).clone()
+    params = prob.params.replace(costs=(costs,))
+    kern = BackwardFusedKernel(prob, SolverOptions(), dtype=torch.float64, device="cpu")
+    assert {"cost0_Q", "cost0_R", "cost0_H", "cost0_q"} <= kern.param_sig(params) and kern.takes(params)
+    assert kern._lane_layout(kern.param_sig(params)).knot_rows == 13 * 13 + 4 * 4 + 13 * 4 + 13
+    assert (kern.geometry(B).knots, kern.geometry(B, params).knots) == (4, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        kern._layout(0, (5000, 0))
+    costs["q"] = torch.zeros((prob.N + 1, 13, 5000, B), dtype=torch.float64)
+    assert not kern.takes(prob.params.replace(costs=(costs,)))  # a rank the kernels refuse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("model", ["unicycle", "cartpole", "quadrotor"])
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_every_lane_table_param_sig_admits_fits(kind, model, dtype):
+    """The largest lane table the descriptor can describe leaves a chunk
+    within the shared memory beside the largest staged cost table: all six
+    leaves of MAX_FAMS/2 cost families per lane (the most eligibility
+    takes), each family stacked per knot or not in every split, the leaves
+    of MAX_FAMS constraint families of up to NMAX rows (3·NMAX for a
+    circle family) and NDYN dynamics params.  So `takes`, which refuses
+    only what `param_sig` refuses, never hands a kernel a layout it cannot
+    launch."""
+    prob = _problem(model, dtype)
+    kern = KERNELS[kind](prob, SolverOptions(), dtype=dtype, device="cpu")
+    n, m = prob.n, prob.m
+    fam = n * n + m * m + n * m + n + m + 1
+    cost_fams = _build.MAX_FAMS // 2
+    static = _build.MAX_FAMS * max(n, 2 * m, 3 * _build.NMAX) + _build.NDYN
+    for stacked in range(cost_fams + 1):
+        g = kern._layout(bf.TABLE_SMEM // kern._itemsize, (stacked * fam, (cost_fams - stacked) * fam + static))
+        assert g.knots >= 1 and g.smem <= bf.SMEM_MAX

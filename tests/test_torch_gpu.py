@@ -541,3 +541,126 @@ def test_fused_kernels_solve_the_quadrotor_as_the_eager_path():
         J[kind] = s.total_cost(params, s.al_state_init(Bq, torch.float64), res["Z"]).cpu().numpy()
     rel = np.abs(J["kernels"] - J["eager"]) / np.abs(J["eager"])
     assert np.median(rel) < 1e-3 and rel.max() < 2e-2, rel
+
+
+def _randomized_fleet(dtype, dev, Bz, seed=4):
+    """The randomized three-obstacle fleet (`models.problems.randomized_fleet`:
+    per-lane x0, obstacle layouts, goals and the tracking cost's q, c per
+    knot and lane) at N=100 and Bz lanes, at an expansion point spread over
+    the obstacle field (as `_obstacle_fleet`), under a warm random AL
+    state."""
+    from altro_tpu_torch.models.problems import randomized_fleet
+
+    rng = np.random.default_rng(seed)
+    defn = UnicycleProblem(scenario="three_obstacles", dtype=dtype, device=dev)
+    prob = defn.make_problem().compile()
+    params, _, _ = randomized_fleet(defn, prob, Bz, seed=seed)
+    t = lambda a: torch.as_tensor(a, device=dev).to(dtype)  # noqa: E731
+    Nh = defn.N
+    X = np.concatenate([rng.uniform(0.3, 2.7, (Nh + 1, 2, Bz)), rng.uniform(-np.pi, np.pi, (Nh + 1, 1, Bz))], axis=1)
+    U = np.stack([rng.uniform(0.0, 1.5, (Nh, Bz)), rng.uniform(-1.0, 1.0, (Nh, Bz))], axis=1)
+    Z = _fleet_Z(defn, Bz).replace(X=t(X).contiguous(), U=t(U).contiguous())
+    al = tuple(
+        dict(lam=t(rng.uniform(-0.5, 0.0, st["lam"].shape)), rho=t(rng.uniform(1.0, 10.0, st["rho"].shape)))
+        for st in ALSolverBatched(prob, SolverOptions()).al_state_init(Bz, dtype)
+    )
+    return prob, params, Z, al
+
+
+@pytest.mark.parametrize("Bz", [4096, 1001, 1])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_fused_kernels_match_plain_on_the_randomized_fleet(dtype, Bz):
+    """Both fused kernels' lane-params instantiations on the randomized
+    fleet (six per-lane leaves: circle cx, cy, r, goal xf, cost q and c per
+    knot) match their plain versions as at the ragged widths, within the
+    obstacle problem's bounds."""
+    dev = _device()
+    prob, params, Z, al = _randomized_fleet(dtype, dev, Bz)
+    kern = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    assert len(kern.param_sig(params)) == 6
+    _hold_fused_kernels("obstacles", dtype, dev, prob, params, Z, al)
+
+
+def _bitwise(a, b) -> bool:
+    return all(x.view(torch.uint8).equal(y.view(torch.uint8)) if x.dtype.is_floating_point else x.equal(y)
+               for x, y in zip(a, b))
+
+
+def _broadcast_lanes(prob, params, Bz):
+    """`params` with the randomized fleet's six leaves made per lane again,
+    each the problem's own (shared) value broadcast to every lane."""
+    canon = prob.params
+    kinds = [f.constraint.structure[0] for f in prob.constraint_families]
+    cons = list(params.constraints)
+    for kind in ("circle", "goal"):
+        i = kinds.index(kind)
+        cons[i] = {k: v[..., None].expand(*v.shape, Bz).contiguous() for k, v in canon.constraints[i].items()}
+    cp = canon.costs[0]
+    costs = (dict(params.costs[0], **{k: cp[k][..., None].expand(*cp[k].shape, Bz).contiguous() for k in ("q", "c")}),)
+    return params.replace(constraints=tuple(cons), costs=costs)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_lane_params_broadcast_equal_shared_bitwise(dtype):
+    """Per-lane leaves that hold the problem's own value in every lane give
+    bit for bit the outputs of the shared-param launch: the descriptor holds
+    the float64 image of each scalar-type value, the lane table the value."""
+    dev = _device()
+    Bz = 1001
+    prob, _, Z, al = _randomized_fleet(dtype, dev, Bz)
+    shared = prob.params.replace(x0=torch.zeros((3, Bz), dtype=dtype, device=dev))
+    lanes = _broadcast_lanes(prob, shared, Bz)
+    bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    fk = ForwardKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    assert bk.param_sig(shared) == frozenset() and len(bk.param_sig(lanes)) == 6
+    ap = bk.pad_al(al)
+    for r in tol.RHOS["f64" if dtype == torch.float64 else "f32"]["obstacles"]:
+        rho = torch.full((Bz,), r, dtype=dtype, device=dev)
+        a, b = bk(shared, ap, Z, rho), bk(lanes, ap, Z, rho)
+        assert _bitwise(a, b), f"backward rho={r}"
+    a1 = torch.full((Bz,), 0.5, dtype=dtype, device=dev)
+    assert _bitwise(fk(shared, ap, Z, a[0], a[1], a1), fk(lanes, ap, Z, a[0], a[1], a1))
+    assert bk.launches == 2 * len(tol.RHOS["f64" if dtype == torch.float64 else "f32"]["obstacles"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_lane_permutation_permutes_outputs_bitwise(dtype):
+    """Lanes are independent: permuting the lanes of the per-lane params,
+    x0, X, U and the AL state permutes every output of both kernels, bit
+    for bit (B=4096: whole blocks, 16-byte copies)."""
+    from altro_tpu_torch.solver.batched import gather_params
+
+    dev = _device()
+    Bz = 4096
+    prob, params, Z, al = _randomized_fleet(dtype, dev, Bz)
+    perm = torch.as_tensor(np.random.default_rng(8).permutation(Bz), device=dev)
+    pp = gather_params(prob.params, params, perm)
+    Zp = Z.replace(X=Z.X[..., perm].contiguous(), U=Z.U[..., perm].contiguous())
+    alp = tuple(dict(lam=s["lam"][..., perm].contiguous(), rho=s["rho"][..., perm].contiguous()) for s in al)
+    bk = BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    fk = ForwardKernel(prob, SolverOptions(), dtype=dtype, device=dev)
+    rho = torch.full((Bz,), 0.37, dtype=dtype, device=dev)
+    a, b = bk(params, bk.pad_al(al), Z, rho), bk(pp, bk.pad_al(alp), Zp, rho)
+    assert _bitwise([x[..., perm] for x in a], b)
+    a1 = torch.full((Bz,), 0.5, dtype=dtype, device=dev)
+    f = fk(params, fk.pad_al(al), Z, a[0], a[1], a1)
+    g = fk(pp, fk.pad_al(alp), Zp, a[0][..., perm].contiguous(), a[1][..., perm].contiguous(), a1)
+    assert _bitwise([x[..., perm] for x in f], g)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("problem,key", [("cartpole", "mass_pole"), ("quadrotor", "J")])
+def test_fused_kernels_match_plain_with_per_lane_dynamics(problem, key, dtype):
+    """A per-lane dynamics param (the cartpole's pole mass [B], the
+    quadrotor's inertia J [3, B], each lane's scaled by U(0.8, 1.2)) at
+    B=2048 on the zoo's fleets: both kernels' lane-params instantiations
+    against their plain versions, held as at the ragged widths."""
+    dev = _device()
+    prob, _, params, Z, al = _zoo_fleet(problem, dtype, dev, 2048)
+    leaf = params.dynamics[0][key]
+    scale = np.random.default_rng(9).uniform(0.8, 1.2, tuple(leaf.shape) + (2048,))
+    lane = leaf[..., None] * torch.as_tensor(scale, device=dev).to(dtype)
+    params = params.replace(dynamics=(dict(params.dynamics[0], **{key: lane}),))
+    Z = ALSolverBatched(prob, SolverOptions()).rollout(params, Z)
+    assert len(BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev).param_sig(params)) == 1
+    _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al)

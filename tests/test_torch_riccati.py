@@ -155,3 +155,80 @@ def test_options_map_the_jax_name():
     assert TOptions(backward_pass="pallas").backward_pass == "riccati"
     with pytest.raises(ValueError):
         TOptions(backward_pass="pscan")
+
+
+def _sweep_flags(exp, rho, symmetrize):
+    """Failure flags [B] of the Riccati sweep of `exp` at regularization ρ
+    [B], as `riccati_scan` computes them (Cholesky of Quu + ρI, the gain
+    guard, the freeze at a lane's first failure), and the largest
+    |P − Pᵀ| / max|P| each lane's cost-to-go reaches before it fails.
+    `symmetrize` replaces P by (P + Pᵀ)/2 after every knot."""
+    from altro_tpu_torch.solver.batched import chol_failed, chol_solve_mat, chol_unrolled, mm, mT
+
+    N, m = exp["A"].shape[0], exp["B"].shape[2]
+    glim = TOptions().bp_gain_limit
+    eye_m = torch.eye(m, dtype=exp["A"].dtype)[:, :, None]
+    P = exp["lxx"][N]
+    failed = torch.zeros(P.shape[-1], dtype=torch.bool)
+    asym = torch.zeros(P.shape[-1], dtype=P.dtype)
+    for k in reversed(range(N)):
+        A, Bd = exp["A"][k], exp["B"][k]
+        AtP = mm(mT(A), P)
+        Qxx, Qxu = exp["lxx"][k] + mm(AtP, A), exp["lxu"][k] + mm(AtP, Bd)
+        Quu = exp["luu"][k] + mm(mT(Bd), mm(P, Bd))
+        L = chol_unrolled(Quu + eye_m * rho)
+        safe = [[None if e is None else torch.where(torch.isfinite(e), e, 1.0) for e in row] for row in L]
+        K = -chol_solve_mat(safe, mT(Qxu))
+        failed = failed | chol_failed(L) | ~(K.abs().amax(dim=(0, 1)) <= glim)
+        P_new = Qxx + mm(mm(mT(K), Quu), K) + mm(mT(K), mT(Qxu)) + mm(Qxu, K)
+        if symmetrize:
+            P_new = 0.5 * (P_new + mT(P_new))
+        P = torch.where(failed, P, P_new)
+        rel = (P - mT(P)).abs().amax(dim=(0, 1)) / P.abs().amax(dim=(0, 1))
+        asym = torch.where(failed, asym, torch.maximum(asym, rel))
+    return failed, asym
+
+
+def test_quadrotor_flags_at_n24_are_decided_by_rounding():
+    """The quadrotor Riccati case at N=24 in float64 (ROADMAP §3): the zoo's
+    quadrotor at 24 knots (h = 2.5/24), x0 spread 0.05 and a warm random AL
+    state drawn from seed 0 for 1001 lanes, of which the first 160 are
+    rolled out and swept.  At ρ=1 the port's plain sweep and
+    JAX `riccati_scan` both flag lanes that do not fail: the reference's P
+    update (`ilqr.hpp`) keeps P symmetric only up to rounding, and its
+    antisymmetric part grows about 3x a knot (1e-12 at knot 23, 0.1–1
+    relative at knot 0), until the Cholesky of Quu + ρI, which reads one
+    triangle, fails on it.  A sweep that symmetrizes P flags none (so does
+    a 40-digit sweep of the flagged lanes, whose Quu + ρI keeps eigenvalues
+    above 1); which f64 lanes fail is rounding, in both packages.  A fault
+    of the algorithm in float64, not of the port."""
+    import altro_tpu
+    from altro_tpu_torch.models.problems import zoo_quadrotor
+    from altro_tpu_torch.solver.batched import ALSolverBatched as TSolver
+    from altro_tpu_torch.solver.batched import BatchedTrajectory
+
+    from _torch_fleet import zoo_problem_jax
+
+    Bz, Nh, lanes = 1001, 24, 160  # drawn for 1001 lanes, the first 160 swept
+    rng = np.random.default_rng(0)
+    prob, Z0, x0, _ = zoo_quadrotor(N=Nh, dtype=F64, device="cpu")
+    ev = TSolver(prob, TOptions())
+    x0s = x0.numpy()[:, None] + 0.05 * rng.standard_normal((13, Bz))
+    params = prob.params.replace(x0=torch.as_tensor(x0s[:, :lanes]))
+    al = tuple(dict(lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape)[..., :lanes]),
+                    rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape)[..., :lanes]))
+               for st in ev.al_state_init(Bz, F64))
+    Bz = lanes
+    Z = ev.rollout(params, BatchedTrajectory(X=Z0.X[..., None].expand(-1, -1, Bz).contiguous(),
+                                             U=Z0.U[..., None].expand(-1, -1, Bz).contiguous(), t=Z0.t, h=Z0.h))
+    exp = ev.expand(params, al, Z)
+    rho = torch.ones(Bz, dtype=F64)
+    plain = RiccatiKernel(13, 4, dtype=F64).plain(exp, rho)[4]
+    sj = ALSolverBatched(zoo_problem_jax("quadrotor", Nh, h=2.5 / Nh)[0], altro_tpu.SolverOptions())
+    jflags = np.asarray(jax.jit(sj.riccati_scan)({k: jnp.asarray(v.numpy()) for k, v in exp.items()},
+                                                  jnp.ones(Bz))[4])
+    flags, asym = _sweep_flags(exp, rho, symmetrize=False)
+    assert torch.equal(flags, plain)  # the replica is the plain sweep
+    sym_flags, sym_asym = _sweep_flags(exp, rho, symmetrize=True)
+    assert int(plain.sum()) > 0 and int(jflags.sum()) > 0 and not bool(sym_flags.any())
+    assert float(asym[plain].min()) > 1e-3 and float(sym_asym.max()) < 1e-12
