@@ -116,8 +116,8 @@ class SolverOptions:
     # Capacity of the per-instance solver's stats arrays (not ported)
     stats_capacity: int = 304
 
-    # Per-iteration history rows of the batched solver; only 0 (off) is
-    # ported
+    # Per-iteration history rows of the batched solver (`BatchedStats.rows`);
+    # 0 records nothing
     iteration_history_capacity: int = 0
 
     # Whether the outer loop updates duals after an unconverged inner solve

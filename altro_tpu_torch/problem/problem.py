@@ -72,6 +72,21 @@ class ProblemParams:
     def replace(self, **updates) -> "ProblemParams":
         return dataclasses.replace(self, **updates)
 
+    def astype(self, dtype) -> "ProblemParams":
+        """These params with every floating-point leaf cast to `dtype`."""
+
+        def cast(tree):
+            if tree is None:
+                return None
+            if isinstance(tree, dict):
+                return {k: cast(v) for k, v in tree.items()}
+            if isinstance(tree, (tuple, list)):
+                return type(tree)(cast(v) for v in tree)
+            t = torch.as_tensor(tree)
+            return t.to(dtype) if torch.is_floating_point(t) else t
+
+        return ProblemParams(*(cast(getattr(self, f.name)) for f in dataclasses.fields(self)))
+
 
 class Problem:
     """Trajectory optimization problem over N segments (N+1 knot points).
@@ -243,6 +258,13 @@ class CompiledProblem:
         self.dynamics_families = dynamics_families
         self.constraint_families = constraint_families
         self.params = params
+
+    def with_dtype(self, dtype) -> "CompiledProblem":
+        """The same families with every floating-point param leaf cast to
+        `dtype` (`ALSolverBatched` takes its scalar type from the params'
+        x0): the float64 copy that `CompactedALSolver`'s polish solves on."""
+        return CompiledProblem(self.N, self.n, self.m, self.cost_families, self.dynamics_families,
+                               self.constraint_families, self.params.astype(dtype))
 
     @property
     def num_constraint_rows(self) -> int:

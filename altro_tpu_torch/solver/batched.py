@@ -123,17 +123,6 @@ def chol_failed(L):
     return bad
 
 
-def _tree_map(fn: Callable, tree):
-    """Map `fn` over the tensor leaves of nested dicts / tuples / lists."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _tree_map2(fn: Callable, canon, tree):
     """Map `fn(canonical_leaf, leaf)` over two param trees of one structure."""
     if tree is None:
@@ -200,7 +189,14 @@ def al_select(mask, a, b):
 @dataclasses.dataclass(frozen=True)
 class BatchedStats:
     """Per-instance counters and convergence scalars, shapes [B]
-    (`altro_tpu.solver.batched.BatchedStats` without its history rows)."""
+    (`altro_tpu.solver.batched.BatchedStats`).
+
+    `rows` is the per-iteration history, the batched analog of the
+    reference's per-iteration stats vectors (`solver_stats.hpp:54-61`):
+    `[capacity, 8, B]` in `_HISTORY_COLUMNS` order, row i holding instance
+    b's values after its (i+1)-th total iteration.  Capacity 0 (the
+    default) records nothing.
+    """
 
     iterations_inner: torch.Tensor
     iterations_outer: torch.Tensor
@@ -214,19 +210,60 @@ class BatchedStats:
     violations: torch.Tensor
     max_penalty: torch.Tensor
     regularization: torch.Tensor
+    rows: torch.Tensor  # [capacity, 8, B]
 
     def replace(self, **updates) -> "BatchedStats":
         return dataclasses.replace(self, **updates)
 
 
-def batched_stats_init(B: int, dtype, device) -> BatchedStats:
+_HISTORY_COLUMNS = (
+    "cost",
+    "alpha",
+    "improvement_ratio",
+    "gradient",
+    "cost_decrease",
+    "regularization",
+    "violations",
+    "max_penalty",
+)
+
+
+def batched_stats_init(B: int, dtype, device, history_capacity: int = 0) -> BatchedStats:
     z = torch.zeros((B,), dtype=dtype, device=device)
     i = torch.zeros((B,), dtype=torch.int32, device=device)
     return BatchedStats(
         iterations_inner=i, iterations_outer=i, iterations_total=i,
         initial_cost=z, cost=z, cost_decrease=z, gradient=z, alpha=z,
         improvement_ratio=z, violations=z, max_penalty=z, regularization=z,
+        rows=torch.zeros((history_capacity, len(_HISTORY_COLUMNS), B), dtype=dtype, device=device),
     )
+
+
+def batched_stats_column(stats: BatchedStats, name: str) -> torch.Tensor:
+    """History column `name` as [capacity, B]; instance b's rows are valid up
+    to `stats.iterations_total[b]` (`altro_tpu.types.stats_column` analog)."""
+    return stats.rows[:, _HISTORY_COLUMNS.index(name), :]
+
+
+def _record_history(stats: BatchedStats, active) -> BatchedStats:
+    """Write the current column values into each active instance's row
+    `iterations_total - 1`, clipped to the last row (call after the
+    per-iteration stats update).
+
+    A scatter of one row per lane, in place: it moves 2·8·B values where
+    the JAX package's one-hot masked select (chosen there for the TPU's
+    layouts) reads and writes the whole [capacity, 8, B] buffer.  Inactive
+    lanes write back the value they hold.  `rows` is the solve's own buffer
+    (`batched_stats_init`), so no other result shares it."""
+    cap = stats.rows.shape[0]
+    if cap == 0:
+        return stats
+    vals = torch.stack([getattr(stats, name) for name in _HISTORY_COLUMNS], dim=1)  # [B, 8]
+    row = torch.clamp(stats.iterations_total.long() - 1, 0, cap - 1)  # [B]
+    lane = torch.arange(row.shape[0], device=row.device)
+    rows = stats.rows
+    rows[row, :, lane] = torch.where(active[:, None], vals, rows[row, :, lane])
+    return stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,8 +331,6 @@ class ALSolverBatched:
         o = self.opts
         if o.line_search_parallel != 1:
             raise NotImplementedError("line_search_parallel > 1 is not ported yet")
-        if o.iteration_history_capacity != 0:
-            raise NotImplementedError("iteration history is not ported yet")
         if o.verbose != LogLevel.SILENT:
             raise NotImplementedError("live solver logging is not ported yet")
         fams = prob.dynamics_families
@@ -956,6 +991,7 @@ class ALSolverBatched:
                 ),
                 regularization=torch.where(active, bp["rho"], stats.regularization),
             )
+            stats = _record_history(stats, active)
             c = dict(
                 Z=zselect(active, fp["Z"], c["Z"]),
                 rho=torch.where(active, fp["rho"], c["rho"]),
@@ -999,9 +1035,7 @@ class ALSolverBatched:
         cdt = dt
         if self.opts.outer_constraints_f64 and dt == torch.float32:
             cdt = torch.float64
-            cast = lambda t: t.to(cdt) if torch.is_floating_point(t) else t  # noqa: E731
-            params = ProblemParams(*(_tree_map(cast, getattr(params, f.name))
-                                     for f in dataclasses.fields(params)))
+            params = params.astype(cdt)
             Z = Z.replace(X=Z.X.to(cdt), U=Z.U.to(cdt), t=Z.t.to(cdt), h=Z.h.to(cdt))
         cvals = self.constraint_values(params, Z)
         al_new = []
@@ -1070,7 +1104,17 @@ class ALSolverBatched:
                     dict(lam=s["lam"], rho=torch.full_like(s["rho"], opts.initial_penalty))
                     for s in al
                 )
-        stats = batched_stats_init(Bsz, dt, dev)
+        stats = batched_stats_init(Bsz, dt, dev, opts.iteration_history_capacity)
+        if opts.iteration_history_capacity > 0 and self.prob.constraint_families:
+            # seed the violation and penalty columns as the per-instance
+            # solver's pre-solve log does (`altro_tpu/solver/batched.py:1725-1735`)
+            pen0 = Z.X.new_zeros((Bsz,))
+            for st in al:
+                pen0 = torch.maximum(pen0, st["rho"].amax(dim=0))
+            stats = stats.replace(
+                violations=self.max_violation(self.constraint_values(params, Z), Bsz, dt),
+                max_penalty=pen0,
+            )
         if not self.prob.constraint_families:
             out = self.ilqr_solve(params, al, Z, stats, active0, lane_opts)
             return dict(

@@ -10,10 +10,31 @@ ones, and scatters the results back — round after round until every
 lane has had one uncapped tail solve.  Phase boundaries restart the inner
 solver while duals and penalties carry over (`al_solver.hpp:288-302`).
 Then an optional restart portfolio re-solves the lanes still not SOLVED
-from scratch, under a cascade of penalty-ladder variants.
+from scratch, under a cascade of penalty-ladder variants, and an optional
+float64 polish re-solves the lanes still unconverged.
 
-The f64 polish and the infeasibility certificates of the JAX package are
-not ported yet.
+Where the JAX package differs, and why:
+  * Infeasibility certificates.  The JAX package computes them inside its
+    single-dispatch device program and so requires `device_tail=True`.  The
+    port's rounds are driven from the host but follow that program's
+    semantics (a `tried` mask, argsort gathers, `active` masks), so
+    `detect_infeasible` works here without it: the mask is computed on the
+    device before phase 1, whose `active` leaves the certified lanes out;
+    it joins `tried`, so no tail round gathers them, the restart cascade
+    skips them, and their status becomes INFEASIBLE after the cascade.  No
+    host synchronisation is added.
+  * The f64 polish's passes.  The JAX package forces the scan passes in the
+    polish, because the TPU's Pallas kernels do not run in float64.  The
+    port's fused kernels have float64 instantiations, while its scan passes
+    are eager PyTorch ops that are slow on the card, so the polish keeps
+    the passes the caller chose: with `backward_pass="fused"` and
+    `forward_pass="cuda"` it runs the kernels' float64 instantiations
+    (shared-param or lane-params, as phase 1 does), with "scan" the eager
+    passes.  A problem the kernels refuse in float64 takes the same
+    fallback as in phase 1 (`Ineligible`).
+  * The polish's chunks.  The port's kernels take any batch width, so the
+    last chunk is not padded with copies of its first lane; each lane's
+    result does not depend on the others, so the merged result is the same.
 """
 from __future__ import annotations
 
@@ -23,6 +44,7 @@ import numpy as np
 import torch
 
 from ..options import SolverOptions
+from ..problem.infeasibility import goal_obstacle_certificates
 from ..problem.problem import CompiledProblem
 from ..types import SolverStatus
 from .batched import ALSolverBatched, BatchedTrajectory, gather_params
@@ -34,6 +56,14 @@ _RESUMABLE = (
     SolverStatus.MAX_INNER_ITERATIONS,
     SolverStatus.MAX_OUTER_ITERATIONS,
     SolverStatus.UNSOLVED,
+)
+# the polish's hard failures; stage 0 takes SOLVED_STALLED as well
+_HARD = tuple(int(s) for s in _RESUMABLE) + (int(SolverStatus.MAX_PENALTY),)
+# stage 1 retries the hard failures left after stage 0 under a gentler x4
+# penalty ladder; it leaves stalled-feasible results to stage 0's x10 ladder
+_POLISH_STAGES = (
+    (_HARD + (int(SolverStatus.SOLVED_STALLED),), {}),
+    (_HARD, dict(penalty_scaling=4.0, max_iterations_outer=60, max_iterations_total=900)),
 )
 
 
@@ -47,6 +77,13 @@ class CompactedALSolver:
     finish_stalled : tail rounds run with `stalled_feasible_exits=False`
         and treat SOLVED_STALLED as resumable, so feasible-but-stalled
         instances keep escalating the penalty until they converge.
+    f64_polish : after the tail rounds and the restart cascade, re-solve
+        the lanes still unconverged in float64, in two stages
+        (`_POLISH_STAGES`): fresh duals, from the original initial guess,
+        line search 20, stall 10, `stalled_feasible_exits=False`.  Results
+        are cast back to the fleet's dtype and merged.  Certified-infeasible
+        lanes are never polished.
+    polish_batch : lanes per polish solve.
     restart_portfolio : after the tail rounds, re-solve the lanes not
         SOLVED from the original initial guess with fresh duals, under each
         variant in turn, each on the lanes every earlier variant failed
@@ -55,10 +92,16 @@ class CompactedALSolver:
         `max_iterations_total`; only lanes it SOLVES are merged.
     restart_width : lanes per variant's solve (0: `tail_batch`).
     restart_rounds : passes over the variants.
+    detect_infeasible : certify goal-in-obstacle lanes before phase 1
+        (`problem/infeasibility.py`); they never iterate and end INFEASIBLE.
+    infeasible_step_bound : one-step (x, y) travel bound that enables the
+        certificate at knot N-1 (0: knot N only).
 
     After each `solve`, `host_syncs` holds the solve's host
-    synchronisations and `telemetry` the iteration distribution, the
-    lanes each restart variant took and the host syncs of the cascade.
+    synchronisations before its final read-back of statuses and
+    iterations, and `telemetry` the iteration distribution, the lanes each
+    restart variant took, the host syncs of the cascade and, when the
+    polish ran, its lanes, stages and wall time.
     """
 
     def __init__(
@@ -69,20 +112,30 @@ class CompactedALSolver:
         phase1_iters: int = 20,
         tail_batch: int = 1024,
         finish_stalled: bool = True,
+        f64_polish: bool = False,
+        polish_batch: int = 512,
         restart_portfolio: tuple = (),
         restart_width: int = 0,
         restart_rounds: int = 1,
+        detect_infeasible: bool = False,
+        infeasible_step_bound: float = 0.0,
     ):
         if tail_batch <= 0:
             raise ValueError("tail_batch must be positive")
+        if polish_batch <= 0:
+            raise ValueError("polish_batch must be positive")
         self.prob = prob
         self.opts = opts or SolverOptions()
         self.phase1_iters = int(phase1_iters)
         self.tail_batch = int(tail_batch)
         self.finish_stalled = bool(finish_stalled)
+        self.f64_polish = bool(f64_polish)
+        self.polish_batch = int(polish_batch)
         self.restart_portfolio = tuple(restart_portfolio)
         self.restart_width = int(restart_width)
         self.restart_rounds = int(restart_rounds)
+        self.detect_infeasible = bool(detect_infeasible)
+        self.infeasible_step_bound = float(infeasible_step_bound)
         # phases never update duals from a capped (unconverged) inner solve
         p1_opts = self.opts.replace(
             max_iterations_total=min(self.phase1_iters, self.opts.max_iterations_total),
@@ -107,17 +160,31 @@ class CompactedALSolver:
             self._restart = ALSolverBatched(prob, self.opts.replace(
                 reset_duals=False, initial_penalty=0.0, update_duals_on_failed_inner=False,
             ))
+        # one float64 solver per polish stage, on a float64 copy of the
+        # problem: the solver and its kernels take their scalar type from it
+        self._polish = ()
+        if self.f64_polish:
+            prob64 = prob.with_dtype(torch.float64)
+            base = self.opts.replace(
+                line_search_max_iterations=20, max_stall_iterations=10,
+                stalled_feasible_exits=False, reset_duals=True,
+            )
+            self._polish = tuple(ALSolverBatched(prob64, base.replace(**extra)) for _, extra in _POLISH_STAGES)
         self.host_syncs = 0
         self.telemetry: dict = {}
 
     @staticmethod
     def _merge(res, sub, idx, real):
-        """Scatter a tail round's results back into the full-batch result,
-        masked to the real (gathered unconverged) lanes."""
+        """Scatter a sub-solve's results (tail round, restart variant or
+        polish chunk) back into the full-batch result, masked to the real
+        lanes, in the full batch's dtypes: trajectories, AL state, gains,
+        status and scalars replace, the iteration counters add, and the
+        history rows splice after each lane's earlier iterations (rows past
+        the capacity drop)."""
 
         def sel(old, new):
             out = old.clone()
-            out[..., idx] = torch.where(real, new, old[..., idx])
+            out[..., idx] = torch.where(real, new.to(old.dtype), old[..., idx])
             return out
 
         res = dict(res)
@@ -136,10 +203,21 @@ class CompactedALSolver:
             out[idx] += new * real.to(new.dtype)
             return out
 
+        rows = st.rows
+        cap = rows.shape[0]
+        if cap > 0:
+            # row j of lane idx[b] takes the sub-solve's row j - T0[b], with
+            # T0 the lane's iterations before this merge
+            r = torch.arange(cap, device=rows.device)[:, None] - st.iterations_total[idx].long()[None, :]
+            valid = (r >= 0) & (r < su.iterations_total.long()[None, :]) & real[None, :]
+            src = su.rows.gather(0, r.clamp(0, cap - 1)[:, None, :].expand(cap, rows.shape[1], r.shape[1]))
+            rows = rows.clone()
+            rows[..., idx] = torch.where(valid[:, None, :], src.to(rows.dtype), rows[..., idx])
         res["stats"] = st.replace(
             iterations_inner=sel(st.iterations_inner, su.iterations_inner),
             iterations_outer=add(st.iterations_outer, su.iterations_outer),
             iterations_total=add(st.iterations_total, su.iterations_total),
+            rows=rows,
             **{
                 name: sel(getattr(st, name), getattr(su, name))
                 for name in (
@@ -150,10 +228,11 @@ class CompactedALSolver:
         )
         return res
 
-    def _portfolio(self, params, Z0: BatchedTrajectory, res):
+    def _portfolio(self, params, Z0: BatchedTrajectory, res, skip):
         """The fresh-restart cascade over `res`, the tail rounds' result:
-        per variant, the (at most `restart_width`) lanes not SOLVED, from
-        their original initial guess `Z0` with zero duals and the variant's
+        per variant, the (at most `restart_width`) lanes not SOLVED and not
+        in `skip` (the certified-infeasible lanes, or None), from their
+        original initial guess `Z0` with zero duals and the variant's
         initial penalty, under its per-lane options; lanes that come back
         SOLVED are merged.  Returns (res, the real lanes each variant took,
         host syncs): one per variant (its lane count, which also ends the
@@ -166,6 +245,8 @@ class CompactedALSolver:
         for _ in range(self.restart_rounds):
             for variant in self.restart_portfolio:
                 undone = res["status"] != solved
+                if skip is not None:
+                    undone = undone & ~skip
                 order = torch.argsort((~undone).to(torch.int8), stable=True)
                 idx = order[:R]
                 real = undone[idx]
@@ -199,14 +280,39 @@ class CompactedALSolver:
                 res = self._merge(res, sub, idx, real & (sub["status"] == solved))
         return res, lanes, syncs
 
+    def _run_polish(self, solver: ALSolverBatched, params, Z0: BatchedTrajectory, res, lanes: np.ndarray):
+        """Re-solve `lanes` (host indices) with the float64 `solver`, in
+        chunks of `polish_batch`, with fresh duals from their original
+        initial guess `Z0` (a warm start from the failed f32 trajectory
+        converts fewer: its high-penalty shape traps the solve), and merge
+        every chunk's results into `res`.  Returns (res, host syncs)."""
+        dev, f64 = Z0.X.device, torch.float64
+        syncs = 0
+        for start in range(0, len(lanes), self.polish_batch):
+            idx = torch.as_tensor(lanes[start:start + self.polish_batch], dtype=torch.long, device=dev)
+            params_p = gather_params(self.prob.params, params, idx).astype(f64)
+            Z_p = Z0.replace(X=Z0.X[..., idx].to(f64), U=Z0.U[..., idx].to(f64), t=Z0.t.to(f64), h=Z0.h.to(f64))
+            sub = solver.solve(params_p, Z_p)
+            syncs += solver.host_syncs
+            res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
+        return res, syncs
+
     def solve(self, params, Z: BatchedTrajectory, al=None):
         """Same contract as `ALSolverBatched.solve` (batch-last dict)."""
         t0 = time.perf_counter()
-        res = self._p1.solve(params, Z, al)
-        syncs = self._p1.host_syncs
         B = Z.X.shape[-1]
+        infeasible = None
+        if self.detect_infeasible:
+            infeasible = goal_obstacle_certificates(self.prob, params, B, step_bound=self.infeasible_step_bound)
+            res = self._p1.solve(params, Z, al, active=~infeasible)
+        else:
+            res = self._p1.solve(params, Z, al)
+        syncs = self._p1.host_syncs
         K_t = self.tail_batch
+        # certified lanes never resume
         tried = torch.zeros((B,), dtype=torch.bool, device=Z.X.device)
+        if infeasible is not None:
+            tried = tried | infeasible
         rounds = 0
         # enough rounds to cover every lane; a lane that ran an uncapped
         # tail round is terminal.  Once a round gathers no unconverged lane
@@ -229,17 +335,40 @@ class CompactedALSolver:
             tried[idx] |= real
         restart_lanes, restart_syncs = [], 0
         if self._restart is not None:
-            res, restart_lanes, restart_syncs = self._portfolio(params, Z, res)
+            res, restart_lanes, restart_syncs = self._portfolio(params, Z, res, infeasible)
             syncs += restart_syncs
+        if infeasible is not None:
+            res = dict(res, status=torch.where(
+                infeasible, int(SolverStatus.INFEASIBLE), res["status"]).to(torch.int32))
+        # the final read-back, which every solve makes for its telemetry,
+        # also decides the polish; each polish stage reads the statuses again
+        status, it = torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy()
+        polish = []
+        for stage, (solver, (codes, _)) in enumerate(zip(self._polish, _POLISH_STAGES)):
+            bad = np.nonzero(np.isin(status, codes))[0]
+            if bad.size == 0:
+                continue
+            t_p = time.perf_counter()
+            res, s = self._run_polish(solver, params, Z, res, bad)
+            status, it = torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy()
+            syncs += s + 1
+            polish.append(dict(stage=stage, instances=int(bad.size), wall_s=time.perf_counter() - t_p))
         self.host_syncs = syncs
-        it = res["stats"].iterations_total.cpu().numpy()
         self.telemetry = dict(
             tail_rounds=rounds,
             restart_lanes=restart_lanes,
             restart_host_syncs=restart_syncs,
             iters_p50=float(np.percentile(it, 50)),
+            iters_p95=float(np.percentile(it, 95)),
             iters_p99=float(np.percentile(it, 99)),
             iters_max=int(it.max()),
             total_s=time.perf_counter() - t0,
         )
+        if polish:
+            self.telemetry["polish"] = dict(
+                instances=polish[0]["instances"],
+                stages=polish,
+                wall_s=sum(p["wall_s"] for p in polish),
+                solved_after=int((status == int(SolverStatus.SOLVED)).sum()),
+            )
         return res

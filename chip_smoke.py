@@ -9,9 +9,12 @@ in parallel), then:
      PyTorch versions at the main path's shapes (turn-90 parking problem,
      N=100, B=4096, warm random AL state) in float64 and float32, and times
      both;
-  2. drives the main path — `CompactedALSolver` with the fused backward and
-     forward kernels over a B=4096 perturbed parking fleet in float32 — and
-     checks that both kernels ran, lane 0 and >= 99% of lanes SOLVED;
+  2. drives the main path, `bench.make_solver`'s program — `CompactedALSolver`
+     with the fused backward and forward kernels and the float64 polish over
+     a B=4096 perturbed parking fleet in float32 — after one instrumented
+     solve with the iteration history on (statuses and U bit for bit with
+     the production solve, iteration quantiles from its rows), and checks
+     that both kernels ran, lane 0 and >= 99% of lanes SOLVED;
   3. checks parity: float32 control parity against the f64 reference solve
      at constraint tolerance 1e-6, through the fused kernels (<= 1e-3) and
      through the Riccati kernel, and the float64 kernels against the
@@ -38,8 +41,11 @@ in parallel), then:
      f32) through the fused kernels' circle rows: the rows against the
      plain version bit for bit, both kernels against their plain versions
      at the obstacle problem's shapes, the fleet in both of the script's
-     modes (f32_throughput, and complete with its restart cascade), every
-     SOLVED lane clear of every obstacle;
+     modes (f32_throughput, and complete with its restart cascade) and in
+     f32_throughput mode with the float64 polish on the fused kernels'
+     float64 instantiations (every polished lane ending as the JAX
+     package's polish ends it, lanes SOLVED before the polish untouched bit
+     for bit), every SOLVED lane clear of every obstacle;
  11. drives the randomized three-obstacle fleet (perf/benchmark_randomized.py,
      B=4096, f32_throughput: per-lane x0, obstacle layouts, goals and
      tracking costs) through the fused kernels' lane-params
@@ -47,8 +53,11 @@ in parallel), then:
      shapes, per-lane leaves broadcast from the shared values bit for bit
      with the shared launch, a permutation of the lanes bit for bit, the
      cartpole's and the quadrotor's per-lane dynamics params against
-     plain, and the fleet's solve, every SOLVED lane clear of its own
-     obstacles and at its own goal;
+     plain, and the fleet's solve in f32_throughput mode and in the
+     script's complete mode (restart cascade, infeasibility certificates:
+     none certified, >= 95% SOLVED), every SOLVED lane clear of its own
+     obstacles and at its own goal; the certificates on the card flag
+     exactly the lanes whose goal was moved into an obstacle;
  12. solves the zoo's and the obstacle fleet's first 512 lanes on the
      plain path, all in processes of their own at once, and holds steps 9
      and 10 against them.
@@ -90,6 +99,7 @@ BENCH_OPT_KW = dict(
 )
 PHASE1_ITERS = 14
 TAIL_BATCH = 1024
+HISTORY_CAPACITY = 96  # bench.py's instrumented solve
 PARITY_BATCH = 1024
 ZOO_BATCH = 2048
 ZOO_PLAIN_LANES = 512  # lanes are independent; the plain path solves these
@@ -117,12 +127,19 @@ OBST_RESTART = dict(
     restart_rounds=1,
 )
 OBST_RAGGED_B = 1001  # a width whose last block of 8 lanes is part-empty
-OBST_REPS = 3  # timed solves of each obstacle-fleet mode after its warm-up
+OBST_REPS = 2  # timed solves of each obstacle-fleet mode after its warm-up (3 before the polish step came)
+# the JAX package's float64 polish of every lane of the fleet, each stage
+# from a fresh start (tests/_torch_polish_check.py writes it on the CPU)
+OBST_POLISH_GOLDEN = os.path.join(ROOT, "tests", "goldens", "obstacle_fleet_polish_jax_f64.npz")
 # the plain path's comparison: the first 512 lanes in f32_throughput mode,
 # in 4 processes of 128 lanes.  On 512 lanes in one process that solve took
 # 440 s (177 lockstep iterations of eager ops, up to 20 rollouts a line
 # search; H100 700 W); the complete mode's cascade adds variants capped at
-# 300, 900 and 1,100 iterations, more than this script's time limit
+# 300, 900 and 1,100 iterations, more than this script's time limit.  A
+# process's time is set by its slowest lane's lockstep iterations, each a
+# few thousand launches from the host, not by its lane count: 8 processes
+# of 64 beside the zoo's split into 4 (13 processes on the host's 8 cores)
+# finished no solve within PLAIN_TIMEOUT_S (H100 700 W; PERF.md section 6)
 OBST_PLAIN_MODE = "f32_throughput"
 OBST_PLAIN_LANES = 512
 OBST_PLAIN_PROCS = 4
@@ -131,12 +148,30 @@ CLEARANCE_MIN = -1e-3  # metres (example_unicycle_test.cpp:76-83)
 # f32_throughput mode: the obstacle fleet's solver and options, :138-145),
 # per-lane leaves drawn from seed 0 (models.problems.randomized_fleet)
 RAND_SEED = 0
-# timed solves after one warm-up, median reported: 3, not the script's 5,
-# to keep chip_smoke within its time limit (a solve takes 26-44 s on an
-# H100's host, PERF.md)
-RAND_REPS = 3
+# timed solves after one warm-up, median reported: 2, not the script's 5,
+# to keep chip_smoke within its time limit (a solve takes 20-44 s on an
+# H100's host, and the complete mode's one solve 69-90 s; PERF.md)
+RAND_REPS = 2
 RAND_SOLVED_MIN = 0.65  # the JAX package's record on this data: 2913/4096 (perf/benchmark_randomized.out)
 RAND_DYN_SEED = 9  # the per-lane dynamics params' scales (part 2)
+# the script's complete mode (perf/benchmark_randomized.py:110-137): the
+# restart cascade of four variants, certificates with the unicycle's
+# one-step travel v_max·h as the step bound, the total cap 120; its solver
+# has no polish (:141)
+RAND_COMPLETE = dict(
+    restart_portfolio=(
+        dict(),
+        dict(penalty_scaling=4.0, max_iterations_outer=60, max_iterations_total=900),
+        dict(penalty_scaling=2.0, max_iterations_outer=100, max_iterations_total=1000),
+        dict(penalty_scaling=1.5, max_iterations_outer=150, max_iterations_total=1600),
+    ),
+    restart_width=1024,
+    restart_rounds=1,
+    detect_infeasible=True,
+)
+RAND_COMPLETE_MAX_TOTAL = 120
+RAND_COMPLETE_SOLVED_MIN = 0.95  # JAX on a TPU on the same draws: 98.02% (perf/benchmark_randomized.out)
+RAND_CERT_LANES = 16  # lanes whose goal the certificate check moves into an obstacle
 SCALING_B = (1024, 2048, 4096, 16384)  # batch widths of the kernel_scaling phase
 SCALING_REPS = 10
 GOLDEN_J = 0.03893465058924039  # auglag_test.cpp:346-349 (tol 1e-6 solve)
@@ -494,20 +529,50 @@ def phase_kernels(dev) -> dict:
     return summary
 
 
+def bench_solver(prob, **opt_kw):
+    """bench.make_solver's program on the port: `CompactedALSolver` with
+    the bench options (and `opt_kw` over them), phase 1 capped at
+    PHASE1_ITERS, tail rounds of TAIL_BATCH lanes and the float64 polish
+    (`bench.py:100-129`; its device_tail is the JAX package's own)."""
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.solver.compaction import CompactedALSolver
+
+    opts = SolverOptions(**BENCH_OPT_KW).replace(**opt_kw)
+    return CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, f64_polish=True)
+
+
+def polish_kernels(solver) -> list:
+    """The float64 kernels of a CompactedALSolver's polish stages."""
+    return [k for s in solver._polish for k in (s._bwd, s._fwd)]
+
+
+def polish_launches(solver) -> dict:
+    """Each fused kernel's launches in a CompactedALSolver's polish stages."""
+    return dict(backward_fused=sum(s._bwd.launches for s in solver._polish),
+                forward=sum(s._fwd.launches for s in solver._polish))
+
+
 def phase_main_path(dev) -> dict:
-    """CompactedALSolver with the bench options over the B=4096 fleet, f32."""
+    """bench.py's program over the B=4096 parking fleet, f32
+    (`bench.py:main`): first one instrumented solve with the iteration
+    history on (HISTORY_CAPACITY rows), then the production solve as the
+    warm-up, whose statuses and U the instrumented solve must equal bit for
+    bit (`bench.py:241-251`, U added here), then 5 timed solves with every
+    kernel's count set to 0 before them.  The iteration quantiles come from
+    the history rows, each lane's count of valid rows equal to its
+    iterations (capped at the capacity).  The float64 polish is on, as in
+    bench.make_solver; its lanes and kernel launches are reported (the
+    parking fleet solves 4096/4096 before it, PERF.md)."""
     import torch
 
-    from altro_tpu_torch import SolverOptions, SolverStatus
+    from altro_tpu_torch import SolverStatus
     from altro_tpu_torch.models.problems import UnicycleProblem
-    from altro_tpu_torch.solver.compaction import CompactedALSolver
 
     dtype = torch.float32
     defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
     prob = defn.make_problem().compile()
-    solver = CompactedALSolver(
-        prob, SolverOptions(**BENCH_OPT_KW), phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH
-    )
+    solver = bench_solver(prob)
+    instrumented = bench_solver(prob, iteration_history_capacity=HISTORY_CAPACITY)
     # bench.make_batch: x0 uniform in ±0.1 from default_rng(0), lane 0 canonical
     rng = np.random.default_rng(0)
     x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(3, B_FLEET)), device=dev).to(dtype)
@@ -516,12 +581,24 @@ def phase_main_path(dev) -> dict:
     Zb = fleet_trajectory(defn, B_FLEET)
     kernels = [solver._p1._bwd, solver._p1._fwd, solver._tail._bwd, solver._tail._fwd]
     assert all(k is not None for k in kernels), "the main path did not select the CUDA kernels"
+    polish = polish_kernels(solver)
+    assert all(k is not None and k.dtype == torch.float64 for k in polish), "the polish has no float64 kernels"
 
+    t0 = time.perf_counter()
+    res_hist = instrumented.solve(params, Zb)
+    _sync()
+    hist_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = solver.solve(params, Zb)  # warm-up: builds nothing further, fills caches
     _sync()
     warm_s = time.perf_counter() - t0
-    for k in kernels:
+    same_status = bool(torch.equal(res_hist["status"], res["status"]))
+    same_U = bitwise([res_hist["Z"].U], [res["Z"].U])
+    rows = res_hist["stats"].rows  # [HISTORY_CAPACITY, 8, B]
+    valid = (rows != 0).any(dim=1).sum(dim=0)
+    rows_ok = bool(torch.equal(valid, res_hist["stats"].iterations_total.clamp(max=HISTORY_CAPACITY).long()))
+    it_rows = valid.cpu().numpy()
+    for k in kernels + polish:
         k.launches = 0
     walls, syncs = [], []
     for _ in range(5):
@@ -533,6 +610,7 @@ def phase_main_path(dev) -> dict:
     launches = dict(
         backward_fused=solver._p1._bwd.launches + solver._tail._bwd.launches,
         forward=solver._p1._fwd.launches + solver._tail._fwd.launches,
+        polish=polish_launches(solver),
     )
     status = res["status"].cpu().numpy()
     hist = {SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))}
@@ -545,6 +623,11 @@ def phase_main_path(dev) -> dict:
         solved_frac=solved / B_FLEET,
         iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)),
         iters_max=int(it.max()), host_syncs_per_solve=syncs, tail_rounds=solver.telemetry["tail_rounds"],
+        polish=solver.telemetry.get("polish"),
+        history=dict(capacity=HISTORY_CAPACITY, wall_s=hist_s, host_syncs=instrumented.host_syncs,
+                     statuses_equal=same_status, U_bitwise=same_U, rows_equal_iterations=rows_ok,
+                     iters_p50=float(np.percentile(it_rows, 50)), iters_p95=float(np.percentile(it_rows, 95)),
+                     iters_p99=float(np.percentile(it_rows, 99))),
         warmup_s=warm_s, wall_s_reps=walls, wall_s_median=wall,
         solves_per_s=B_FLEET / wall, launches_5_solves=launches,
         lane0_cost=float(res["stats"].cost[0]),
@@ -553,6 +636,9 @@ def phase_main_path(dev) -> dict:
     assert tuple(U.shape) == (N, 2, B_FLEET) and tuple(X.shape) == (N + 1, 3, B_FLEET)
     assert bool(torch.isfinite(U).all()) and bool(torch.isfinite(X).all()), "non-finite result"
     assert launches["backward_fused"] > 0 and launches["forward"] > 0, launches
+    assert same_status and same_U, "the instrumented solve diverged from the production solve"
+    assert rows_ok, "a lane's history rows differ from its iteration count"
+    assert instrumented.host_syncs == syncs[0], "the history added host syncs"
     assert int(status[0]) == int(SolverStatus.SOLVED), "lane 0 not SOLVED"
     assert solved >= 0.99 * B_FLEET, f"only {solved}/{B_FLEET} SOLVED"
     return launches
@@ -1167,12 +1253,13 @@ def phase_zoo(dev) -> dict:
     return run_plain([zoo_part(dev)])["zoo"]
 
 
-def obstacle_solver(mode, path, dev):
+def obstacle_solver(mode, path, dev, **solver_kw):
     """perf/benchmark_obstacles.py's solver in `mode` ("f32_throughput" or
     "complete"): `CompactedALSolver(phase1_iters=PHASE1_ITERS,
     tail_batch=TAIL_BATCH)` on the bench options with the script's
     overrides, f32, and in complete mode its restart cascade; `path`
-    "kernels" keeps both fused kernels, "plain" runs the eager passes.
+    "kernels" keeps both fused kernels, "plain" runs the eager passes;
+    `solver_kw` (f64_polish) goes to the solver as well.
     Returns (solver, problem definition, compiled problem)."""
     import torch
 
@@ -1185,7 +1272,7 @@ def obstacle_solver(mode, path, dev):
     opts = SolverOptions(**BENCH_OPT_KW).replace(**OBST_OPT_KW)
     if path == "plain":
         opts = opts.replace(backward_pass="scan", forward_pass="scan")
-    kw = OBST_RESTART if mode == "complete" else {}
+    kw = dict(OBST_RESTART if mode == "complete" else {}, **solver_kw)
     solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, **kw)
     return solver, defn, prob
 
@@ -1425,12 +1512,76 @@ def obstacle_fleet_run(dev) -> dict:
         assert out["finite"], f"{mode}: non-finite result"
         assert launches["backward_fused"] > 0 and launches["forward"] > 0 and launches["riccati"] == 0, launches
         assert float(clr[solved].min()) >= CLEARANCE_MIN, f"{mode}: a SOLVED lane enters an obstacle"
-        runs[mode] = dict(out, launches=launches)
+        runs[mode] = dict(out, launches=launches, U=res["Z"].U.cpu())
     status = runs["complete"]["status"]
     assert int(status[0]) == int(SolverStatus.SOLVED), "complete mode: lane 0 not SOLVED"
     frac = float((status == int(SolverStatus.SOLVED)).mean())
     assert frac >= 0.99, f"complete mode: {frac:.4f} SOLVED"
     return runs
+
+
+def obstacle_polish_run(dev, base) -> dict:
+    """Step 4 of phase_obstacles: the fleet in f32_throughput mode with the
+    float64 polish (the JAX package's f64 complete mode), one solve on the
+    built kernels, every kernel's count set to 0 before it.  `base` is
+    step 3's f32_throughput run, the same program before its polish.
+    Returns each fused kernel's float64 launches in the solve."""
+    import torch
+
+    from altro_tpu_torch import SolverStatus
+    from altro_tpu_torch.solver.compaction import _HARD, _POLISH_STAGES
+
+    solver, defn, prob = obstacle_solver("f32_throughput", "kernels", dev, f64_polish=True)
+    kerns = obstacle_kernels(solver)
+    f64 = polish_kernels(solver)
+    assert all(k is not None and k.dtype == torch.float64 for k in f64), "the polish has no float64 kernels"
+    params = prob.params.replace(x0=torch.as_tensor(obstacle_x0s(B_FLEET), device=dev).float())
+    for k in f64 + [k for ks in kerns.values() for k in ks if k is not None]:
+        k.launches = 0
+    t0 = time.perf_counter()
+    res = solver.solve(params, fleet_trajectory(defn, B_FLEET))
+    _sync()
+    wall = time.perf_counter() - t0
+    f64_launches = polish_launches(solver)
+    out = obstacle_outcome(solver, defn, params, res, OBST_PLAIN_LANES)
+    status, clr = out["status"], out["clearance"]
+    solved = status == int(SolverStatus.SOLVED)
+    before = base["status"]
+    took = np.isin(before, _POLISH_STAGES[0][0])
+    stage0 = int(took.sum())
+    # what the JAX package's polish does to the same lanes
+    g = np.load(OBST_POLISH_GOLDEN)
+    hard0 = np.isin(g["stage0"], _HARD)
+    ref = np.where(hard0, g["stage1"], g["stage0"]).astype(int)
+    differ = np.nonzero(took & (status != ref))[0]
+    ref_stages = [stage0, int((took & hard0).sum())]
+    kept = before == int(SolverStatus.SOLVED)
+    untouched = bool((status[kept] == before[kept]).all()) and bitwise(
+        [res["Z"].U.cpu()[..., torch.as_tensor(kept)]], [base["U"][..., torch.as_tensor(kept)]])
+    tel = solver.telemetry.get("polish")
+    emit(dict(
+        phase="obstacles_polish", mode="f32_throughput+f64_polish", path="kernels", B=B_FLEET, N=N,
+        status_hist={SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))},
+        solved_frac=float(solved.mean()), wall_s=wall, host_syncs=solver.host_syncs,
+        stage0_lanes_before=stage0, polish=tel, f64_launches=f64_launches,
+        f32_launches={name: _launches(ks) for name, ks in kerns.items()},
+        iters_p50=solver.telemetry["iters_p50"], iters_p95=solver.telemetry["iters_p95"],
+        iters_p99=solver.telemetry["iters_p99"], iters_max=solver.telemetry["iters_max"],
+        solved_before_untouched=untouched, solved_min_clearance_m=float(clr[solved].min()),
+        # the polished lanes and their statuses, for holding them against
+        # the JAX package's polish of the same lanes on the CPU
+        polished_lanes=np.nonzero(took)[0].tolist(), polished_status=status[took].tolist(),
+        jax_stage_lanes=ref_stages, lanes_unlike_jax=differ.tolist(),
+        jax_solved_frac=float((np.where(took, ref, status) == int(SolverStatus.SOLVED)).mean()),
+    ))
+    assert out["finite"], "obstacles polish: non-finite result"
+    assert tel is not None and tel["instances"] == stage0, (tel, stage0)
+    assert [s["instances"] for s in tel["stages"]] == [n for n in ref_stages if n], (tel["stages"], ref_stages)
+    assert min(f64_launches.values()) > 1, f64_launches
+    assert differ.size == 0, f"polish: lanes {differ.tolist()} end unlike the JAX package's polish"
+    assert float(clr[solved].min()) >= CLEARANCE_MIN, "polish: a SOLVED lane enters an obstacle"
+    assert untouched, "polish: a lane SOLVED before the polish changed"
+    return f64_launches
 
 
 def obstacles_part(dev):
@@ -1451,7 +1602,15 @@ def obstacles_part(dev):
          both of the script's modes, f32_throughput and complete (its
          restart cascade): a warm-up and OBST_REPS timed solves each, the
          kernels' counts set to 0 before the timed solves;
-      4. the fleet's first OBST_PLAIN_LANES lanes on the plain path (eager
+      4. one solve in f32_throughput mode with the float64 polish
+         (obstacle_polish_run): the polish takes the lanes step 3 left
+         with its stage-0 codes, on the fused kernels' float64
+         instantiations (each launched more than once); each stage takes
+         the lanes, and every polished lane ends with the status, that the
+         JAX package's float64 polish gives it (OBST_POLISH_GOLDEN); every
+         lane SOLVED before the polish keeps its status and U bit for bit
+         (tests/test_f64_polish.py:85-91);
+      5. the fleet's first OBST_PLAIN_LANES lanes on the plain path (eager
          passes, on the card) in OBST_PLAIN_MODE, split over
          OBST_PLAIN_PROCS processes that run_plain runs after the kernel
          solves (the lanes are independent), held to
@@ -1462,11 +1621,13 @@ def obstacles_part(dev):
     obstacle by CLEARANCE_MIN at every knot (example_unicycle_test.cpp:
     76-83), that lane 0 is SOLVED and >= 99% of lanes are in complete
     mode.  Returns (step 2's f32 summary, run_plain's part, whose check
-    returns each kernel's launches per solve in each mode)."""
+    returns each kernel's launches per solve in each mode, and its float64
+    launches in step 4's solve under "polish_f64")."""
     from altro_tpu_torch import SolverStatus
 
     summary = obstacle_kernels_vs_plain(dev)
     runs = obstacle_fleet_run(dev)
+    polish = obstacle_polish_run(dev, runs["f32_throughput"])
     L, P = OBST_PLAIN_LANES, OBST_PLAIN_PROCS
     x0s = obstacle_x0s(B_FLEET)[:, :L]
     jobs = [(("obstacles", i), obstacle_plain_solve, (OBST_PLAIN_MODE, x0s[:, i * L // P:(i + 1) * L // P]))
@@ -1501,7 +1662,7 @@ def obstacles_part(dev):
             "plain: a SOLVED lane enters an obstacle")
         assert abs(rate_k - rate_p) <= 0.02, (rate_k, rate_p)
         assert both.any() and float(np.median(relj)) < 2e-2, float(np.median(relj)) if both.any() else None
-        return {mode: r["launches"] for mode, r in runs.items()}
+        return dict({mode: r["launches"] for mode, r in runs.items()}, polish_f64=polish)
 
     return summary, ("obstacles", jobs, check)
 
@@ -1720,6 +1881,94 @@ def randomized_fleet_run(dev) -> dict:
     return launches
 
 
+def randomized_complete_run(dev) -> dict:
+    """Part 4 of phase_randomized; returns each kernel's launches in the
+    solve."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions, SolverStatus
+    from altro_tpu_torch.models.problems import THREE_OBSTACLES, UnicycleProblem, randomized_fleet
+    from altro_tpu_torch.solver.compaction import CompactedALSolver
+
+    defn = UnicycleProblem(scenario=THREE_OBSTACLES, dtype=torch.float32, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    step_bound = float(defn.v_bnd * defn.tf / defn.N)
+    opts = SolverOptions(**BENCH_OPT_KW).replace(**OBST_OPT_KW, max_iterations_total=RAND_COMPLETE_MAX_TOTAL)
+    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH,
+                               infeasible_step_bound=step_bound, **RAND_COMPLETE)
+    kerns = obstacle_kernels(solver)
+    params, obstacles, xf = randomized_fleet(defn, prob, B_FLEET, seed=RAND_SEED)
+    assert all(k is not None and k.takes(params) for k in kerns["backward_fused"] + kerns["forward"]), (
+        "the fused kernels refused the randomized fleet")
+    for ks in kerns.values():
+        for k in ks:
+            if k is not None:
+                k.launches = 0
+    t0 = time.perf_counter()
+    res = solver.solve(params, fleet_trajectory(defn, B_FLEET))
+    _sync()
+    wall = time.perf_counter() - t0
+    launches = {name: _launches(ks) for name, ks in kerns.items()}
+    X = res["Z"].X
+    status = res["status"].cpu().numpy()
+    it = res["stats"].iterations_total.cpu().numpy()
+    solved = status == int(SolverStatus.SOLVED)
+    clr = clearance(X, obstacles)
+    goal_err = (X[-1].double() - torch_f64(xf, X.device)).abs().amax(dim=0).cpu().numpy()
+    tol_goal = solver.opts.constraint_tolerance
+    n_infeasible = int((status == int(SolverStatus.INFEASIBLE)).sum())
+    emit(dict(
+        phase="randomized_fleet", mode="complete", path="kernels", B=B_FLEET, N=N, dtype="f32",
+        status_hist={SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))},
+        solved_frac=float(solved.mean()), infeasible=n_infeasible, step_bound=step_bound, wall_s=wall,
+        solves_per_s=B_FLEET / wall, host_syncs=solver.host_syncs, launches=launches,
+        restart_lanes=solver.telemetry["restart_lanes"], restart_host_syncs=solver.telemetry["restart_host_syncs"],
+        tail_rounds=solver.telemetry["tail_rounds"], iters_p50=float(np.percentile(it, 50)),
+        iters_p99=float(np.percentile(it, 99)), iters_max=int(it.max()),
+        solved_min_clearance_m=float(clr[solved].min()) if solved.any() else None,
+        solved_goal_err_max=float(goal_err[solved].max()) if solved.any() else None, goal_tolerance=tol_goal,
+    ))
+    assert bool(torch.isfinite(X).all() and torch.isfinite(res["Z"].U).all()), "complete mode: non-finite result"
+    assert launches["backward_fused"] > 0 and launches["forward"] > 0 and launches["riccati"] == 0, launches
+    assert n_infeasible == 0, f"{n_infeasible} lanes certified infeasible on a feasible sampler"
+    assert float(solved.mean()) >= RAND_COMPLETE_SOLVED_MIN, f"complete mode: {float(solved.mean()):.4f} SOLVED"
+    assert float(clr[solved].min()) >= CLEARANCE_MIN, "complete mode: a SOLVED lane enters one of its obstacles"
+    assert float(goal_err[solved].max()) <= tol_goal, "complete mode: a SOLVED lane ends away from its goal"
+    randomized_certificates(dev, defn, prob, step_bound)
+    return launches
+
+
+def randomized_certificates(dev, defn, prob, step_bound) -> None:
+    """The certificates on the card: the randomized fleet with the goals of
+    RAND_CERT_LANES lanes moved to the centre of their own first obstacle.
+    `goal_obstacle_certificates` on the card flags exactly those lanes,
+    and equals a numpy evaluation of its rule (a circle family at knot
+    N-1: some obstacle with |xf − c| < r − step_bound)."""
+    import torch
+
+    from altro_tpu_torch.models.problems import randomized_fleet
+    from altro_tpu_torch.problem.infeasibility import goal_obstacle_certificates
+
+    params, (cx, cy, r), xf = randomized_fleet(defn, prob, B_FLEET, seed=RAND_SEED)
+    lanes = np.random.default_rng(11).choice(B_FLEET, RAND_CERT_LANES, replace=False)
+    xf = xf.copy()
+    xf[0, lanes], xf[1, lanes] = cx[0, lanes], cy[0, lanes]
+    gi = [f.constraint.structure[0] for f in prob.constraint_families].index("goal")
+    cons = list(params.constraints)
+    cons[gi] = dict(cons[gi], xf=torch.as_tensor(xf, device=dev).float())
+    mask = goal_obstacle_certificates(prob, params.replace(constraints=tuple(cons)), B_FLEET, step_bound)
+    got = mask.cpu().numpy()
+    x, y, cx, cy, r = (a.astype(np.float32).astype(np.float64) for a in (xf[0], xf[1], cx, cy, r))  # the card's inputs
+    rule = (np.sqrt((x - cx) ** 2 + (y - cy) ** 2) < r - step_bound).any(axis=0)
+    want = np.zeros(B_FLEET, bool)
+    want[lanes] = True
+    emit(dict(phase="randomized_certificates", B=B_FLEET, moved=sorted(lanes.tolist()), device=str(mask.device),
+              flagged=int(got.sum()), equals_moved=bool((got == want).all()), equals_numpy=bool((got == rule).all())))
+    assert mask.device.type == "cuda" and mask.dtype == torch.bool
+    assert (got == want).all(), "the certificates do not flag exactly the moved lanes"
+    assert (got == rule).all(), "the certificates differ from the numpy rule"
+
+
 def phase_randomized(dev) -> tuple:
     """The randomized three-obstacle fleet (perf/benchmark_randomized.py,
     BASELINE config 5): per-lane x0, obstacle layouts (cx, cy, r [3, B]),
@@ -1744,15 +1993,24 @@ def phase_randomized(dev) -> tuple:
          asserting both kernels ran with the six per-lane leaves, every
          SOLVED lane clear of its own circles by CLEARANCE_MIN at every
          knot and within the goal constraint's tolerance of its own goal,
-         and at least RAND_SOLVED_MIN SOLVED.
-    Returns (part 1's f32 summary, each kernel's launches per solve)."""
+         and at least RAND_SOLVED_MIN SOLVED;
+      4. the script's complete mode (RAND_COMPLETE: the restart cascade,
+         the certificates with the step bound v_max·h, total cap 120) on
+         the kernels' lane-params instantiations: one solve on the built
+         kernels, the counts set to 0 before it, asserting no lane
+         certified infeasible (the sampler is feasible by construction),
+         at least RAND_COMPLETE_SOLVED_MIN SOLVED and part 3's clearance
+         and goal checks; then the certificates on the card
+         (randomized_certificates).
+    Returns (part 1's f32 summary, each kernel's launches per solve in
+    part 3, its launches in part 4's solve)."""
     import torch
 
     summary = randomized_kernels_vs_plain(dev)
     for dtype in (torch.float64, torch.float32):
         for name, key in (("cartpole", "mass_pole"), ("quadrotor", "J")):
             zoo_kernels_vs_plain(dev, name, dtype, np.random.default_rng(0), lane_key=key)
-    return summary, randomized_fleet_run(dev)
+    return summary, randomized_fleet_run(dev), randomized_complete_run(dev)
 
 
 def scaling_fleet(name, B, dev, dtype=None):
@@ -2063,7 +2321,7 @@ def main(argv) -> int:
         ]
         emit(dict(
             phase="env", card=card, torch=torch.__version__, cuda=torch.version.cuda,
-            device=torch.cuda.get_device_name(0), build_s=lib.build_seconds, load_s=load_s,
+            device=torch.cuda.get_device_name(0), cpus=os.cpu_count(), build_s=lib.build_seconds, load_s=load_s,
             ptxas=ptxas, ptxas_riccati=ptxas_riccati(lib.build_log),
         ))
         seconds = {}
@@ -2071,7 +2329,9 @@ def main(argv) -> int:
         def timed(fn, *extra):
             t0 = time.perf_counter()
             out = fn(dev, *extra)
-            seconds[fn.__name__.removeprefix("phase_")] = time.perf_counter() - t0
+            name = fn.__name__.removeprefix("phase_")
+            seconds[name] = time.perf_counter() - t0
+            emit(dict(phase="phase_seconds", name=name, s=seconds[name]))  # read where a run is cut
             return out
 
         if only:
@@ -2092,7 +2352,7 @@ def main(argv) -> int:
         timed(phase_profile)
         zoo = timed(zoo_part)
         obst_kern, obst = timed(obstacles_part)
-        rand_kern, rand_launches = timed(phase_randomized)
+        rand_kern, rand_launches, complete_launches = timed(phase_randomized)
 
         def plain_stage(_dev):
             """The zoo's and the obstacle fleet's plain solves, together,
@@ -2107,13 +2367,17 @@ def main(argv) -> int:
         return 1
     print(card)
     # each kernel's launches on the paths that run it: the fused kernels on
-    # the main path (5 solves), the zoo and the obstacle fleet's two modes
-    # (per solve), the Riccati kernel on backward_pass="pallas" (3 solves)
+    # the main path (5 solves; its float64 polish apart), the zoo and the
+    # obstacle fleet's two modes (per solve), the float64 polish of the
+    # obstacle fleet and the randomized fleet's complete mode (one solve
+    # each), the Riccati kernel on backward_pass="pallas" (3 solves)
     by_path = {
-        name: dict(main_path=main_launches[name], riccati_path=ric_launches[name],
+        name: dict(main_path=main_launches[name], main_path_polish=main_launches["polish"][name],
+                   riccati_path=ric_launches[name],
                    **{f"zoo_{z}_per_solve": zoo_launches[z][name] for z in zoo_launches},
                    **{f"obstacles_{mode}_per_solve": obst_launches[mode][name] for mode in obst_launches},
-                   randomized_f32_throughput_per_solve=rand_launches[name])
+                   randomized_f32_throughput_per_solve=rand_launches[name],
+                   randomized_complete_per_solve=complete_launches[name])
         for name in ("backward_fused", "forward")
     }
     by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])

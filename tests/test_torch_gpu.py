@@ -664,3 +664,97 @@ def test_fused_kernels_match_plain_with_per_lane_dynamics(problem, key, dtype):
     Z = ALSolverBatched(prob, SolverOptions()).rollout(params, Z)
     assert len(BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev).param_sig(params)) == 1
     _hold_fused_kernels(problem, dtype, dev, prob, params, Z, al)
+
+
+def test_polish_on_the_kernels_matches_the_plain_passes():
+    """The compacted solver with the float64 polish on a float64 obstacle
+    fleet whose total cap of 20 leaves a residue for both polish stages
+    (N=20, B=16, as tests/test_torch_polish.py): on the fused kernels
+    (their float64 instantiations in phase 1, the tail and the polish)
+    and on the plain passes, on the card.  The polish takes the same lanes
+    per stage; statuses and iterations are equal and U within 1e-8."""
+    dev = _device()
+    Bp = 16
+    defn = UnicycleProblem(scenario="three_obstacles", dtype=torch.float64, device=dev, N=20)
+    prob = defn.make_problem().compile()
+    x0 = np.random.default_rng(1).uniform(-0.3, 0.3, (3, Bp))
+    x0[:, 0] = 0.0
+    params = prob.params.replace(x0=torch.as_tensor(x0, device=dev))
+    opts = dict(initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
+                max_iterations_total=20)
+    out, tel = {}, {}
+    for kind, kw in (("plain", {}), ("kernels", dict(backward_pass="fused", forward_pass="cuda"))):
+        comp = CompactedALSolver(prob, SolverOptions(**opts, **kw), phase1_iters=8, tail_batch=8,
+                                 f64_polish=True, polish_batch=3)
+        out[kind] = comp.solve(params, _fleet_Z(defn, Bp))
+        tel[kind] = [(s["stage"], s["instances"]) for s in comp.telemetry["polish"]["stages"]]
+        if kind == "kernels":
+            assert all(s._bwd is not None and s._bwd.launches > 0 and s._fwd.launches > 0 for s in comp._polish)
+    assert tel["kernels"] == tel["plain"] and tel["plain"][0][1] > 3
+    assert torch.equal(out["kernels"]["status"], out["plain"]["status"])
+    assert torch.equal(out["kernels"]["stats"].iterations_total, out["plain"]["stats"].iterations_total)
+    np.testing.assert_allclose(out["kernels"]["Z"].U.cpu().numpy(), out["plain"]["Z"].U.cpu().numpy(),
+                               rtol=0, atol=1e-8)
+
+
+def test_history_on_the_kernels_changes_no_decision():
+    """bench.make_solver's program on the kernels (float32 parking fleet,
+    B=1001, bench options, float64 polish) with the iteration history at
+    capacity 96 and without: statuses, iterations and U bit for bit, the
+    same host syncs, and each lane's count of valid rows equal to its
+    iterations."""
+    dev = _device()
+    Bh = 1001
+    defn = UnicycleProblem(dtype=torch.float32, device=dev, N=100)
+    prob = defn.make_problem().compile()
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.1, 0.1, (3, Bh)), device=dev).float()
+    params = prob.params.replace(x0=x0)
+    bench = dict(backward_pass="fused", forward_pass="cuda", line_search_max_iterations=6, max_stall_iterations=3)
+    res, syncs = {}, {}
+    for cap in (0, 96):
+        comp = CompactedALSolver(prob, SolverOptions(**bench, iteration_history_capacity=cap),
+                                 phase1_iters=14, tail_batch=1024, f64_polish=True)
+        res[cap] = comp.solve(params, _fleet_Z(defn, Bh))
+        syncs[cap] = comp.host_syncs
+        assert comp._p1._bwd.launches > 0 and comp._p1._fwd.launches > 0
+    assert syncs[0] == syncs[96]
+    assert torch.equal(res[0]["status"], res[96]["status"])
+    assert torch.equal(res[0]["stats"].iterations_total, res[96]["stats"].iterations_total)
+    assert torch.equal(res[0]["Z"].U.view(torch.int32), res[96]["Z"].U.view(torch.int32))
+    rows = res[96]["stats"].rows
+    assert tuple(rows.shape) == (96, 8, Bh)
+    valid = (rows != 0).any(dim=1).sum(dim=0)
+    assert torch.equal(valid, res[96]["stats"].iterations_total.clamp(max=96).long())
+
+
+def test_certificates_on_the_card_equal_the_cpu():
+    """`goal_obstacle_certificates` on the randomized fleet (B=4096, per-lane
+    goals and obstacle layouts, float32) with 16 goals moved into their own
+    first obstacle: the mask on the card equals the mask of the same params
+    on the CPU, with and without the step bound v_max·h."""
+    from altro_tpu_torch.models.problems import randomized_fleet
+    from altro_tpu_torch.problem.infeasibility import goal_obstacle_certificates
+
+    dev = _device()
+    Bc = 4096
+    defn = UnicycleProblem(scenario="three_obstacles", dtype=torch.float32, device=dev)
+    prob = defn.make_problem().compile()
+    params, (cx, cy, _), xf = randomized_fleet(defn, prob, Bc, seed=2)
+    lanes = np.random.default_rng(3).choice(Bc, 16, replace=False)
+    xf = xf.copy()
+    xf[0, lanes], xf[1, lanes] = cx[0, lanes], cy[0, lanes]
+    gi = [f.constraint.structure[0] for f in prob.constraint_families].index("goal")
+    cons = list(params.constraints)
+    cons[gi] = dict(cons[gi], xf=torch.as_tensor(xf, device=dev).float())
+    params = params.replace(constraints=tuple(cons))
+    on_cpu = params.replace(
+        x0=params.x0.cpu(),
+        constraints=tuple({k: v.cpu() for k, v in c.items()} for c in params.constraints),
+    )
+    for step_bound in (0.0, float(defn.v_bnd * defn.tf / defn.N)):
+        card = goal_obstacle_certificates(prob, params, Bc, step_bound)
+        cpu = goal_obstacle_certificates(prob, on_cpu, Bc, step_bound)
+        assert card.device.type == "cuda" and cpu.device.type == "cpu"
+        assert torch.equal(card.cpu(), cpu)
+        if step_bound > 0:
+            assert sorted(torch.nonzero(cpu).flatten().tolist()) == sorted(lanes.tolist())
