@@ -153,12 +153,12 @@ extern "C" {
 #endif
 // sizeof of AltroProblem, AltroBackwardArgs, AltroForwardArgs, AltroRiccatiArgs, AltroLanes
 void altro_abi_sizes(int* out);
-// (kFOps, kTangentOps) of the unicycle, cartpole and quadrotor functors
-// (csrc/models.cuh), six ints
+// (kFOps, kTangentOps) of the unicycle, cartpole, quadrotor and dof-2 triple
+// integrator functors (csrc/models.cuh), eight ints
 void altro_model_ops(int* out);
 // Each entry point launches on `stream` and returns cudaGetLastError().
 // altro_{backward_fused,forward}_{model}_{f32,f64} for the models of
-// csrc/models.cuh: unicycle, cartpole, quadrotor
+// csrc/models.cuh: unicycle, cartpole, quadrotor, triple_integrator2
 // and their lane-params instantiations altro_{backward_fused,forward}_lanes_*,
 // which take the lanes descriptor twice (on the host, where the launcher
 // checks the geometry against it, and on the device) and the lane table
@@ -175,6 +175,7 @@ void altro_model_ops(int* out);
 ALTRO_FUSED_DECL(unicycle, f32) ALTRO_FUSED_DECL(unicycle, f64)
 ALTRO_FUSED_DECL(cartpole, f32) ALTRO_FUSED_DECL(cartpole, f64)
 ALTRO_FUSED_DECL(quadrotor, f32) ALTRO_FUSED_DECL(quadrotor, f64)
+ALTRO_FUSED_DECL(triple_integrator2, f32) ALTRO_FUSED_DECL(triple_integrator2, f64)
 #undef ALTRO_FUSED_DECL
 // out[i] = the compensated circle row (lane_algebra.cuh:comp_circle) of
 // dx[i], dy[i], r[i], i < count: the arithmetic the fused kernels run on

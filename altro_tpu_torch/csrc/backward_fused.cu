@@ -46,10 +46,11 @@ void altro_abi_sizes(int* out) {
 }
 
 void altro_model_ops(int* out) {
-  const int ops[6] = {altro::Unicycle::kFOps,  altro::Unicycle::kTangentOps,
-                      altro::Cartpole::kFOps,  altro::Cartpole::kTangentOps,
-                      altro::Quadrotor::kFOps, altro::Quadrotor::kTangentOps};
-  for (int i = 0; i < 6; ++i) out[i] = ops[i];
+  const int ops[8] = {altro::Unicycle::kFOps,          altro::Unicycle::kTangentOps,
+                      altro::Cartpole::kFOps,          altro::Cartpole::kTangentOps,
+                      altro::Quadrotor::kFOps,         altro::Quadrotor::kTangentOps,
+                      altro::TripleIntegrator2::kFOps, altro::TripleIntegrator2::kTangentOps};
+  for (int i = 0; i < 8; ++i) out[i] = ops[i];
 }
 
 #define ALTRO_BACKWARD_ENTRY(NAME, MODEL, T)                                               \
@@ -63,6 +64,8 @@ ALTRO_BACKWARD_ENTRY(cartpole_f32, Cartpole, float)
 ALTRO_BACKWARD_ENTRY(cartpole_f64, Cartpole, double)
 ALTRO_BACKWARD_ENTRY(quadrotor_f32, Quadrotor, float)
 ALTRO_BACKWARD_ENTRY(quadrotor_f64, Quadrotor, double)
+ALTRO_BACKWARD_ENTRY(triple_integrator2_f32, TripleIntegrator2, float)
+ALTRO_BACKWARD_ENTRY(triple_integrator2_f64, TripleIntegrator2, double)
 #undef ALTRO_BACKWARD_ENTRY
 
 }  // extern "C"

@@ -17,6 +17,8 @@ ALTRO_BACKWARD_LANES_ENTRY(cartpole_f32, Cartpole, float)
 ALTRO_BACKWARD_LANES_ENTRY(cartpole_f64, Cartpole, double)
 ALTRO_BACKWARD_LANES_ENTRY(quadrotor_f32, Quadrotor, float)
 ALTRO_BACKWARD_LANES_ENTRY(quadrotor_f64, Quadrotor, double)
+ALTRO_BACKWARD_LANES_ENTRY(triple_integrator2_f32, TripleIntegrator2, float)
+ALTRO_BACKWARD_LANES_ENTRY(triple_integrator2_f64, TripleIntegrator2, double)
 #undef ALTRO_BACKWARD_LANES_ENTRY
 
 }  // extern "C"

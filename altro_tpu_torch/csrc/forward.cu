@@ -15,6 +15,8 @@ ALTRO_FORWARD_ENTRY(cartpole_f32, Cartpole, float)
 ALTRO_FORWARD_ENTRY(cartpole_f64, Cartpole, double)
 ALTRO_FORWARD_ENTRY(quadrotor_f32, Quadrotor, float)
 ALTRO_FORWARD_ENTRY(quadrotor_f64, Quadrotor, double)
+ALTRO_FORWARD_ENTRY(triple_integrator2_f32, TripleIntegrator2, float)
+ALTRO_FORWARD_ENTRY(triple_integrator2_f64, TripleIntegrator2, double)
 #undef ALTRO_FORWARD_ENTRY
 
 }  // extern "C"

@@ -145,4 +145,28 @@ struct Quadrotor {
   }
 };
 
+// Triple integrator (altro_tpu/models/triple_integrator.py): x = (position,
+// velocity, acceleration), DOF each, u = jerk (DOF); ẋ = (velocity,
+// acceleration, jerk), linear, no parameters.  f only copies, so neither an
+// evaluation nor a tangent adds an operation.
+template <int DOF>
+struct TripleIntegrator {
+  static constexpr int n = 3 * DOF;
+  static constexpr int m = DOF;
+  static constexpr int np = 0;
+  static constexpr int kFOps = 0;
+  static constexpr int kTangentOps = 0;
+
+  template <typename T, typename S>
+  __device__ __forceinline__ static void f(const T* /*p*/, const S* x, const S* u, T /*t*/, S* xdot) {
+#pragma unroll
+    for (int i = 0; i < 2 * DOF; ++i) xdot[i] = x[DOF + i];
+#pragma unroll
+    for (int i = 0; i < DOF; ++i) xdot[2 * DOF + i] = u[i];
+  }
+};
+
+// the instantiations the fused kernels' entry points name
+using TripleIntegrator2 = TripleIntegrator<2>;
+
 }  // namespace altro

@@ -5,9 +5,14 @@
 triple_integrator.hpp:22-105`), with the reference's horizon, weights,
 bounds and initial guess so its golden values apply; the model zoo's
 fleet problems `zoo_quadrotor` and `zoo_cartpole` (`perf/benchmark_zoo.py:
-54-97`); and the randomized three-obstacle fleet's per-lane params
-(`randomized_fleet`, `perf/benchmark_randomized.py:48-93`).  All build
-their tensors on the card unless `device` says otherwise.
+54-97`); the randomized three-obstacle fleet's per-lane params
+(`randomized_fleet`, `perf/benchmark_randomized.py:48-93`); and the JAX
+package's general batched problems, which no fused kernel takes: the
+velocity-cone unicycle (`soc_unicycle`, tests/test_batched_soc.py:54-75),
+the hybrid triple-integrator / damped system (`hybrid_triple_integrator`)
+and the damping schedule of per-knot dynamics params (`damping_schedule`,
+tests/test_batched_heterogeneous.py:35-61, 90-156), each at any dof.  All
+build their tensors on the card unless `device` says otherwise.
 """
 from __future__ import annotations
 
@@ -16,8 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..problem.constraints import circle_constraint, control_bound, goal_constraint
+from ..problem.constraints import Cone, Constraint, circle_constraint, control_bound, goal_constraint
 from ..problem.costs import lqr_cost
+from ..problem.dynamics import ContinuousModel, discretize
 from ..problem.problem import Problem
 from ..types import Trajectory, default_device, initial_trajectory
 from .cartpole import cartpole_rk4
@@ -249,3 +255,83 @@ def randomized_fleet(defn: UnicycleProblem, prob, B: int, *, seed: int = 0):
     params = params.replace(x0=defn._t(x0), constraints=tuple(cons),
                             costs=(dict(cp0, q=q.contiguous(), c=c.contiguous()),))
     return params, (cx, cy, rr), xf
+
+
+def soc_unicycle(N: int = 40, vmax: float = 0.8, *, dtype=torch.float64, device=None):
+    """The turn-90 parking problem without its control bound and goal
+    constraint, with a velocity cone |v| <= vmax at every stage, a
+    second-order cone of dimension 2 (tests/test_batched_soc.py:54-75).
+    Returns (problem definition, compiled problem)."""
+    defn = UnicycleProblem(N=N, dtype=dtype, device=device)
+    prob = defn.make_problem(add_constraints=False)
+
+    def soc_fn(params, x, u):
+        del x
+        return torch.stack([u[0], params["vmax"]])
+
+    soc = Constraint(params={"vmax": defn._t(vmax)}, fn=soc_fn, cone=Cone.SECOND_ORDER, dim=2,
+                     label="Velocity SOC")
+    prob.set_constraint(soc, range(N))
+    return defn, prob.compile()
+
+
+def _damped_fn(dof: int):
+    def fn(params, x, u, t):
+        del t
+        return torch.cat([x[dof: 2 * dof], x[2 * dof: 3 * dof] - params["c"] * x[dof: 2 * dof], u], dim=0)
+
+    return fn
+
+
+def _integrator_problem(dof: int, N: int, dtype, device) -> tuple:
+    """A problem of N segments on triple-integrator states of `dof`
+    degrees of freedom, from every position at −1 to every position at 1 at
+    rest: tracking costs I, 0.01 I and terminal 1e4 I, the goal held at
+    knot N (tests/test_batched_heterogeneous.py:35-61 at dof=1).  Returns
+    (problem without dynamics, x0, xf) with x0, xf as float64 numpy."""
+    dev = default_device(device)
+    n, m = 3 * dof, dof
+    xf = np.zeros(n)
+    xf[:dof] = 1.0
+    x0 = np.zeros(n)
+    x0[:dof] = -1.0
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype, device=dev)  # noqa: E731
+    prob = Problem(N)
+    prob.set_cost(lqr_cost(t(np.eye(n)), t(np.eye(m) * 0.01), t(xf)), range(N))
+    prob.set_cost(lqr_cost(t(np.eye(n) * 1e4), t(np.zeros((m, m))), t(xf), terminal=True), N)
+    prob.set_constraint(goal_constraint(t(xf)), N)
+    prob.set_initial_state(t(x0))
+    return prob, x0, xf
+
+
+def hybrid_triple_integrator(dof: int = 1, N: int = 20, *, damping: float = 0.5, dtype=torch.float64,
+                             device=None) -> tuple:
+    """Two dynamics families: the triple integrator on the first N/2
+    segments, a damped variant (acceleration's rate reduced by c times the
+    velocity, c = `damping`) on the rest.  Returns (compiled problem, x0,
+    xf), x0 and xf as float64 numpy."""
+    prob, x0, xf = _integrator_problem(dof, N, dtype, device)
+    dev = default_device(device)
+    damped = discretize(ContinuousModel(
+        params={"c": torch.as_tensor(damping, dtype=dtype, device=dev)}, fn=_damped_fn(dof),
+        n=3 * dof, m=dof, name=f"damped_triple_integrator{dof}",
+    ), "rk4")
+    prob.set_dynamics(triple_integrator_rk4(dof), range(N // 2))
+    prob.set_dynamics(damped, range(N // 2, N))
+    return prob.compile(), x0, xf
+
+
+def damping_schedule(dof: int = 1, N: int = 16, *, dtype=torch.float64, device=None) -> tuple:
+    """One dynamics family with per-knot params: the damped triple
+    integrator with c = 0.2 + 0.05 k on segment k, stacked [N].  Returns
+    (compiled problem, x0, xf), x0 and xf as float64 numpy."""
+    prob, x0, xf = _integrator_problem(dof, N, dtype, device)
+    dev = default_device(device)
+    base = discretize(ContinuousModel(
+        params={"c": torch.as_tensor(0.2, dtype=dtype, device=dev)}, fn=_damped_fn(dof),
+        n=3 * dof, m=dof, name=f"damped_triple_integrator{dof}",
+    ), "rk4")
+    for k in range(N):
+        prob.set_dynamics(dataclasses.replace(base, params={"c": torch.as_tensor(0.2 + 0.05 * k, dtype=dtype,
+                                                                                    device=dev)}), k)
+    return prob.compile(), x0, xf

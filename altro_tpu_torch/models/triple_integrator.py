@@ -2,7 +2,11 @@
 `examples/triple_integrator.cpp:9-45`).
 
 State [pos(dof), vel(dof), acc(dof)], control = jerk(dof); linear dynamics.
-Takes x [3·dof] and a batch-last x [3·dof, B] alike.
+Takes x [3·dof] and a batch-last x [3·dof, B] alike.  The fused CUDA
+kernels evaluate it through the device functor
+`csrc/models.cuh:TripleIntegrator<DOF>`, named `triple_integrator{dof}`;
+they are instantiated for dof 2 (`TripleIntegratorProblem`'s default), and
+another dof takes the fused path's fallback.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ def triple_integrator(dof: int = 1) -> ContinuousModel:
         raise ValueError("The degrees of freedom must be greater than 0")
     return ContinuousModel(
         params=None, fn=_make_dynamics(dof), n=3 * dof, m=dof, name=f"triple_integrator{dof}",
+        cuda_model=f"triple_integrator{dof}",
     )
 
 

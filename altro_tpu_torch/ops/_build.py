@@ -108,7 +108,7 @@ class RiccatiArgs(ctypes.Structure):
 RICCATI_SHAPES = ((3, 2), (4, 1), (6, 2), (13, 4))
 # models with a device functor in csrc/models.cuh, which the fused kernels
 # are instantiated for
-FUSED_MODELS = ("unicycle", "cartpole", "quadrotor")
+FUSED_MODELS = ("unicycle", "cartpole", "quadrotor", "triple_integrator2")
 
 # entry point -> pointer arguments: (args, problem, stream) for the fused
 # kernels, (args, problem, lanes on the host, lanes on the device, lane

@@ -66,6 +66,7 @@ CUDA_MODELS = {
     "unicycle": (3, 2, ()),
     "cartpole": (4, 1, ("mass_cart", "mass_pole", "length", "gravity")),
     "quadrotor": (13, 4, ("mass", "J", "gravity", "kf", "km", "arm_length")),
+    "triple_integrator2": (6, 2, ()),
 }
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -325,8 +326,10 @@ class FusedKernel:
         self.N, self.n, self.m = N, n, m
         if dtype not in _SUFFIX:
             raise Ineligible(f"no kernel for dtype {dtype}")
-        if len(prob.dynamics_families) != 1 or not prob.dynamics_families[0].shared:
-            raise Ineligible("heterogeneous dynamics")
+        if len(prob.dynamics_families) != 1:
+            raise Ineligible("multiple dynamics families")
+        if not prob.dynamics_families[0].shared:
+            raise Ineligible("per-knot dynamics params")
         model = prob.dynamics_families[0].model
         if model is None or model.method not in ("rk4", "euler"):
             raise Ineligible("unknown integrator")
@@ -350,6 +353,8 @@ class FusedKernel:
         pairs = set()
         for fi, fam in enumerate(prob.constraint_families):
             con = fam.constraint
+            if fam.cone not in (Cone.ZERO, Cone.NEGATIVE_ORTHANT):  # the SOC, the identity
+                raise Ineligible("unsupported cone for the fused kernels")
             if con is None or con.structure is None:
                 raise Ineligible("opaque constraint fn")
             kind = con.structure[0]
@@ -364,8 +369,6 @@ class FusedKernel:
                 pairs.add((xi, yi))
             if not fam.shared:
                 raise Ineligible("per-knot constraint params")
-            if fam.cone not in (Cone.ZERO, Cone.NEGATIVE_ORTHANT):
-                raise Ineligible("unsupported cone for the fused kernels")
             k0, k1 = _contiguous(fam.knots)
             f = dict(
                 fi=fi, k0=k0, k1=k1, p=fam.dim, cone=fam.cone, structure=con.structure,
@@ -408,7 +411,9 @@ class FusedKernel:
         self._desc = None
         self._lanes = None
         self._geo = None
-        self._prep = None  # `_prepare`'s last params object and what it returned
+        # `_prepare`'s last two params objects and what it returned for each
+        # (a solve's own and, in the speculative line search, its widened ones)
+        self._prep = []
         self._layouts = {}  # signature -> LaneLayout
         self._eager = {}
 
@@ -679,7 +684,7 @@ class FusedKernel:
         self._desc = (dev_bytes(d), table.to(self.device, self.dtype))
         self._lanes = (ln, dev_bytes(ln)) if lay is not None else None
         self._desc_key = (sig, shared)
-        self._prep = None
+        self._prep = []
         return self._desc
 
     # ------------------------------------------------------------ launching
@@ -744,15 +749,18 @@ class FusedKernel:
 
     def _prepare(self, params, B: int):
         """(signature, cost table, lane table or None) of `params`, with the
-        descriptor and the geometry built for them.  The last params
-        object's are kept: the launches of one solve all get the same params
+        descriptor and the geometry built for them.  The last two params
+        objects' are kept: the launches of one solve all get the same params
+        (and the speculative line search's launches the same widened ones)
         and prepare nothing again, and a new params object (a tail or
         restart round's gathered leaves) gets its own lane table."""
-        if self._prep is None or self._prep[0] is not params:
+        entry = next((e for e in self._prep if e[0] is params), None)
+        if entry is None:
             sig = self.param_sig(params)
             _, table = self._problem_desc(params, sig)
-            self._prep = (params, sig, table, self.lane_table(params, sig, B) if sig else None)
-        _, sig, table, lane_tab = self._prep
+            entry = (params, sig, table, self.lane_table(params, sig, B) if sig else None)
+            self._prep = (self._prep + [entry])[-2:]
+        _, sig, table, lane_tab = entry
         if lane_tab is not None and lane_tab.shape[1] != B:
             raise ValueError(f"per-instance params of batch {lane_tab.shape[1]} for a launch of batch {B}")
         return sig, table, lane_tab

@@ -68,10 +68,14 @@ RICCATI_F32_REL = dict(
 # the fused kernels on the zoo's problems.  Observed on an H100 (700 W),
 # largest over the cases: quadrotor (ρ=1e3) K 1.2e-2, d 1.5e-3, dV1 1.2e-5,
 # dV2 1.3e-5, J0 1.6e-7, Xn 1.4e-6, Ubar 3.7e-7, J 5.7e-7; cartpole K 1.6e-5,
-# d 1.6e-5, dV1 2.1e-6, dV2 2.0e-6, J0 2.2e-7, Xn 5.1e-7, Ubar 1.2e-6, J 1.6e-6
+# d 1.6e-5, dV1 2.1e-6, dV2 2.0e-6, J0 2.2e-7, Xn 5.1e-7, Ubar 1.2e-6, J 1.6e-6;
+# the triple integrator (dof 2, N=10, B = 2048, 1001, 1) K 3.8e-3, d 3.7e-3,
+# dV1 5.4e-5, dV2 3.6e-4, J0 3.4e-7, Xn 6.9e-7, Ubar 1.3e-6, J 1.8e-6 (the
+# Riccati kernel's K and d on it: its plain float32 sweep rounds as coarsely)
 ZOO_F32_REL = dict(
     quadrotor=dict(K=1e-1, d=1.5e-2, dV1=1e-4, dV2=1e-4, J0=1.5e-6, Xn=1e-5, Ubar=3e-6, J=5e-6),
     cartpole=dict(K=1.5e-4, d=1.5e-4, dV1=2e-5, dV2=2e-5, J0=2e-6, Xn=4e-6, Ubar=1e-5, J=1.5e-5),
+    triple=dict(K=3e-2, d=3e-2, dV1=3e-4, dV2=2e-3, J0=2e-6, Xn=5e-6, Ubar=1e-5, J=1e-5),
 )
 
 # the fused kernels on the three-obstacle problem, at chip_smoke.py's

@@ -2,8 +2,11 @@
 (`altro_tpu/problem/constraints.py`).
 
 The cones the reference ships are elementwise (Zero / Identity /
-NegativeOrthant), so projection Jacobians are diagonal; the batched solver
-applies them in `_al_terms`.  The second-order cone is not ported yet.
+NegativeOrthant), so their projection Jacobians are diagonal; the
+second-order (Lorentz) cone rounds out the conic AL and has a dense p×p
+one (`cone_jacobian`).  The batched solver applies all four in `_al_terms`
+(the SOC through `solver/batched.py:soc_project_bl` / `soc_jacobian_bl`,
+the batch-last forms of `cone_project` / `cone_jacobian`).
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
-from torch.func import jacfwd
+from torch.func import jacfwd, vmap
 
 
 class Cone(enum.Enum):
@@ -22,11 +25,15 @@ class Cone(enum.Enum):
     ZERO:  equality g(x,u) = 0      (`constraint.hpp:28-49`)
     NEGATIVE_ORTHANT: h(x,u) <= 0   (`constraint.hpp:98-122`)
     IDENTITY: whole space (dual of ZERO, `constraint.hpp:65-86`)
+    SECOND_ORDER: ‖c[:-1]‖₂ ≤ c[-1] (Lorentz cone, self-dual; thrust and
+        friction cones).  The reference's interface is written for general
+        cones (`docs/Overview.dox:29-43`) but ships only the first three.
     """
 
     ZERO = 0
     NEGATIVE_ORTHANT = 1
     IDENTITY = 2
+    SECOND_ORDER = 3
 
 
 EQUALITY = Cone.ZERO
@@ -38,7 +45,85 @@ def dual_cone(cone: Cone) -> Cone:
         return Cone.IDENTITY
     if cone is Cone.IDENTITY:
         return Cone.ZERO
-    return cone  # NEGATIVE_ORTHANT is self-dual
+    return cone  # NEGATIVE_ORTHANT and SECOND_ORDER are self-dual
+
+
+def cone_project(cone: Cone, x):
+    """Projection onto the cone (`constraint.hpp:34,77,103`); x [p]."""
+    if cone is Cone.ZERO:
+        return torch.zeros_like(x)
+    if cone is Cone.IDENTITY:
+        return x
+    if cone is Cone.SECOND_ORDER:
+        return _soc_project(x)
+    return torch.minimum(x, torch.zeros_like(x))
+
+
+def _soc_project(x):
+    """Projection onto the Lorentz cone {(v, s): ‖v‖ ≤ s}, s = x[-1]."""
+    v = x[:-1]
+    s = x[-1]
+    a = torch.linalg.vector_norm(v)
+    inside = a <= s
+    polar = a <= -s
+    scale = 0.5 * (1.0 + s / torch.clamp(a, min=1e-300))
+    boundary = torch.cat([scale * v, (0.5 * (a + s))[None]])
+    return torch.where(inside, x, torch.where(polar, torch.zeros_like(x), boundary))
+
+
+def cone_is_diagonal(cone: Cone) -> bool:
+    """Whether the projection Jacobian is diagonal (all reference cones are)."""
+    return cone is not Cone.SECOND_ORDER
+
+
+def cone_jacobian_diag(cone: Cone, x):
+    """Diagonal of the projection Jacobian (`constraint.hpp:39,82,108`);
+    1 where x <= 0 for the negative orthant, as the reference has it.
+    Diagonal cones only: the SOC's is `cone_jacobian`."""
+    if cone is Cone.ZERO:
+        return torch.zeros_like(x)
+    if cone is Cone.IDENTITY:
+        return torch.ones_like(x)
+    if cone is Cone.SECOND_ORDER:
+        raise ValueError("SOC projection Jacobian is not diagonal")
+    return torch.where(x > 0, 0.0, 1.0).to(x.dtype)
+
+
+def cone_jacobian(cone: Cone, x):
+    """Full projection Jacobian [p, p]."""
+    if cone is not Cone.SECOND_ORDER:
+        return torch.diag(cone_jacobian_diag(cone, x))
+    p = x.shape[-1]
+    v = x[:-1]
+    s = x[-1]
+    norm = torch.linalg.vector_norm(v)
+    a = torch.clamp(norm, min=1e-300)
+    inside = norm <= s
+    polar = norm <= -s
+    c = 0.5 + s / (2.0 * a)
+    eye_v = torch.eye(p - 1, dtype=x.dtype, device=x.device)
+    dPv_dv = c * eye_v - (s / (2.0 * a**3)) * torch.outer(v, v)
+    dPv_ds = v / (2.0 * a)
+    top = torch.cat([dPv_dv, dPv_ds[:, None]], dim=1)
+    bot = torch.cat([dPv_ds, x.new_full((1,), 0.5)])[None, :]
+    boundary = torch.cat([top, bot], dim=0)
+    eye = torch.eye(p, dtype=x.dtype, device=x.device)
+    return torch.where(inside, eye, torch.where(polar, torch.zeros_like(eye), boundary))
+
+
+def cone_project_rows(cone: Cone, M):
+    """Project each row of [..., p] onto the cone: elementwise cones at
+    once, the SOC row by row."""
+    if cone is not Cone.SECOND_ORDER:
+        return cone_project(cone, M)
+    flat = M.reshape((-1, M.shape[-1]))
+    return vmap(_soc_project)(flat).reshape(M.shape)
+
+
+def cone_violation(cone: Cone, c):
+    """Elementwise violation |c − Π_K(c)| (`constraint_values.hpp:215-220`)
+    of stacked rows [..., p]."""
+    return (c - cone_project_rows(cone, c)).abs()
 
 
 @dataclasses.dataclass(frozen=True)

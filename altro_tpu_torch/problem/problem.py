@@ -207,6 +207,17 @@ def _stack_params(objs: list) -> Any:
     return torch.stack([torch.as_tensor(o) for o in objs])
 
 
+def param_row(tree, ix):
+    """Row `ix` of every leaf of a stacked (per-knot) param tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: param_row(v, ix) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(param_row(v, ix) for v in tree)
+    return tree[ix]
+
+
 def _group(entries, key, make):
     """Group (knot, obj) entries by function identity into families.
 
@@ -258,6 +269,31 @@ class CompiledProblem:
         self.dynamics_families = dynamics_families
         self.constraint_families = constraint_families
         self.params = params
+        # per-segment dispatch: segment k runs family dyn_fam_id[k] with
+        # that family's params row dyn_idx_in_fam[k] (a stacked family's)
+        fam_id = np.zeros(N, np.int32)
+        idx_in_fam = np.zeros(N, np.int32)
+        for fi, fam in enumerate(dynamics_families):
+            fam_id[fam.knots] = fi
+            idx_in_fam[fam.knots] = np.arange(len(fam.knots), dtype=np.int32)
+        self.dyn_fam_id = fam_id
+        self.dyn_idx_in_fam = idx_in_fam
+
+    def dynamics_segment(self, dyn_params: tuple, k: int):
+        """(family, params) of segment k: the family `dyn_fam_id[k]` names,
+        with its params (a stacked family's row `dyn_idx_in_fam[k]`).  k is
+        a host int, so the dispatch is a table lookup, not a switch on the
+        device."""
+        fj = int(self.dyn_fam_id[k])
+        fam = self.dynamics_families[fj]
+        fp = dyn_params[fj]
+        return fam, (fp if fam.shared else param_row(fp, int(self.dyn_idx_in_fam[k])))
+
+    def dynamics_step(self, dyn_params: tuple, k: int, x, u, t, h):
+        """x_{k+1} = f_k(x, u, t, h) with per-segment family dispatch
+        (`altro_tpu/problem/problem.py:dynamics_step`)."""
+        fam, fp = self.dynamics_segment(dyn_params, k)
+        return fam.fn(fp, x, u, t, h)
 
     def with_dtype(self, dtype) -> "CompiledProblem":
         """The same families with every floating-point param leaf cast to

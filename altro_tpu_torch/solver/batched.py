@@ -9,7 +9,8 @@ and penalty state, and convergence masks that freeze finished instances.
 
 Each lockstep `lax.while_loop` of the JAX package is a Python `while` over
 device masks here, so every exit test is one host synchronisation;
-`ALSolverBatched.host_syncs` counts them per solve.
+`ALSolverBatched.host_syncs` counts them per solve, and the live fleet
+rows of `verbose` > SILENT (one read of the device's values each) too.
 
 The eager passes (`expand` + `riccati_scan`, `closed_loop_rollout` +
 `total_cost`) are the parity oracle and the plain versions of the CUDA
@@ -29,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 from torch.func import jacfwd, vmap
 
@@ -36,7 +38,7 @@ from ..ops.backward_fused import comp_circle
 from ..options import LogLevel, SolverOptions
 from ..problem.constraints import Cone, dual_cone
 from ..problem.costs import _quadcost_eval, ad_expansion
-from ..problem.problem import CompiledProblem, ProblemParams
+from ..problem.problem import CompiledProblem, ProblemParams, param_row
 from ..types import SolverStatus
 
 # SolverOptions.matmul_precision="highest": float32 matrix products stay in
@@ -121,6 +123,45 @@ def chol_failed(L):
             b = ~torch.isfinite(row[j])
             bad = b if bad is None else bad | b
     return bad
+
+
+def soc_project_bl(s):
+    """Lorentz-cone projection, batch-last: s [nk, p, B] with the cone
+    scalar in row p-1 (`problem/constraints.py:_soc_project` is the
+    per-instance form)."""
+    v = s[:, :-1, :]
+    t = s[:, -1, :]
+    a = torch.sqrt((v * v).sum(dim=1))  # [nk, B]
+    inside = a <= t
+    polar = a <= -t
+    scale = 0.5 * (1.0 + t / torch.clamp(a, min=torch.finfo(s.dtype).tiny))
+    proj = torch.cat([scale[:, None, :] * v, (0.5 * (a + t))[:, None, :]], dim=1)
+    return torch.where(inside[:, None, :], s, torch.where(polar[:, None, :], 0.0, proj))
+
+
+def soc_jacobian_bl(s):
+    """Projection Jacobian of the Lorentz cone, batch-last: [nk, p, p, B]
+    (`problem/constraints.py:cone_jacobian` is the per-instance form)."""
+    nk, p, Bsz = s.shape
+    dt = s.dtype
+    v = s[:, :-1, :]
+    t = s[:, -1, :]
+    a = torch.sqrt((v * v).sum(dim=1))
+    a_s = torch.clamp(a, min=torch.finfo(dt).tiny)
+    inside = a <= t
+    polar = a <= -t
+    c = 0.5 + t / (2.0 * a_s)
+    vv = v[:, :, None, :] * v[:, None, :, :]  # [nk, p-1, p-1, B]
+    eye_v = torch.eye(p - 1, dtype=dt, device=s.device)[None, :, :, None]
+    dPv_dv = c[:, None, None, :] * eye_v - (t / (2.0 * a_s**3))[:, None, None, :] * vv
+    dPv_dt = v / (2.0 * a_s[:, None, :])  # [nk, p-1, B]
+    top = torch.cat([dPv_dv, dPv_dt[:, :, None, :]], dim=2)
+    half = s.new_full((nk, 1, 1, Bsz), 0.5)
+    bot = torch.cat([dPv_dt[:, None, :, :], half], dim=2)
+    J = torch.cat([top, bot], dim=1)  # [nk, p, p, B]
+    eye_p = torch.eye(p, dtype=dt, device=s.device)[None, :, :, None]
+    return torch.where(inside[:, None, None, :], eye_p,
+                       torch.where(polar[:, None, None, :], 0.0, J))
 
 
 def _tree_map2(fn: Callable, canon, tree):
@@ -303,8 +344,13 @@ class ALSolverBatched:
     Any problem datum may vary per instance: `x0` as [n, B], and any cost,
     constraint or dynamics param leaf by carrying a trailing batch axis
     beside its canonical shape (goal refs [n] -> [n, B], obstacle layouts
-    [n_obs] -> [n_obs, B], masses () -> [B]; `batch_axes`).  One shared
-    dynamics family (the shipped problems) is supported.
+    [n_obs] -> [n_obs, B], masses () -> [B]; `batch_axes`).  Every cone
+    is handled, the second-order cone with its dense projection Jacobian
+    (`soc_project_bl`, `soc_jacobian_bl`).  Heterogeneous dynamics (several
+    families, or one family with per-knot params, the reference's model per
+    knot, `problem.hpp:159-183`) run the eager passes: the rollouts look up
+    each segment's family on the host (`CompiledProblem.dyn_fam_id`), and
+    the Jacobians are taken over each family's knots.
     `backward_pass="fused"` and `forward_pass="cuda"` run the CUDA kernels
     when the problem's structure is one they take (decided once, here) and
     the per-instance leaves of the params of a solve are laid out so that
@@ -315,6 +361,12 @@ class ALSolverBatched:
     scalar type have an instantiation, else the eager `riccati_scan`.  The
     JAX package runs `riccati_scan` whenever B % 1024 != 0; the port's
     kernel takes any B, which changes which code runs, not what is computed.
+
+    `line_search_parallel` S > 1 evaluates S step sizes of the line search
+    in one forward-kernel launch at S·B lanes (`_line_search_speculative`)
+    where the forward kernel runs; it accepts what the sequential search
+    accepts.  `verbose` > SILENT prints a fleet row per outer iteration
+    (and per inner one at INNER), each one host synchronisation.
 
     `compensated_circles=True` evaluates circle constraint rows in
     compensated arithmetic (`ops/backward_fused.py:comp_circle`), as the
@@ -329,17 +381,14 @@ class ALSolverBatched:
         self.compensated_circles = bool(compensated_circles)
         self.opts = opts or SolverOptions()
         o = self.opts
-        if o.line_search_parallel != 1:
-            raise NotImplementedError("line_search_parallel > 1 is not ported yet")
+        if o.line_search_parallel < 1:
+            raise ValueError("line_search_parallel must be at least 1")
+        # live fleet rows (`solver_logger.cpp:47-54`); SILENT builds none
+        self._logger = None
         if o.verbose != LogLevel.SILENT:
-            raise NotImplementedError("live solver logging is not ported yet")
-        fams = prob.dynamics_families
-        if len(fams) != 1 or not fams[0].shared:
-            raise NotImplementedError(
-                "heterogeneous dynamics (several families or per-knot "
-                "params) are not ported yet"
-            )
-        self._dyn = fams[0]
+            from ..utils.logging import SolverLogger
+
+            self._logger = SolverLogger(o.verbose, frequency=o.header_frequency)
         x0 = prob.params.x0
         self.dtype = x0.dtype
         self.device = x0.device
@@ -372,6 +421,10 @@ class ALSolverBatched:
             except Ineligible:
                 self._ric = None
         self._knot_idx: dict[int, torch.Tensor] = {}
+        # each dynamics family's knots: a slice where they are contiguous
+        # (a single family's are every segment), else a device index
+        self._dyn_knots = [_knot_slice(fam.knots) or self._knots(fam)
+                           for fam in prob.dynamics_families]
         # each cost and constraint family's canonical (unbatched) params,
         # which tell its per-instance leaves apart (`batch_axes`)
         self._canon = {
@@ -382,10 +435,54 @@ class ALSolverBatched:
         }
         # host synchronisations of the last `solve` (one per loop exit test)
         self.host_syncs = 0
+        # the speculative search's params and AL state widened to S·B lanes:
+        # (params, S, widened params), (padded AL, S, widened padded AL)
+        self._spec_params = None
+        self._spec_al = None
 
     def _any(self, mask: torch.Tensor) -> bool:
         self.host_syncs += 1
         return bool(mask.any())
+
+    # ------------------------------------------------------ live observability
+    def _read_row(self, *vals) -> list:
+        """One host read of a row's device values (one sync)."""
+        self.host_syncs += 1
+        return torch.stack([v.to(torch.float64) for v in vals]).tolist()
+
+    def _emit_inner_row(self, active, stats: BatchedStats) -> None:
+        """The fleet's row after a lockstep inner iteration, at INNER and
+        above (`altro_tpu/solver/batched.py:_emit_inner_row`): the most
+        total iterations, the active lanes, and the medians of cost, cost
+        decrease, α and gradient."""
+        lg = self._logger
+        if not lg.active("cost_med"):
+            return
+        iters, act, cost, dJ, alpha, grad = self._read_row(
+            stats.iterations_total.max(), active.sum(), _median(stats.cost),
+            _median(stats.cost_decrease), _median(stats.alpha), _median(stats.gradient),
+        )
+        for key, v in (("iters", int(iters)), ("active", int(act)), ("cost_med", cost),
+                       ("dJ_med", dJ), ("alpha_med", alpha), ("grad_med", grad)):
+            lg.log(key, v)
+        lg.print_row()
+
+    def _emit_outer_row(self, active, status, stats: BatchedStats) -> None:
+        """The fleet's row after a lockstep outer iteration, at OUTER and
+        above (`altro_tpu/solver/batched.py:_emit_outer_row`): the most
+        outer and total iterations, the lanes going on, the SOLVED lanes,
+        the largest violation and penalty, the median gradient."""
+        lg = self._logger
+        it_al, iters, act, solved, viol, pen, grad = self._read_row(
+            stats.iterations_outer.max(), stats.iterations_total.max(), active.sum(),
+            (status == int(SolverStatus.SOLVED)).sum(), stats.violations.max(),
+            stats.max_penalty.max(), _median(stats.gradient),
+        )
+        for key, v in (("iter_al", int(it_al)), ("iters", int(iters)), ("active", int(act)),
+                       ("solved", int(solved)), ("viol_max", viol), ("pen_max", pen),
+                       ("grad_med", grad)):
+            lg.log(key, v)
+        lg.print_row()
 
     # -------------------------------------------------------- model kernels
     def _x0(self, params: ProblemParams, Bsz: int, dtype) -> torch.Tensor:
@@ -402,12 +499,12 @@ class ALSolverBatched:
             self._knot_idx[id(fam)] = ks
         return ks
 
-    def dyn_step(self, fp, x, u, t, h):
-        """One discrete step of the shared family (params `fp`), batch-last:
-        the model takes x [n, B] as it takes x [n] (see problem/dynamics),
-        and a per-instance param leaf's trailing batch axis broadcasts as
-        x's does."""
-        model = self._dyn.model
+    def dyn_step_fam(self, fam, fp, x, u, t, h):
+        """One discrete step of family `fam` (params `fp`, one knot's),
+        batch-last: the model takes x [n, B] as it takes x [n] (see
+        problem/dynamics), and a per-instance param leaf's trailing batch
+        axis broadcasts as x's does."""
+        model = fam.model
         if model is not None and model.method == "rk4":
             f = model.continuous_fn
             k1 = f(fp, x, u, t)
@@ -417,36 +514,46 @@ class ALSolverBatched:
             return x + h * (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
         if model is not None and model.method == "euler":
             return x + h * model.continuous_fn(fp, x, u, t)
-        return self._dyn.fn(fp, x, u, t, h)
+        return fam.fn(fp, x, u, t, h)
 
-    def dyn_jacobian_all(self, params: ProblemParams, Z: "BatchedTrajectory"):
-        """Discrete Jacobians A [N,n,n,B], Bd [N,n,m,B] for all segments.
+    def _step_k(self, params: ProblemParams, k: int, x, u, t, h):
+        """Segment k's step (`_dyn_step_k` / `_step_dispatch` of the JAX
+        package): the family and params `CompiledProblem.dynamics_segment`
+        names for k."""
+        fam, fp = self.prob.dynamics_segment(params.dynamics, k)
+        return self.dyn_step_fam(fam, fp, x, u, t, h)
+
+    def _fam_jacobian(self, fam, canon, fp, X, U, t, h):
+        """Discrete Jacobians A [K,n,n,B], Bd [K,n,m,B] of one family over
+        its knots' X [K,n,B], U [K,m,B], t, h [K].
 
         Explicit RK4/Euler chain rule over continuous Jacobians taken by
-        `torch.func.jacfwd` (`integration.hpp:132-169`).
+        `torch.func.jacfwd` (`integration.hpp:132-169`).  Stacked (per-knot)
+        params map with the knots, shared ones broadcast, and per-instance
+        leaves (a trailing batch axis, also on a stacked leaf) map with the
+        batch (`batch_axes` of one knot's row).
         """
-        fam = self._dyn
-        fp = params.dynamics[0]
-        # per-instance leaves map with the batch (`batch_axes`)
-        pax = batch_axes(self.prob.params.dynamics[0], fp)
-        X, U, t, h = Z.X[:-1], Z.U, Z.t[:-1], Z.h
+        if fam.shared:
+            pk, pax = None, batch_axes(canon, fp)
+        else:
+            pk, pax = 0, batch_axes(param_row(canon, 0), param_row(fp, 0))
         n = X.shape[1]
         method = fam.model.method if fam.model is not None else None
         if method not in ("rk4", "euler"):
             jac = jacfwd(fam.fn, argnums=(1, 2))
             return vmap(
                 vmap(jac, in_dims=(pax, -1, -1, None, None), out_dims=-1),
-                in_dims=(None, 0, 0, 0, 0), out_dims=0,
+                in_dims=(pk, 0, 0, 0, 0), out_dims=0,
             )(fp, X, U, t, h)
         # knots outer, batch inner
         cfn = fam.model.continuous_fn
         cf = vmap(
             vmap(cfn, in_dims=(pax, -1, -1, None), out_dims=-1),
-            in_dims=(None, 0, 0, 0), out_dims=0,
+            in_dims=(pk, 0, 0, 0), out_dims=0,
         )
         cj = vmap(
             vmap(jacfwd(cfn, argnums=(1, 2)), in_dims=(pax, -1, -1, None), out_dims=-1),
-            in_dims=(None, 0, 0, 0), out_dims=0,
+            in_dims=(pk, 0, 0, 0), out_dims=0,
         )
         hk = h[:, None, None]
         hm = h[:, None, None, None]
@@ -471,6 +578,27 @@ class ALSolverBatched:
         dB3 = B3 * hm + 0.5 * mm(A3, dB2) * hm
         dB4 = B4 * hm + mm(A4, dB3) * hm
         Bd = (dB1 + 2 * dB2 + 2 * dB3 + dB4) / 6.0
+        return A, Bd
+
+    def dyn_jacobian_all(self, params: ProblemParams, Z: "BatchedTrajectory"):
+        """Discrete Jacobians A [N,n,n,B], Bd [N,n,m,B] for all segments:
+        each family's over its own knots, scattered into the full arrays
+        (`altro_tpu/solver/batched.py:dyn_jacobian_all`); a single family's
+        knots are every segment, and its Jacobians are the arrays."""
+        canon = self.prob.params.dynamics
+        parts = [
+            (ks, self._fam_jacobian(fam, canon[fj], params.dynamics[fj],
+                                    Z.X[ks], Z.U[ks], Z.t[ks], Z.h[ks]))
+            for fj, (fam, ks) in enumerate(zip(self.prob.dynamics_families, self._dyn_knots))
+        ]
+        if len(parts) == 1:
+            return parts[0][1]
+        N, n, m = self.prob.N, self.prob.n, self.prob.m
+        Bsz = Z.X.shape[-1]
+        A = Z.X.new_zeros((N, n, n, Bsz))
+        Bd = Z.X.new_zeros((N, n, m, Bsz))
+        for ks, (A_f, B_f) in parts:
+            A[ks], Bd[ks] = A_f, B_f
         return A, Bd
 
     # ------------------------------------------------------- cost kernels
@@ -586,20 +714,28 @@ class ALSolverBatched:
         (`constraint_values.hpp:111-177`); lam [nk, p, B], rho [nk, B]."""
         dual = dual_cone(fam.cone)
         s = lam - rho[:, None, :] * c
+        dproj = None
         if dual is Cone.ZERO:
             lam_proj = torch.zeros_like(s)
             dproj = torch.zeros_like(s)
         elif dual is Cone.IDENTITY:
             lam_proj = s
             dproj = torch.ones_like(s)
+        elif dual is Cone.SECOND_ORDER:
+            lam_proj = soc_project_bl(s)
         else:
             lam_proj = torch.minimum(s, torch.zeros_like(s))
             dproj = torch.where(s > 0, 0.0, 1.0).to(s.dtype)
         J = ((lam_proj * lam_proj).sum(dim=1) - (lam * lam).sum(dim=1)) / (2.0 * rho)
         if not want_expansion:
             return J, None
-        Jpx = dproj[:, :, None, :] * Cx
-        Jpu = dproj[:, :, None, :] * Cu
+        if dproj is not None:  # diagonal projection Jacobian
+            Jpx = dproj[:, :, None, :] * Cx
+            Jpu = dproj[:, :, None, :] * Cu
+        else:  # SOC: the dense p×p projection Jacobian (`cone_jacobian`)
+            Jp = soc_jacobian_bl(s)
+            Jpx = mm(Jp, Cx)
+            Jpu = mm(Jp, Cu)
         gx = -(lam_proj[:, :, None, :] * Jpx).sum(dim=1)
         gu = -(lam_proj[:, :, None, :] * Jpu).sum(dim=1)
         rb = rho[:, None, None, :]
@@ -762,7 +898,7 @@ class ALSolverBatched:
         x = self._x0(params, Z.X.shape[-1], Z.X.dtype)
         X = [x]
         for k in range(N):
-            x = self.dyn_step(params.dynamics[0], x, Z.U[k], Z.t[k], Z.h[k])
+            x = self._step_k(params, k, x, Z.U[k], Z.t[k], Z.h[k])
             X.append(x)
         return Z.replace(X=torch.stack(X, dim=0))
 
@@ -780,7 +916,7 @@ class ALSolverBatched:
         Xs, Us = [xbar], []
         for k in range(Z.U.shape[0]):
             ubar = Z.U[k] + mv(K[k], xbar - Z.X[k]) + alpha * d[k]
-            xnext = self.dyn_step(params.dynamics[0], xbar, ubar, Z.t[k], Z.h[k])
+            xnext = self._step_k(params, k, xbar, ubar, Z.t[k], Z.h[k])
             if opts.check_forwardpass_bounds:
                 state_ok = torch.sqrt((xnext * xnext).sum(dim=0)) <= opts.state_max
                 ctrl_ok = torch.sqrt((ubar * ubar).sum(dim=0)) <= opts.control_max
@@ -822,16 +958,38 @@ class ALSolverBatched:
         `rho`/`drho` are the post-decrease regularization; a failed search
         increases them from there.  With the forward kernel `fwd` and
         `al_pad` (the padded AL state of the inner solve) each try runs the
-        kernel; without them, the eager rollout + cost.
+        kernel, and with `line_search_parallel` S > 1, S tries run in one
+        launch (`_line_search_speculative`); without them, the eager
+        rollout + cost, one try at a time (the JAX package's scan path
+        ignores S too).
         """
         opts = self.opts
+        S = int(opts.line_search_parallel)
+        if fwd is not None and S > 1:
+            c = self._line_search_speculative(fwd, params, al_pad, Z, bp, J0, S)
+        else:
+            c = self._line_search_sequential(fwd, params, al, al_pad, Z, bp, J0)
+        rho = bp["rho"] if rho is None else rho
+        drho = bp["drho"] if drho is None else drho
+        Z_out = zselect(c["success"], c["Zbar"], Z)
+        rho_i, drho_i = _increase_reg(rho, drho, opts)
+        rho = torch.where(c["success"], rho, rho_i)
+        drho = torch.where(c["success"], drho, drho_i)
+        J_final = torch.where(c["success"], c["J"], J0)
+        status = torch.where(
+            J_final > J0, int(SolverStatus.COST_INCREASE), c["status"]
+        ).to(torch.int32)
+        return dict(
+            Z=Z_out, J=J_final, alpha=c["alpha"], z=c["z"],
+            success=c["success"], rho=rho, drho=drho, status=status,
+        )
+
+    def _search_init(self, Z, J0) -> dict:
+        """The line search's carry before its first try."""
         dt = Z.X.dtype
         Bsz = Z.X.shape[-1]
         dev = Z.X.device
-        rho = bp["rho"] if rho is None else rho
-        drho = bp["drho"] if drho is None else drho
-        max_it = opts.line_search_max_iterations
-        c = dict(
+        return dict(
             it=torch.zeros((Bsz,), dtype=torch.int32, device=dev),
             alpha=torch.ones((Bsz,), dtype=dt, device=dev),
             success=torch.zeros((Bsz,), dtype=torch.bool, device=dev),
@@ -840,6 +998,13 @@ class ALSolverBatched:
             status=torch.full((Bsz,), int(SolverStatus.UNSOLVED), dtype=torch.int32, device=dev),
             Zbar=Z,
         )
+
+    def _line_search_sequential(self, fwd, params, al, al_pad, Z, bp, J0) -> dict:
+        """One try per round, α divided by the decrease factor after each
+        rejection; one host sync per round."""
+        opts = self.opts
+        max_it = opts.line_search_max_iterations
+        c = self._search_init(Z, J0)
         more = max_it > 0  # every lane is active on the first try
         while more:
             active = (~c["success"]) & (c["it"] < max_it)
@@ -874,18 +1039,105 @@ class ALSolverBatched:
                 Zbar=zselect(active, Zbar, c["Zbar"]),
             )
             more = self._any((~c["success"]) & (c["it"] < max_it))
-        Z_out = zselect(c["success"], c["Zbar"], Z)
-        rho_i, drho_i = _increase_reg(rho, drho, opts)
-        rho = torch.where(c["success"], rho, rho_i)
-        drho = torch.where(c["success"], drho, drho_i)
-        J_final = torch.where(c["success"], c["J"], J0)
-        status = torch.where(
-            J_final > J0, int(SolverStatus.COST_INCREASE), c["status"]
-        ).to(torch.int32)
-        return dict(
-            Z=Z_out, J=J_final, alpha=c["alpha"], z=c["z"],
-            success=c["success"], rho=rho, drho=drho, status=status,
-        )
+        return c
+
+    def _widened(self, params, al_pad, S: int):
+        """`params` and `al_pad` at S·B lanes, candidate-major (lane j·B + b
+        is instance b): every per-instance leaf (x0 included, `batch_axes`)
+        and the AL buffers tiled S times, shared leaves as they are.  Kept
+        with the objects they came from, so a solve widens its params once
+        (and the lane-params kernel builds one lane table of S·B lanes) and
+        an inner solve its AL state once, as the JAX package tiles them once
+        per line search (`altro_tpu/solver/batched.py:1238-1248`)."""
+        tile = lambda leaf: _tile(leaf, S)  # noqa: E731
+        if self._spec_params is None or self._spec_params[0] is not params or self._spec_params[1] != S:
+            canon = self.prob.params
+            wide = lambda c, leaf: tile(leaf) if per_instance(c, leaf) else leaf  # noqa: E731
+            params_s = ProblemParams(*(_tree_map2(wide, getattr(canon, f.name), getattr(params, f.name))
+                                       for f in dataclasses.fields(params)))
+            self._spec_params = (params, S, params_s)
+        if self._spec_al is None or self._spec_al[0] is not al_pad or self._spec_al[1] != S:
+            opt = lambda t: None if t is None else tile(t)  # noqa: E731
+            al_s = dataclasses.replace(
+                al_pad, lam=opt(al_pad.lam), rho=opt(al_pad.rho), lamT=opt(al_pad.lamT),
+                rhoT=opt(al_pad.rhoT),
+                al=tuple(dict(lam=tile(st["lam"]), rho=tile(st["rho"])) for st in al_pad.al),
+            )
+            self._spec_al = (al_pad, S, al_s)
+        return self._spec_params[2], self._spec_al[2]
+
+    def _line_search_speculative(self, fwd, params, al_pad, Z, bp, J0, S: int) -> dict:
+        """Speculative backtracking line search
+        (`altro_tpu/solver/batched.py:_line_search_speculative`): S
+        candidate step sizes α, α/f, …, α/f^(S-1) (f the decrease factor,
+        each candidate the one before it divided by f, as the sequential
+        search divides) go through one forward-kernel launch at S·B lanes,
+        and each lane takes its first passing candidate: the α, the tries
+        and the trajectory that the sequential search accepts, bit for bit,
+        since a lane's kernel result does not depend on its slot and the
+        pick is an index, not a sum.  Another round runs only where a lane
+        rejected all S; a candidate counts only within the search's
+        iteration budget.  One host sync per round."""
+        opts = self.opts
+        Bsz = Z.X.shape[-1]
+        dev = Z.X.device
+        max_it = opts.line_search_max_iterations
+        params_s, al_pad_s = self._widened(params, al_pad, S)
+        # the base trajectory and the gains are fixed for the whole search
+        Z_s = Z.replace(X=_tile(Z.X, S), U=_tile(Z.U, S))
+        K_s, d_s = _tile(bp["K"], S), _tile(bp["d"], S)
+        cand = torch.arange(S, dtype=torch.int32, device=dev)[:, None]  # [S, 1]
+        lane = torch.arange(Bsz, device=dev)
+        c = self._search_init(Z, J0)
+        more = max_it > 0
+        while more:
+            active = (~c["success"]) & (c["it"] < max_it)
+            alphas = [c["alpha"]]
+            for _ in range(S):
+                alphas.append(alphas[-1] / opts.line_search_decrease_factor)
+            alphas = torch.stack(alphas)  # [S+1, B]: the S candidates and the next
+            a = alphas[:S]
+            Zbar_s, valid_s, status_s, J_s = self._fwd_rollout_cost(
+                fwd, params_s, al_pad_s, Z_s, K_s, d_s, a.reshape(S * Bsz),
+                opts.check_forwardpass_bounds,
+            )
+            J_c = J_s.reshape(S, Bsz)
+            valid = valid_s.reshape(S, Bsz)
+            expected = -a * (bp["dV1"] + a * bp["dV2"])
+            z = torch.where(expected > 0.0, (J0 - J_c) / expected, -torch.ones_like(J_c))
+            # candidate j is a real try only if the sequential search would
+            # still be within its budget at try it + j
+            tried = (c["it"] + cand) < max_it
+            ok = (
+                valid
+                & (opts.line_search_lower_bound <= z)
+                & (z <= opts.line_search_upper_bound)
+                & (J_c < J0)
+                & tried
+            )
+            any_ok = ok.any(dim=0)
+            first_ok = torch.where(ok, cand, S).amin(dim=0)
+            n_tried = tried.sum(dim=0, dtype=torch.int32)
+            sel = torch.where(any_ok, first_ok, (n_tried - 1).clamp(min=0)).long()
+
+            def pick(leaf):  # [..., S·B] -> [..., B]: each lane's candidate `sel`
+                return leaf.reshape(leaf.shape[:-1] + (S, Bsz))[..., sel, lane]
+
+            J_sel = pick(J_s)
+            valid_sel = pick(valid_s)
+            c = dict(
+                it=torch.where(active, c["it"] + torch.where(any_ok, first_ok + 1, n_tried), c["it"]),
+                success=torch.where(active, any_ok, c["success"]),
+                alpha=torch.where(
+                    active, torch.where(any_ok, a[sel, lane], alphas[n_tried.long(), lane]), c["alpha"]
+                ),
+                J=torch.where(active & valid_sel, J_sel, c["J"]),
+                z=torch.where(active, z[sel, lane], c["z"]),
+                status=torch.where(active, pick(status_s), c["status"]),
+                Zbar=zselect(active, Z.replace(X=pick(Zbar_s.X), U=pick(Zbar_s.U)), c["Zbar"]),
+            )
+            more = self._any((~c["success"]) & (c["it"] < max_it))
+        return c
 
     # ------------------------------------------------------------- inner solve
     def ilqr_solve(self, params, al, Z, stats: BatchedStats, outer_active, lane_opts=None):
@@ -992,6 +1244,8 @@ class ALSolverBatched:
                 regularization=torch.where(active, bp["rho"], stats.regularization),
             )
             stats = _record_history(stats, active)
+            if self._logger is not None:
+                self._emit_inner_row(active, stats)
             c = dict(
                 Z=zselect(active, fp["Z"], c["Z"]),
                 rho=torch.where(active, fp["rho"], c["rho"]),
@@ -1046,6 +1300,8 @@ class ALSolverBatched:
                 lam = s
             elif dual is Cone.ZERO:
                 lam = torch.zeros_like(s)
+            elif dual is Cone.SECOND_ORDER:
+                lam = soc_project_bl(s)
             else:
                 lam = torch.minimum(s, torch.zeros_like(s))
             al_new.append(dict(lam=torch.where(upd, lam.to(dt), st["lam"]), rho=st["rho"]))
@@ -1059,6 +1315,8 @@ class ALSolverBatched:
                 v = c.abs()
             elif fam.cone is Cone.NEGATIVE_ORTHANT:
                 v = torch.clamp(c, min=0.0)
+            elif fam.cone is Cone.SECOND_ORDER:
+                v = (c - soc_project_bl(c)).abs()
             else:  # IDENTITY: whole space, never violated
                 continue
             viol = torch.maximum(viol, v.amax(dim=(0, 1)).to(dtype))
@@ -1187,6 +1445,8 @@ class ALSolverBatched:
             done_new = (~inner_ok) | sat_done | pen_hi | outer_hi | total_hi
             # scale penalties only for continuing instances
             cont = active & ~done_new
+            if self._logger is not None:
+                self._emit_outer_row(cont, torch.where(active, status, c["status"]), stats)
             al_next = tuple(
                 dict(lam=st["lam"], rho=torch.where(cont, st["rho"] * ps_lane, st["rho"]))
                 for st in al_new
@@ -1203,6 +1463,25 @@ class ALSolverBatched:
         return dict(
             Z=c["Z"], al=c["al"], status=c["status"], stats=c["stats"], K=c["K"], d=c["d"],
         )
+
+
+def _knot_slice(knots):
+    """`knots` as a slice where they are contiguous, else None."""
+    k = np.asarray(knots)
+    if k.size and bool((np.diff(k) == 1).all()):
+        return slice(int(k[0]), int(k[-1]) + 1)
+    return None
+
+
+def _tile(leaf: torch.Tensor, S: int) -> torch.Tensor:
+    """[..., B] -> [..., S·B], candidate-major: S copies side by side."""
+    return leaf.repeat(*([1] * (leaf.ndim - 1)), S)
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """The median as numpy and the JAX package take it: the mean of the two
+    middle values of an even count."""
+    return torch.quantile(x.to(torch.float64), 0.5)
 
 
 def _increase_reg(rho, drho, opts: SolverOptions):

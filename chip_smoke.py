@@ -58,9 +58,22 @@ in parallel), then:
      none certified, >= 95% SOLVED), every SOLVED lane clear of its own
      obstacles and at its own goal; the certificates on the card flag
      exactly the lanes whose goal was moved into an obstacle;
- 12. solves the zoo's and the obstacle fleet's first 512 lanes on the
+ 12. runs the main path with the speculative line search (S = 2 and 8:
+     S step sizes in one forward launch at S·B lanes) against its S=1
+     solve bit for bit, and the randomized fleet's first 1,024 lanes at
+     S=4 against S=1 (capped at 30 iterations; the lane-params forward
+     kernel at 4,096 lanes);
+ 13. checks the fused kernels' triple-integrator instantiations ((6, 2),
+     N=10) against their plain versions (B = 2048, 1001, 1; f64, f32) and
+     solves a B=2048 float64 fleet on them against the Riccati fallback;
+ 14. prints the main path's live fleet rows (verbose=OUTER): one host
+     sync per row and nothing else changed;
+ 15. solves the zoo's and the obstacle fleet's first 512 lanes on the
      plain path, all in processes of their own at once, and holds steps 9
-     and 10 against them.
+     and 10 against them; meanwhile, in this process, solves the problems
+     no fused kernel takes (a second-order cone, two dynamics families,
+     per-knot dynamics params; B=1024, f64) through the Riccati kernel
+     and through the eager passes, and holds one against the other.
 Each phase prints one JSON line.  `--phase NAME` (repeatable) runs only the
 named phases after the build, for measuring, and then prints the card but
 no kernel summary or result line.  With `--package-root DIR` those phases
@@ -566,19 +579,10 @@ def phase_main_path(dev) -> dict:
     import torch
 
     from altro_tpu_torch import SolverStatus
-    from altro_tpu_torch.models.problems import UnicycleProblem
 
-    dtype = torch.float32
-    defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
-    prob = defn.make_problem().compile()
+    _, prob, params, Zb = _main_fleet(dev)
     solver = bench_solver(prob)
     instrumented = bench_solver(prob, iteration_history_capacity=HISTORY_CAPACITY)
-    # bench.make_batch: x0 uniform in ±0.1 from default_rng(0), lane 0 canonical
-    rng = np.random.default_rng(0)
-    x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(3, B_FLEET)), device=dev).to(dtype)
-    x0[:, 0] = 0.0
-    params = prob.params.replace(x0=x0)
-    Zb = fleet_trajectory(defn, B_FLEET)
     kernels = [solver._p1._bwd, solver._p1._fwd, solver._tail._bwd, solver._tail._fwd]
     assert all(k is not None for k in kernels), "the main path did not select the CUDA kernels"
     polish = polish_kernels(solver)
@@ -641,6 +645,7 @@ def phase_main_path(dev) -> dict:
     assert instrumented.host_syncs == syncs[0], "the history added host syncs"
     assert int(status[0]) == int(SolverStatus.SOLVED), "lane 0 not SOLVED"
     assert solved >= 0.99 * B_FLEET, f"only {solved}/{B_FLEET} SOLVED"
+    _MAIN_REF.update(res=res, wall_s=wall, host_syncs=syncs[-1], forward_launches=launches["forward"] / 5)
     return launches
 
 
@@ -1033,14 +1038,15 @@ def _plain_worker(key, fn, args, out) -> None:
         out.put((key, dict(ok=False, error=traceback.format_exc())))
 
 
-def run_plain(parts) -> dict:
+def run_plain(parts, during=None) -> dict:
     """Run the plain-path solves of every part together, each in its own
     spawned process (they are independent, host-bound, and together the
     slowest stage of the run), then each part's check on its results.
     A part is (name, jobs, check): jobs a list of (key, fn, args), check a
     function of {key: result} whose return value this returns under the
-    part's name.  A failed solve, or none within PLAIN_TIMEOUT_S, fails
-    the run."""
+    part's name.  `during()`, if given, runs in this process once the
+    others have started.  A failed solve, or none within PLAIN_TIMEOUT_S,
+    fails the run."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
@@ -1051,6 +1057,8 @@ def run_plain(parts) -> dict:
     for p in procs:
         p.start()
     try:
+        if during is not None:
+            during()
         results = {}
         for _ in procs:
             key, r = out.get(timeout=max(1.0, PLAIN_TIMEOUT_S - (time.perf_counter() - t0)))
@@ -1080,16 +1088,19 @@ def phase_fused_zoo_vs_plain(dev) -> None:
             zoo_kernels_vs_plain(dev, name, dtype, rng)
 
 
-def zoo_kernels_vs_plain(dev, name, dtype, rng, lane_key=None) -> dict:
-    """phase_fused_zoo_vs_plain's checks of one zoo problem in one scalar
-    type, drawing from `rng`.  With `lane_key`, that dynamics param is per
-    lane (each lane's scaled by U(0.8, 1.2), RAND_DYN_SEED), so the kernels'
-    lane-params instantiations run (the randomized phase's part 2).  Emits
-    the line and returns it."""
+def zoo_kernels_vs_plain(dev, name, dtype, rng, lane_key=None, B=ZOO_BATCH, device_times=False) -> dict:
+    """phase_fused_zoo_vs_plain's checks of one zoo problem ("quadrotor",
+    "cartpole", or "triple": TripleIntegratorProblem at dof 2, N=10, with
+    its control bounds and goal) in one scalar type at B lanes, drawing from
+    `rng`.  With `lane_key`, that dynamics param is per lane (each lane's
+    scaled by U(0.8, 1.2), RAND_DYN_SEED), so the kernels' lane-params
+    instantiations run (the randomized phase's part 2).  `device_times`
+    adds each kernel's device ms (torch.profiler).  Emits the line and
+    returns it."""
     import torch
 
     from altro_tpu_torch import SolverOptions
-    from altro_tpu_torch.models.problems import zoo_cartpole, zoo_quadrotor
+    from altro_tpu_torch.models.problems import TripleIntegratorProblem, zoo_cartpole, zoo_quadrotor
     from altro_tpu_torch.ops import tolerances as tol
     from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
     from altro_tpu_torch.ops.forward import ForwardKernel
@@ -1098,11 +1109,14 @@ def zoo_kernels_vs_plain(dev, name, dtype, rng, lane_key=None) -> dict:
 
     tag = "f64" if dtype == torch.float64 else "f32"
     item = torch.finfo(dtype).bits // 8
-    build = zoo_quadrotor if name == "quadrotor" else zoo_cartpole
-    prob, Z0, x0, _ = build(dtype=dtype, device=dev)
+    if name == "triple":
+        defn = TripleIntegratorProblem(dtype=dtype, device=dev)
+        prob, Z0, x0 = defn.make_problem(add_constraints=True).compile(), defn.initial_trajectory(), defn._t(defn.x0)
+    else:
+        build = zoo_quadrotor if name == "quadrotor" else zoo_cartpole
+        prob, Z0, x0, _ = build(dtype=dtype, device=dev)
     opts = SolverOptions()
     ev = ALSolverBatched(prob, opts)
-    B = ZOO_BATCH
     params = prob.params.replace(x0=zoo_x0s(x0, B, rng).to(dtype))
     if lane_key is not None:
         leaf = params.dynamics[0][lane_key]
@@ -1158,8 +1172,14 @@ def zoo_kernels_vs_plain(dev, name, dtype, rng, lane_key=None) -> dict:
         forward_ms=cuda_ms(lambda: fk(params, ap, Zb, K, d, a1), 10),
         forward_plain_ms=cuda_ms(lambda: fk.plain(params, ap, Zb, K, d, a1), 3),
     )
+    if device_times:
+        times.update(
+            backward_device_ms=device_ms(lambda: bk(params, ap, Zb, rho), 20, "backward_fused_kernel"),
+            forward_device_ms=device_ms(lambda: fk(params, ap, Zb, K, d, a1), 20, "forward_kernel"),
+        )
     wb, wf = fused_work(bk, B, item, params), forward_work(fk, B, item, params)
-    line = {"phase": "fused_zoo_vs_plain" if lane_key is None else "randomized_dynamics_vs_plain",
+    phase = "fused_zoo_vs_plain" if lane_key is None else "randomized_dynamics_vs_plain"
+    line = {"phase": "triple_integrator_vs_plain" if name == "triple" else phase,
             "problem": name, "dtype": tag, "n": prob.n, "m": prob.m, "N": prob.N, "B": B,
             "backward_fused": errs_b, "forward": errs_f, **times,
             "backward_bound": bound(*wb, tag), "forward_bound": bound(*wf, tag)}
@@ -2013,6 +2033,346 @@ def phase_randomized(dev) -> tuple:
     return summary, randomized_fleet_run(dev), randomized_complete_run(dev)
 
 
+# --------------------------------------------------------------- this slice
+SPEC_S = (2, 8)  # line_search_parallel of the main path's speculative solves
+SPEC_RAND_LANES = 1024  # the randomized fleet's lanes in the speculative check
+SPEC_RAND_S = 4
+SPEC_RAND_MAX_TOTAL = 30
+TRIPLE_B = (2048, 1001, 1)  # widths of the triple integrator's kernel checks
+TRIPLE_FLEET_B = 2048
+TRIPLE_U_REL = 1e-9  # kernels against the Riccati fallback, relative to max(|U|, 1), float64
+GENERAL_B = 1024
+GENERAL_N = 40
+GENERAL_SOLVED_MIN = 0.99
+GENERAL_U_REL = 1e-9
+# the main path's last S=1 solve (phase_main_path), which the speculative
+# and live-row steps are held against
+_MAIN_REF = {}
+
+
+def _same_solve(a, b) -> dict:
+    """Statuses, iterations and α equal, U and cost bit for bit, between two
+    solves' results."""
+    return dict(
+        statuses=bool(a["status"].equal(b["status"])),
+        iterations=bool(a["stats"].iterations_total.equal(b["stats"].iterations_total)),
+        alpha=bitwise([a["stats"].alpha], [b["stats"].alpha]),
+        U_bitwise=bitwise([a["Z"].U], [b["Z"].U]),
+        cost_bitwise=bitwise([a["stats"].cost], [b["stats"].cost]),
+    )
+
+
+def _main_fleet(dev):
+    """The main path's problem and fleet, f32: bench.make_batch's x0
+    uniform in ±0.1 from default_rng(0), lane 0 canonical.  Returns
+    (definition, compiled problem, params, initial trajectory)."""
+    import torch
+
+    from altro_tpu_torch.models.problems import UnicycleProblem
+
+    defn = UnicycleProblem(dtype=torch.float32, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    rng = np.random.default_rng(0)
+    x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(3, B_FLEET)), device=dev).float()
+    x0[:, 0] = 0.0
+    return defn, prob, prob.params.replace(x0=x0), fleet_trajectory(defn, B_FLEET)
+
+
+def _main_reference(dev) -> dict:
+    """phase_main_path's S=1 solve, or (in a `--phase` run) one like it."""
+    if not _MAIN_REF:
+        defn, prob, params, Zb = _main_fleet(dev)
+        solver = bench_solver(prob)
+        solver.solve(params, Zb)
+        for k in (solver._p1._fwd, solver._tail._fwd):
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = solver.solve(params, Zb)
+        _sync()
+        _MAIN_REF.update(res=res, wall_s=time.perf_counter() - t0, host_syncs=solver.host_syncs,
+                         forward_launches=solver._p1._fwd.launches + solver._tail._fwd.launches)
+    return _MAIN_REF
+
+
+def spec_forward_times(dev) -> dict:
+    """The forward kernel at the widths the speculative search launches it
+    at on the main path: the main fleet's rollout (f32, B_FLEET lanes), a
+    random AL state and the gains the fused backward returns at ρ = 0.37,
+    widened as `_line_search_speculative` widens them (`_widened`, `_tile`:
+    S·B lanes, candidate-major) with the candidates α = 1, ½, …, ½^(S-1),
+    for S = 1 and each of SPEC_S.  Per S: ms (CUDA events, median of 20),
+    device ms (torch.profiler) and the bound at S·B lanes."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
+    from altro_tpu_torch.ops.forward import ForwardKernel
+    from altro_tpu_torch.solver.batched import ALSolverBatched, _tile
+
+    _, prob, params, Z0 = _main_fleet(dev)
+    opts = SolverOptions()
+    ev = ALSolverBatched(prob, opts)
+    Zb = ev.rollout(params, Z0)
+    al = warm_al(ev, B_FLEET, torch.float32, dev, np.random.default_rng(42))
+    bk = BackwardFusedKernel(prob, opts, dtype=torch.float32, device=dev)
+    fk = ForwardKernel(prob, opts, dtype=torch.float32, device=dev)
+    ap = bk.pad_al(al)
+    K, d = bk(params, ap, Zb, torch.full((B_FLEET,), 0.37, dtype=torch.float32, device=dev))[:2]
+    out = {}
+    for S in (1,) + SPEC_S:
+        params_s, ap_s = ev._widened(params, ap, S)
+        Zs = Zb.replace(X=_tile(Zb.X, S), U=_tile(Zb.U, S))
+        Ks, ds = _tile(K, S), _tile(d, S)
+        a = (0.5 ** torch.arange(S, device=dev, dtype=torch.float32)).repeat_interleave(B_FLEET)
+        launch = lambda: fk(params_s, ap_s, Zs, Ks, ds, a)  # noqa: E731
+        bound_ms, bound_by = bound(*forward_work(fk, S * B_FLEET, 4), "f32")
+        out[S] = dict(lanes=S * B_FLEET, ms=cuda_ms(launch, 20), device_ms=device_ms(launch, 20, "forward_kernel"),
+                      bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+def phase_speculative(dev) -> dict:
+    """The speculative line search (`line_search_parallel` S > 1: S step
+    sizes in one forward-kernel launch at S·B lanes) on the main path,
+    bench.make_solver's program at B=4096 in f32, S in SPEC_S: one warm-up
+    and one timed solve each, with the kernels' counts set to 0 between,
+    held against phase_main_path's S=1 solve (statuses, iterations and α
+    equal, U and cost bit for bit), with wall, forward launches and host
+    syncs per solve at S = 1, 2 and 8, and the forward kernel's time at
+    each of those widths (spec_forward_times).  Then the randomized fleet's first
+    SPEC_RAND_LANES lanes (per-lane leaves: the lane-params forward kernel
+    at S·B lanes, one lane table a solve), f32, `ALSolverBatched` with the
+    fleet's options capped at SPEC_RAND_MAX_TOTAL total iterations, S =
+    SPEC_RAND_S against S = 1, with the same equalities.  Returns each
+    fused kernel's launches per solve at each S of the main path and the
+    forward kernel's times at each width."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import THREE_OBSTACLES, UnicycleProblem, randomized_fleet
+    from altro_tpu_torch.solver.batched import ALSolverBatched, gather_params
+
+    ref = _main_reference(dev)
+    defn, prob, params, Zb = _main_fleet(dev)
+    rows = {1: dict(wall_s=ref["wall_s"], host_syncs=ref["host_syncs"], forward_launches=ref["forward_launches"])}
+    launches = {}
+    for S in SPEC_S:
+        solver = bench_solver(prob, line_search_parallel=S)
+        solver.solve(params, Zb)
+        kerns = [solver._p1._bwd, solver._p1._fwd, solver._tail._bwd, solver._tail._fwd]
+        for k in kerns:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = solver.solve(params, Zb)
+        _sync()
+        wall = time.perf_counter() - t0
+        same = _same_solve(res, ref["res"])
+        launches[S] = dict(backward_fused=kerns[0].launches + kerns[2].launches,
+                           forward=kerns[1].launches + kerns[3].launches)
+        rows[S] = dict(wall_s=wall, host_syncs=solver.host_syncs, forward_launches=launches[S]["forward"],
+                       backward_launches=launches[S]["backward_fused"], lanes_per_forward=S * B_FLEET, **same)
+        assert all(same.values()), (S, same)
+    emit(dict(phase="speculative", path="main", B=B_FLEET, N=N, dtype="f32", per_S=rows))
+    fwd_times = spec_forward_times(dev)
+    emit(dict(phase="speculative_forward", B=B_FLEET, N=N, dtype="f32", per_S=fwd_times))
+
+    rdefn = UnicycleProblem(scenario=THREE_OBSTACLES, dtype=torch.float32, device=dev, N=N)
+    rprob = rdefn.make_problem().compile()
+    full, _, _ = randomized_fleet(rdefn, rprob, B_FLEET, seed=RAND_SEED)
+    L = SPEC_RAND_LANES
+    rparams = gather_params(rprob.params, full, torch.arange(L, device=dev))
+    opts = SolverOptions(**BENCH_OPT_KW).replace(**OBST_OPT_KW, max_iterations_total=SPEC_RAND_MAX_TOTAL)
+    out, rrows = {}, {}
+    for S in (1, SPEC_RAND_S):
+        s = ALSolverBatched(rprob, opts.replace(line_search_parallel=S))
+        assert s._fwd is not None and s._fwd.takes(rparams) and s._fwd.param_sig(rparams), "no lane-params forward"
+        t0 = time.perf_counter()
+        out[S] = s.solve(rparams, fleet_trajectory(rdefn, L))
+        _sync()
+        rrows[S] = dict(wall_s=time.perf_counter() - t0, host_syncs=s.host_syncs, forward_launches=s._fwd.launches,
+                        backward_launches=s._bwd.launches, lane_table_lanes=[e[3].shape[1] for e in s._fwd._prep])
+    same = _same_solve(out[SPEC_RAND_S], out[1])
+    status = out[1]["status"].cpu().numpy()
+    emit(dict(phase="speculative", path="randomized", lanes=L, N=N, dtype="f32", max_iterations_total=SPEC_RAND_MAX_TOTAL,
+              S=SPEC_RAND_S, per_S=rrows, **same,
+              status_hist={int(c): int((status == c).sum()) for c in sorted(set(status.tolist()))}))
+    assert all(same.values()), same
+    return launches, fwd_times
+
+
+def phase_triple_integrator(dev) -> dict:
+    """The fused kernels' triple-integrator instantiations
+    (`csrc/models.cuh:TripleIntegrator<2>`, (n, m) = (6, 2)):
+      1. both kernels against their plain versions at
+         TripleIntegratorProblem's shapes (N=10, its control bounds and
+         goal), f64 and f32, B in TRIPLE_B, as phase_fused_zoo_vs_plain
+         holds the zoo (each of tolerances.RHOS' ρ; each f64 lane within
+         SENS_FACTOR times its one-ulp sensitivity), with CUDA event and
+         device times and the bounds at B=2048;
+      2. a TRIPLE_FLEET_B-lane fleet (x0 spread 0.05 about the problem's
+         x0 from seed 0), f64, bench options, `ALSolverBatched` on both
+         fused kernels against the Riccati fallback (the Riccati kernel
+         and the eager forward pass): statuses and iterations equal, U
+         within TRIPLE_U_REL of max(|U|, 1).
+    Returns the f32 summary at B=2048 and each kernel's launches per
+    solve."""
+    import torch
+
+    from altro_tpu_torch import SolverOptions
+    from altro_tpu_torch.models.problems import TripleIntegratorProblem
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    summary = {}
+    for dtype in (torch.float64, torch.float32):
+        rng = np.random.default_rng(0)
+        for B in TRIPLE_B:
+            line = zoo_kernels_vs_plain(dev, "triple", dtype, rng, B=B, device_times=B == TRIPLE_B[0])
+            if B == TRIPLE_B[0] and dtype == torch.float32:
+                summary = dict(
+                    backward_fused=dict(
+                        max_abs_err=max(c[k]["max_abs"] for c in line["backward_fused"].values() for k in ("K", "d")),
+                        ms=line["backward_ms"], device_ms=line["backward_device_ms"], plain_ms=line["backward_plain_ms"],
+                        bound=line["backward_bound"]),
+                    forward=dict(
+                        max_abs_err=max(c[k]["max_abs"] for c in line["forward"].values() for k in ("Xn", "Ubar")),
+                        ms=line["forward_ms"], device_ms=line["forward_device_ms"], plain_ms=line["forward_plain_ms"],
+                        bound=line["forward_bound"]),
+                )
+    defn = TripleIntegratorProblem(dtype=torch.float64, device=dev)
+    prob = defn.make_problem(add_constraints=True).compile()
+    params = prob.params.replace(x0=zoo_x0s(defn._t(defn.x0), TRIPLE_FLEET_B, np.random.default_rng(0)))
+    opts = SolverOptions(**BENCH_OPT_KW)
+    sk = ALSolverBatched(prob, opts)
+    sr = ALSolverBatched(prob, opts.replace(backward_pass="riccati", forward_pass="scan"))
+    assert sk._bwd is not None and sk._fwd is not None and sk._ric is None, "the fused kernels refused the model"
+    assert sr._ric is not None and sr._bwd is None and sr._fwd is None
+    Zb = replicate(defn.initial_trajectory(), TRIPLE_FLEET_B)
+    t0 = time.perf_counter()
+    rk = sk.solve(params, Zb)
+    _sync()
+    wall_k = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rr = sr.solve(params, Zb)
+    _sync()
+    wall_r = time.perf_counter() - t0
+    scale = max(float(rr["Z"].U.abs().max()), 1.0)
+    du = float((rk["Z"].U - rr["Z"].U).abs().max()) / scale
+    status = rk["status"].cpu().numpy()
+    launches = dict(backward_fused=sk._bwd.launches, forward=sk._fwd.launches, riccati=sr._ric.launches)
+    same_status = bool(rk["status"].equal(rr["status"]))
+    same_it = bool(rk["stats"].iterations_total.equal(rr["stats"].iterations_total))
+    emit(dict(phase="triple_integrator_fleet", B=TRIPLE_FLEET_B, N=prob.N, dtype="f64", wall_s_kernels=wall_k,
+              wall_s_riccati_fallback=wall_r, host_syncs=dict(kernels=sk.host_syncs, riccati_fallback=sr.host_syncs),
+              launches_per_solve=launches, statuses_equal=same_status, iterations_equal=same_it,
+              U_max_rel_diff=du, status_hist={int(c): int((status == c).sum()) for c in sorted(set(status.tolist()))},
+              iters_max=int(rk["stats"].iterations_total.max())))
+    assert same_status and same_it, "the kernels' solve and the Riccati fallback's differ"
+    assert du <= TRIPLE_U_REL, f"U differs by {du:.3e} relative"
+    assert bool(torch.isfinite(rk["Z"].U).all()) and launches["backward_fused"] > 0 and launches["forward"] > 0
+    summary["launches_per_solve"] = launches
+    return summary
+
+
+def phase_live_rows(dev) -> None:
+    """The main path (bench.make_solver's program, B=4096, f32) at
+    `verbose=OUTER`: one fleet row per lockstep outer iteration of every
+    solve inside it, each one more host sync, so the solve's syncs exceed
+    the SILENT solve's (phase_main_path's) by exactly the rows; its
+    statuses and U equal the SILENT solve's bit for bit."""
+    import contextlib
+    import io
+
+    from altro_tpu_torch import LogLevel
+
+    ref = _main_reference(dev)
+    _, prob, params, Zb = _main_fleet(dev)
+    solver = bench_solver(prob, verbose=LogLevel.OUTER)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        res = solver.solve(params, Zb)
+        _sync()
+        wall = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    rows = [ln for ln in lines if ln.strip() and ln.strip()[0].isdigit()]
+    same = _same_solve(res, ref["res"])
+    emit(dict(phase="live_rows", rows=len(rows), host_syncs=solver.host_syncs, silent_host_syncs=ref["host_syncs"],
+              wall_s=wall, silent_wall_s=ref["wall_s"], first=lines[:4], last=rows[-1:] if rows else None, **same))
+    assert rows, "no row printed"
+    assert solver.host_syncs == ref["host_syncs"] + len(rows), (solver.host_syncs, ref["host_syncs"], len(rows))
+    assert same["statuses"] and same["U_bitwise"], same
+
+
+def _general_problems(dev):
+    """The three general problems of phase_general at GENERAL_N, float64,
+    with x0 drawn from seed 0 as their tests draw it: (name, compiled
+    problem, params, initial trajectory)."""
+    import torch
+
+    from altro_tpu_torch.models.problems import damping_schedule, hybrid_triple_integrator, soc_unicycle
+    from altro_tpu_torch.types import initial_trajectory
+
+    f64, B = torch.float64, GENERAL_B
+    out = []
+    defn, prob = soc_unicycle(GENERAL_N, device=dev)
+    x0 = np.random.default_rng(0).uniform(-0.2, 0.2, (3, B))  # tests/test_batched_soc.py:82
+    out.append(("soc_unicycle", prob, prob.params.replace(x0=torch.as_tensor(x0, device=dev)),
+                defn.initial_trajectory()))
+    for name, build in (("hybrid", hybrid_triple_integrator), ("per_instance_schedule", damping_schedule)):
+        prob, x00, _ = build(2, GENERAL_N, device=dev)
+        rng = np.random.default_rng(0)  # tests/test_batched_heterogeneous.py:64-75
+        params = prob.params.replace(x0=torch.as_tensor(x00[:, None] + rng.uniform(-0.2, 0.2, (6, B)), device=dev))
+        if name == "per_instance_schedule":  # tests/test_batched_heterogeneous.py:141-145
+            c = prob.params.dynamics[0]["c"]
+            scale = torch.as_tensor(rng.uniform(0.8, 1.2, (GENERAL_N, B)), device=dev)
+            params = params.replace(dynamics=(dict(c=c[:, None] * scale),))
+        out.append((name, prob, params, initial_trajectory(6, 2, GENERAL_N, 0.1, dtype=f64, device=dev)))
+    return out
+
+
+def phase_general(dev) -> None:
+    """The problems no fused kernel takes, B=GENERAL_B, float64: the
+    velocity-cone unicycle (a second-order cone, N=40), the hybrid
+    triple-integrator / damped system at dof 2 (two dynamics families) and
+    the damping schedule at dof 2 with per-knot params per lane.  Each
+    solved twice on the card: with backward_pass="fused" and
+    forward_pass="cuda", which route the backward pass to the Riccati
+    kernel (its launch count > 0) and the forward pass to the eager
+    rollout, and with the eager passes: statuses and iterations equal, U
+    within GENERAL_U_REL of max(|U|, 1), at least GENERAL_SOLVED_MIN
+    SOLVED.  Run in the parent while run_plain's processes run."""
+    from altro_tpu_torch import SolverOptions, SolverStatus
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    for name, prob, params, Z0 in _general_problems(dev):
+        Zb = replicate(Z0, GENERAL_B)
+        sk = ALSolverBatched(prob, SolverOptions(backward_pass="fused", forward_pass="cuda"))
+        se = ALSolverBatched(prob, SolverOptions())
+        assert sk._bwd is None and sk._fwd is None and sk._ric is not None, f"{name}: not on the fallback"
+        t0 = time.perf_counter()
+        rk = sk.solve(params, Zb)
+        _sync()
+        wall_k = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        re_ = se.solve(params, Zb)
+        _sync()
+        wall_e = time.perf_counter() - t0
+        scale = max(float(re_["Z"].U.abs().max()), 1.0)
+        du = float((rk["Z"].U - re_["Z"].U).abs().max()) / scale
+        status = rk["status"].cpu().numpy()
+        solved = float((status == int(SolverStatus.SOLVED)).mean())
+        same_status = bool(rk["status"].equal(re_["status"]))
+        same_it = bool(rk["stats"].iterations_total.equal(re_["stats"].iterations_total))
+        emit(dict(phase="general", problem=name, B=GENERAL_B, N=prob.N, n=prob.n, m=prob.m, dtype="f64",
+                  riccati_launches=sk._ric.launches, wall_s_riccati=wall_k, wall_s_eager=wall_e,
+                  host_syncs=sk.host_syncs, statuses_equal=same_status, iterations_equal=same_it,
+                  U_max_rel_diff=du, solved_frac=solved, iters_max=int(rk["stats"].iterations_total.max())))
+        assert sk._ric.launches > 0, f"{name}: the Riccati kernel never ran"
+        assert same_status and same_it, f"{name}: the Riccati path and the eager path differ"
+        assert du <= GENERAL_U_REL, f"{name}: U differs by {du:.3e} relative"
+        assert solved >= GENERAL_SOLVED_MIN, f"{name}: {solved:.4f} SOLVED"
+
+
 def scaling_fleet(name, B, dev, dtype=None):
     """The problem (f32 unless `dtype` says otherwise), fleet trajectory
     (rolled out from the instance's own start) and warm AL state of one
@@ -2353,11 +2713,15 @@ def main(argv) -> int:
         zoo = timed(zoo_part)
         obst_kern, obst = timed(obstacles_part)
         rand_kern, rand_launches, complete_launches = timed(phase_randomized)
+        spec_launches, spec_fwd = timed(phase_speculative)
+        tri = timed(phase_triple_integrator)
+        timed(phase_live_rows)
 
         def plain_stage(_dev):
             """The zoo's and the obstacle fleet's plain solves, together,
-            after every timed kernel measurement."""
-            return run_plain([zoo, obst])
+            after every timed kernel measurement; the general problems'
+            solves (untimed) run in this process meanwhile."""
+            return run_plain([zoo, obst], during=lambda: timed(phase_general))
 
         plain = timed(plain_stage)
         zoo_launches, obst_launches = plain["zoo"], plain["obstacles"]
@@ -2370,14 +2734,18 @@ def main(argv) -> int:
     # the main path (5 solves; its float64 polish apart), the zoo and the
     # obstacle fleet's two modes (per solve), the float64 polish of the
     # obstacle fleet and the randomized fleet's complete mode (one solve
-    # each), the Riccati kernel on backward_pass="pallas" (3 solves)
+    # each), the main path with the speculative line search and the triple
+    # integrator's fleet (per solve), the Riccati kernel on
+    # backward_pass="pallas" (3 solves)
     by_path = {
         name: dict(main_path=main_launches[name], main_path_polish=main_launches["polish"][name],
                    riccati_path=ric_launches[name],
                    **{f"zoo_{z}_per_solve": zoo_launches[z][name] for z in zoo_launches},
                    **{f"obstacles_{mode}_per_solve": obst_launches[mode][name] for mode in obst_launches},
                    randomized_f32_throughput_per_solve=rand_launches[name],
-                   randomized_complete_per_solve=complete_launches[name])
+                   randomized_complete_per_solve=complete_launches[name],
+                   **{f"main_path_speculative_S{S}": spec_launches[S][name] for S in SPEC_S},
+                   triple_integrator_per_solve=tri["launches_per_solve"][name])
         for name in ("backward_fused", "forward")
     }
     by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])
@@ -2407,6 +2775,13 @@ def main(argv) -> int:
             rb_ms, rb_by = bound(*o["work"], "f32")
             rows[-1]["randomized"] = dict(max_abs_err=o["max_abs_err"], ms=o["ms"], device_ms=o["device_ms"],
                                           plain_ms=o["plain_ms"], bound_ms=rb_ms, bound_by=rb_by)
+        if name == "forward":  # at the speculative search's S·B lanes on the main path
+            rows[-1]["speculative"] = {f"S{S}": t for S, t in spec_fwd.items()}
+        if name in tri:  # its (6, 2) triple-integrator instantiation, B=2048
+            o = tri[name]
+            tb_ms, tb_by = o["bound"]
+            rows[-1]["triple_integrator"] = dict(max_abs_err=o["max_abs_err"], ms=o["ms"], device_ms=o["device_ms"],
+                                                 plain_ms=o["plain_ms"], bound_ms=tb_ms, bound_by=tb_by)
     emit({"kernels": rows})
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -7,6 +7,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from altro_tpu import Problem, SolverOptions, control_bound, lqr_cost
@@ -20,6 +21,17 @@ from altro_tpu_torch import convert
 from altro_tpu_torch.models.problems import UnicycleProblem as TUnicycle
 
 F64 = torch.float64
+
+
+@pytest.fixture
+def one_torch_thread():
+    """One torch thread for a test of small eager ops: faster there, and
+    the test workers share the cores (each worker's default is all of
+    them)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def numpy_tree(tree):

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from altro_tpu_torch import SolverOptions
-from altro_tpu_torch.models.problems import UnicycleProblem, zoo_cartpole, zoo_quadrotor
+from altro_tpu_torch.models.problems import TripleIntegratorProblem, UnicycleProblem, zoo_cartpole, zoo_quadrotor
 from altro_tpu_torch.ops import _build
 from altro_tpu_torch.ops import backward_fused as bf
 from altro_tpu_torch.ops.backward_fused import BackwardFusedKernel
@@ -40,6 +40,8 @@ KERNELS = {"backward_fused": BackwardFusedKernel, "forward": ForwardKernel}
 def _problem(model, dtype):
     if model == "unicycle":
         return UnicycleProblem(dtype=dtype, device="cpu").make_problem().compile()
+    if model == "triple_integrator2":
+        return TripleIntegratorProblem(dtype=dtype, device="cpu").make_problem(add_constraints=True).compile()
     return (zoo_quadrotor if model == "quadrotor" else zoo_cartpole)(dtype=dtype, device="cpu")[0]
 
 
@@ -64,6 +66,40 @@ def test_launch_geometry(kind, model, dtype, B):
         assert g.threads - consumers >= 32 and g.lanes * g.group % 32 == 0
     else:
         assert g.threads == 64 and g.lanes <= 32
+
+
+@pytest.mark.parametrize("B", [1, 1001, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("kind", sorted(KERNELS))
+def test_triple_integrator_geometry(kind, dtype, B):
+    """The (6, 2) instantiations (`csrc/models.cuh:TripleIntegrator<2>`,
+    TripleIntegratorProblem with its control bound and goal, N=10): both
+    fused kernels take the model, and their geometry is the one the
+    launchers check, with the knots per chunk that `chunk_knots` derives
+    from n=6, m=2 and the scalar type, the shared memory of that chunk, and
+    the cost table staged."""
+    prob = _problem("triple_integrator2", dtype)
+    kern = KERNELS[kind](prob, SolverOptions(), dtype=dtype, device="cpu")
+    assert kern.model_name == "triple_integrator2" and bf.CUDA_MODELS["triple_integrator2"] == (6, 2, ())
+    assert kern._entry(frozenset()) == f"altro_{kind}_triple_integrator2_{'f32' if dtype == torch.float32 else 'f64'}"
+    assert f"altro_{kind}_lanes_triple_integrator2_f64" in _build.ENTRY_POINTS
+    g = kern.geometry(B)
+    item = torch.finfo(dtype).bits // 8
+    assert g.blocks == -(-B // bf.LANES) and g.lanes == bf.LANES
+    tab = g.tab_smem
+    assert tab == kern._problem_desc(prob.params)[1].numel()  # two rows of 6·6 + 2·2 + 6·2 + 6 + 2 + 1
+    if kind == "backward_fused":
+        want = bf.chunk_knots(bf.LANES * (6 + 2 + 1), bf.PRODUCER_ROUNDS * bf.PRODUCERS,
+                              lambda k: bf.backward_smem(6, 2, item, bf.LANES, k, bf.TABLE_SMEM // item))
+        assert g.knots == want and g.smem == bf.backward_smem(6, 2, item, bf.LANES, want, tab)
+        assert g.group == 8 and g.threads == bf.LANES * 8 + bf.PRODUCERS
+    else:
+        want = bf.chunk_knots(bf.LANES * (6 + 2 * 2 + 2 * 6 + kern.Ps + kern.Fs), bf.STAGE_WORDS,
+                              lambda k: bf.forward_smem(6, 2, item, bf.LANES, k, bf.TABLE_SMEM // item,
+                                                        kern.Ps, kern.Fs))
+        assert g.knots == want and g.smem == bf.forward_smem(6, 2, item, bf.LANES, want, tab, kern.Ps, kern.Fs)
+        assert g.threads == bf.FWD_THREADS
+    assert g.knots in (1, 2, 4, 8, 16) and g.smem <= bf.SMEM_MAX
 
 
 def _families(kern, params):

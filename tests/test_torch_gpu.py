@@ -758,3 +758,130 @@ def test_certificates_on_the_card_equal_the_cpu():
         assert torch.equal(card.cpu(), cpu)
         if step_bound > 0:
             assert sorted(torch.nonzero(cpu).flatten().tolist()) == sorted(lanes.tolist())
+
+
+def _spec_solution(problem, dtype, dev, Bz, S):
+    """A solve on both fused kernels at line_search_parallel S: the parking
+    problem (N=100, x0 in ±0.1 from seed 0) with the bench's line search
+    (6 tries), or the randomized fleet (N=100, its per-lane leaves, the
+    obstacle fleet's options) capped at 30 total iterations."""
+    from altro_tpu_torch.models.problems import randomized_fleet
+
+    if problem == "parking":
+        defn = UnicycleProblem(dtype=dtype, device=dev)
+        prob = defn.make_problem().compile()
+        x0 = np.random.default_rng(0).uniform(-0.1, 0.1, (3, Bz))
+        params = prob.params.replace(x0=torch.as_tensor(x0, device=dev).to(dtype))
+        opts = SolverOptions(backward_pass="fused", forward_pass="cuda", line_search_max_iterations=6)
+    else:
+        defn = UnicycleProblem(scenario="three_obstacles", dtype=dtype, device=dev)
+        prob = defn.make_problem().compile()
+        params, _, _ = randomized_fleet(defn, prob, Bz, seed=0)
+        opts = SolverOptions(backward_pass="fused", forward_pass="cuda", initial_penalty=1.0,
+                             line_search_max_iterations=20, max_stall_iterations=10,
+                             outer_constraints_f64=True, max_iterations_total=30)
+    solver = ALSolverBatched(prob, opts.replace(line_search_parallel=S))
+    assert solver._fwd is not None and solver._bwd is not None
+    res = solver.solve(params, _fleet_Z(defn, Bz))
+    return res, solver
+
+
+def _equal_solves(a, b):
+    assert torch.equal(a["status"], b["status"])
+    for key in ("iterations_total", "iterations_outer", "alpha", "cost"):
+        assert _bitwise([getattr(a["stats"], key)], [getattr(b["stats"], key)]), key
+    assert _bitwise([a["Z"].U, a["Z"].X], [b["Z"].U, b["Z"].X])
+
+
+@pytest.mark.parametrize("S", [2, 8])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+@pytest.mark.parametrize("Bz", [1001, 4096])
+def test_speculative_line_search_equals_sequential_on_the_kernels(Bz, dtype, S):
+    """S step sizes in one forward launch at S·B lanes accept what the
+    sequential search accepts: statuses, iterations, α, cost, U and X bit
+    for bit, with fewer forward launches and host syncs."""
+    dev = _device()
+    base, s1 = _spec_solution("parking", dtype, dev, Bz, 1)
+    res, sS = _spec_solution("parking", dtype, dev, Bz, S)
+    _equal_solves(res, base)
+    assert sS._fwd.launches < s1._fwd.launches and sS.host_syncs < s1.host_syncs
+    assert sS._bwd.launches == s1._bwd.launches
+
+
+def test_speculative_line_search_on_the_lane_params_kernels():
+    """The randomized fleet (B=1001, per-lane leaves, capped at 30
+    iterations) at S=4 against S=1: the lane-params forward kernel at
+    4·1001 lanes, one lane table of 4·1001 lanes for the solve, every
+    result bit for bit."""
+    dev = _device()
+    base, _ = _spec_solution("randomized", torch.float32, dev, 1001, 1)
+    res, s4 = _spec_solution("randomized", torch.float32, dev, 1001, 4)
+    _equal_solves(res, base)
+    assert sorted(e[3].shape[1] for e in s4._fwd._prep) == [1001, 4 * 1001]
+
+
+def _triple_fleet(dtype, dev, Bz):
+    """TripleIntegratorProblem (dof 2, N=10, its control bounds and goal)
+    at Bz lanes, x0 spread 0.05 about its start, rolled out, under a warm
+    random AL state."""
+    rng = np.random.default_rng(0)
+    defn = TripleIntegratorProblem(dtype=dtype, device=dev)
+    prob = defn.make_problem(add_constraints=True).compile()
+    ev = ALSolverBatched(prob, SolverOptions())
+    x0s = defn.x0[:, None] + 0.05 * rng.standard_normal((prob.n, Bz))
+    params = prob.params.replace(x0=torch.as_tensor(x0s, device=dev).to(dtype))
+    Z = ev.rollout(params, _fleet_Z(defn, Bz))
+    al = tuple(
+        dict(
+            lam=torch.as_tensor(rng.uniform(-0.5, 0.0, st["lam"].shape), device=dev).to(dtype),
+            rho=torch.as_tensor(rng.uniform(1.0, 10.0, st["rho"].shape), device=dev).to(dtype),
+        )
+        for st in ev.al_state_init(Bz, dtype)
+    )
+    return prob, params, Z, al
+
+
+@pytest.mark.parametrize("Bz", [2048, 1001, 1])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f64", "f32"])
+def test_fused_kernels_match_plain_on_the_triple_integrator(dtype, Bz):
+    """The (6, 2) instantiations (`csrc/models.cuh:TripleIntegrator<2>`)
+    against their plain versions, as at the ragged widths."""
+    dev = _device()
+    prob, params, Z, al = _triple_fleet(dtype, dev, Bz)
+    assert BackwardFusedKernel(prob, SolverOptions(), dtype=dtype, device=dev).model_name == "triple_integrator2"
+    _hold_fused_kernels("triple", dtype, dev, prob, params, Z, al)
+
+
+@pytest.mark.parametrize("problem", ["soc", "hybrid"])
+def test_general_problems_through_the_riccati_kernel_equal_eager(problem):
+    """A second-order cone (the velocity-cone unicycle, N=40) and two
+    dynamics families (the hybrid triple integrator at dof 2, N=40), B=256,
+    float64: backward_pass="fused" falls back to the Riccati kernel (and the
+    eager forward pass), whose solve equals the eager passes' in statuses
+    and iterations, U within 1e-9 of max(|U|, 1)."""
+    from altro_tpu_torch.models.problems import hybrid_triple_integrator, soc_unicycle
+    from altro_tpu_torch.types import initial_trajectory
+
+    dev = _device()
+    Bz = 256
+    rng = np.random.default_rng(0)
+    if problem == "soc":
+        defn, prob = soc_unicycle(40, device=dev)
+        x0, Z0 = rng.uniform(-0.2, 0.2, (3, Bz)), defn.initial_trajectory()
+    else:
+        prob, x00, _ = hybrid_triple_integrator(2, 40, device=dev)
+        x0 = x00[:, None] + rng.uniform(-0.2, 0.2, (6, Bz))
+        Z0 = initial_trajectory(6, 2, 40, 0.1, dtype=torch.float64, device=dev)
+    params = prob.params.replace(x0=torch.as_tensor(x0, device=dev))
+    Z = BatchedTrajectory(Z0.X[..., None].expand(-1, -1, Bz).contiguous(),
+                          Z0.U[..., None].expand(-1, -1, Bz).contiguous(), Z0.t, Z0.h)
+    sk = ALSolverBatched(prob, SolverOptions(backward_pass="fused", forward_pass="cuda"))
+    assert sk._bwd is None and sk._fwd is None and sk._ric is not None
+    rk = sk.solve(params, Z)
+    re_ = ALSolverBatched(prob, SolverOptions()).solve(params, Z)
+    assert sk._ric.launches > 0
+    assert torch.equal(rk["status"], re_["status"])
+    assert torch.equal(rk["stats"].iterations_total, re_["stats"].iterations_total)
+    scale = max(float(re_["Z"].U.abs().max()), 1.0)
+    assert float((rk["Z"].U - re_["Z"].U).abs().max()) <= 1e-9 * scale
+    assert float((rk["status"] == int(SolverStatus.SOLVED)).float().mean()) >= 0.99
