@@ -15,6 +15,9 @@ import torch
 
 from .problem.problem import ProblemParams
 from .solver.batched import BatchedTrajectory
+from .solver.functions import ConState
+from .solver.mpc import MPCState
+from .types import Trajectory
 
 
 def tensor(a, device, dtype) -> torch.Tensor:
@@ -68,3 +71,27 @@ def expansions(exp, device, dtype) -> dict:
     """A batch-last expansion dict (A, B, lxx, lxu, luu, lx, lu, and costs
     where present), as `riccati_pallas` and `riccati_scan` take it."""
     return {key: tensor(val, device, dtype).contiguous() for key, val in exp.items()}
+
+
+def instance_al_state(al, device, dtype) -> tuple:
+    """A per-instance AL state: a tuple of `ConState` (lam [nk, p], rho [nk])."""
+    return tuple(ConState(lam=tensor(st.lam, device, dtype), rho=tensor(st.rho, device, dtype)) for st in al)
+
+
+def instance_trajectory(Z, device, dtype) -> Trajectory:
+    """A per-instance trajectory (X [N+1, n], U [N, m], t, h)."""
+    return Trajectory(X=tensor(Z.X, device, dtype), U=tensor(Z.U, device, dtype),
+                      t=tensor(Z.t, device, dtype), h=tensor(Z.h, device, dtype))
+
+
+def mpc_state(state, device, dtype) -> MPCState:
+    """An `MPCState`: a per-instance one (X [N+1, n], `ConState` duals) or a
+    batch-last one (X [N+1, n, B], dict duals), told apart by X's rank."""
+    if np.ndim(state.Z.X) == 3:
+        Z, al = trajectory(state.Z, device, dtype), al_state(state.al, device, dtype)
+        iterations = tensor(state.iterations, device, dtype)
+    else:
+        Z, al = instance_trajectory(state.Z, device, dtype), instance_al_state(state.al, device, dtype)
+        iterations = int(state.iterations)
+    return MPCState(Z=Z, al=al, status=tensor(state.status, device, dtype).to(torch.int32),
+                    iterations=iterations)

@@ -184,12 +184,18 @@ def _digest() -> str:
 
 def _run_all(cmds: list[list[str]]) -> str:
     """Run the commands in parallel; raise on the first that fails, after
-    every one has ended.  Returns their joined output."""
-    procs = [
-        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=CSRC)
-        for cmd in cmds
-    ]
-    outs = [p.communicate() for p in procs]
+    every one has ended.  Returns their joined output.  If this is
+    interrupted, the commands still running are killed."""
+    procs = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=CSRC))
+        outs = [p.communicate() for p in procs]
+    finally:  # interrupted (a signal, an error): leave no compiler running
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     for cmd, p, (out, err) in zip(cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}\n{err}")

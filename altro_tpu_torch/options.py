@@ -110,10 +110,11 @@ class SolverOptions:
     # measure in float64 (see `altro_tpu.options`)
     outer_constraints_f64: bool = False
 
-    # Speculative line-search width; only 1 (sequential) is ported
+    # Speculative line-search width: step sizes tried in one forward-kernel
+    # launch (1: the sequential search)
     line_search_parallel: int = 1
 
-    # Capacity of the per-instance solver's stats arrays (not ported)
+    # Rows of the per-instance solver's iteration history (`SolverStats`)
     stats_capacity: int = 304
 
     # Per-iteration history rows of the batched solver (`BatchedStats.rows`);

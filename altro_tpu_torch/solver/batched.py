@@ -388,7 +388,7 @@ class ALSolverBatched:
         if o.verbose != LogLevel.SILENT:
             from ..utils.logging import SolverLogger
 
-            self._logger = SolverLogger(o.verbose, frequency=o.header_frequency)
+            self._logger = SolverLogger(o.verbose, frequency=o.header_frequency, fleet=True)
         x0 = prob.params.x0
         self.dtype = x0.dtype
         self.device = x0.device

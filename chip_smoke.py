@@ -68,12 +68,26 @@ in parallel), then:
      solves a B=2048 float64 fleet on them against the Riccati fallback;
  14. prints the main path's live fleet rows (verbose=OUTER): one host
      sync per row and nothing else changed;
- 15. solves the zoo's and the obstacle fleet's first 512 lanes on the
-     plain path, all in processes of their own at once, and holds steps 9
+ 15. drives the 4,096-controller MPC fleet (perf/mpc_device_latency.py:
+     fleet: `BatchedMPC` on the fused kernels, f32, at most 3 iterations
+     a tick, 100 closed-loop ticks of `rollout_ticks`): both kernels
+     launch on every tick, `rollout_ticks` equals `step` plus the plant
+     bit for bit, the closed loop agrees with the JAX package's
+     (tests/goldens/mpc_fleet_jax_f32.npz), and its first 256 lanes in
+     f64, 30 ticks, lane for lane with the JAX package's
+     (mpc_fleet_jax_f64.npz);
+ 16. solves the zoo's and the obstacle fleet's first 512 lanes on the
+     plain path (on the host's CPU, one thread each), all in processes of
+     their own at once, and holds steps 9
      and 10 against them; meanwhile, in this process, solves the problems
      no fused kernel takes (a second-order cone, two dynamics families,
      per-knot dynamics params; B=1024, f64) through the Riccati kernel
-     and through the eager passes, and holds one against the other.
+     and through the eager passes, and holds one against the other, and
+     runs the per-instance solver and controllers on the card
+     (`ALSolver`'s f64 golden, the same solve printing its rows,
+     `ILQRSolver`'s goldens, `MPC` against `BatchedMPC`'s lane 0); the
+     single controller's 100 ticks, held against the JAX package's, run
+     in a process of their own beside the plain solves.
 Each phase prints one JSON line.  `--phase NAME` (repeatable) runs only the
 named phases after the build, for measuring, and then prints the card but
 no kernel summary or result line.  With `--package-root DIR` those phases
@@ -118,6 +132,13 @@ ZOO_BATCH = 2048
 ZOO_PLAIN_LANES = 512  # lanes are independent; the plain path solves these
 ZOO_N = dict(quadrotor=50, cartpole=60)  # the zoo's horizons (perf/benchmark_zoo.py)
 PLAIN_TIMEOUT_S = 700  # the plain solves run in their own processes (run_plain); none may take longer
+# where the plain solves of the zoo and the obstacle fleet run: on the host's
+# CPU, one thread a process.  They are lockstep loops of small eager ops and
+# thousands of host reads; on the card the seven processes of the plain
+# stage took 143-483 s beside each other, time-sharing the card with the
+# single controller and this process (H100 700 W).  The plain path is the
+# same code on either device, and the card is left to the work it times.
+PLAIN_DEVICE = "cpu"
 # the zoo's overrides of the bench options (perf/benchmark_zoo.py:108-111)
 ZOO_OPT_KW = dict(
     initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10,
@@ -140,19 +161,23 @@ OBST_RESTART = dict(
     restart_rounds=1,
 )
 OBST_RAGGED_B = 1001  # a width whose last block of 8 lanes is part-empty
-OBST_REPS = 2  # timed solves of each obstacle-fleet mode after its warm-up (3 before the polish step came)
+# timed solves of each obstacle-fleet mode after its warm-up: 1, to keep the
+# whole script well inside its time limit on a slower host (3 before the
+# polish step came, 2 until the MPC controllers came; PERF.md)
+OBST_REPS = 1
 # the JAX package's float64 polish of every lane of the fleet, each stage
 # from a fresh start (tests/_torch_polish_check.py writes it on the CPU)
 OBST_POLISH_GOLDEN = os.path.join(ROOT, "tests", "goldens", "obstacle_fleet_polish_jax_f64.npz")
 # the plain path's comparison: the first 512 lanes in f32_throughput mode,
-# in 4 processes of 128 lanes.  On 512 lanes in one process that solve took
-# 440 s (177 lockstep iterations of eager ops, up to 20 rollouts a line
-# search; H100 700 W); the complete mode's cascade adds variants capped at
-# 300, 900 and 1,100 iterations, more than this script's time limit.  A
-# process's time is set by its slowest lane's lockstep iterations, each a
-# few thousand launches from the host, not by its lane count: 8 processes
-# of 64 beside the zoo's split into 4 (13 processes on the host's 8 cores)
-# finished no solve within PLAIN_TIMEOUT_S (H100 700 W; PERF.md section 6)
+# in 4 processes of 128 lanes.  On 512 lanes in one process on the card
+# that solve took 440 s (177 lockstep iterations of eager ops, up to 20
+# rollouts a line search; H100 700 W); the complete mode's cascade adds
+# variants capped at 300, 900 and 1,100 iterations, more than this
+# script's time limit.  A process's time is set by its slowest lane's
+# lockstep iterations, each a few thousand small ops, more than by its lane
+# count: 8 processes of 64 on the card beside the zoo's split into 4 (13
+# processes on the host's 8 cores) finished no solve within PLAIN_TIMEOUT_S
+# (H100 700 W; PERF.md section 6)
 OBST_PLAIN_MODE = "f32_throughput"
 OBST_PLAIN_LANES = 512
 OBST_PLAIN_PROCS = 4
@@ -161,10 +186,10 @@ CLEARANCE_MIN = -1e-3  # metres (example_unicycle_test.cpp:76-83)
 # f32_throughput mode: the obstacle fleet's solver and options, :138-145),
 # per-lane leaves drawn from seed 0 (models.problems.randomized_fleet)
 RAND_SEED = 0
-# timed solves after one warm-up, median reported: 2, not the script's 5,
-# to keep chip_smoke within its time limit (a solve takes 20-44 s on an
-# H100's host, and the complete mode's one solve 69-90 s; PERF.md)
-RAND_REPS = 2
+# timed solves after one warm-up, median reported: 1, not the script's 5,
+# to keep chip_smoke well inside its time limit (a solve takes 20-44 s on
+# an H100's host, and the complete mode's one solve 69-90 s; PERF.md)
+RAND_REPS = 1
 RAND_SOLVED_MIN = 0.65  # the JAX package's record on this data: 2913/4096 (perf/benchmark_randomized.out)
 RAND_DYN_SEED = 9  # the per-lane dynamics params' scales (part 2)
 # the script's complete mode (perf/benchmark_randomized.py:110-137): the
@@ -1010,32 +1035,65 @@ def zoo_outcome(s, params, res, xf, lanes) -> dict:
 
 
 def zoo_plain_solve(name: str, x0s: np.ndarray, lanes: int) -> dict:
-    """The plain path's zoo solve (run in its own process by run_plain):
-    zoo_outcome's dict, the wall time and the kernels' launches."""
+    """The plain path's zoo solve on PLAIN_DEVICE (run in its own process
+    by run_plain): zoo_outcome's dict, the wall time and the kernels'
+    launches."""
     import torch
 
-    s, prob, Z0, xf = zoo_solver(name, "plain", torch.device("cuda", 0))
+    s, prob, Z0, xf = zoo_solver(name, "plain", torch.device(PLAIN_DEVICE))
     params = prob.params.replace(x0=torch.as_tensor(x0s, device=prob.params.x0.device).float())
     t0 = time.perf_counter()
     res = s.solve(params, replicate(Z0, x0s.shape[1]))
-    _sync()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0  # its last host read ended the solve
     launches = sum(k.launches for k in (s._bwd, s._fwd, s._ric) if k is not None)
     return dict(name=name, wall_s=wall, host_syncs=s.host_syncs, launches=launches,
                 **zoo_outcome(s, params, res, xf, lanes))
 
 
-def _plain_worker(key, fn, args, out) -> None:
-    """One plain solve in a spawned process: puts (key, fn(*args) with
-    ok=True) on `out`, or (key, the traceback with ok=False)."""
+def _die_with_parent(parent: int) -> None:
+    """Have the kernel kill this process when the process that started it
+    ends, however it ends (Linux prctl PR_SET_PDEATHSIG), so that no plain
+    solve outlives this script."""
+    import ctypes
+    import signal
+
+    ctypes.CDLL(None, use_errno=True).prctl(1, int(signal.SIGKILL))  # 1: PR_SET_PDEATHSIG
+    if os.getppid() != parent:  # it ended before the call above
+        os._exit(1)
+
+
+def _plain_worker(key, fn, args, out, parent) -> None:
+    """One plain solve in a spawned process: sends (key, fn(*args) with
+    ok=True) on the pipe `out`, or (key, the traceback with ok=False)."""
+    _die_with_parent(parent)
     try:
         sys.path.insert(0, ROOT)
         import torch
 
         torch.set_num_threads(1)  # several of these share the host's cores
-        out.put((key, dict(ok=True, **fn(*args))))
+        r = dict(ok=True, **fn(*args))
     except Exception:  # noqa: BLE001 - the parent reports it and fails the phase
-        out.put((key, dict(ok=False, error=traceback.format_exc())))
+        r = dict(ok=False, error=traceback.format_exc())
+    try:
+        out.send((key, r))
+    except BrokenPipeError:  # the parent stopped listening: it has failed already
+        pass
+    out.close()
+
+
+def _stop_resource_tracker() -> None:
+    """End multiprocessing's resource-tracker process, which the spawn
+    start method starts and which would otherwise outlive this script by
+    the moment it takes to see the script's end.  It holds nothing here:
+    the plain solves talk through pipes, which it does not track."""
+    from multiprocessing import resource_tracker
+
+    rt = resource_tracker._resource_tracker
+    with rt._lock:
+        if rt._fd is not None and rt._pid is not None:
+            os.close(rt._fd)  # its end of file ends its loop
+            os.waitpid(rt._pid, 0)
+            rt._fd = rt._pid = None
 
 
 def run_plain(parts, during=None) -> dict:
@@ -1046,29 +1104,50 @@ def run_plain(parts, during=None) -> dict:
     function of {key: result} whose return value this returns under the
     part's name.  `during()`, if given, runs in this process once the
     others have started.  A failed solve, or none within PLAIN_TIMEOUT_S,
-    fails the run."""
+    fails the run.  However this ends, every process it started has ended
+    when it returns or raises."""
     import multiprocessing as mp
+    from multiprocessing.connection import wait
 
     ctx = mp.get_context("spawn")
-    out = ctx.Queue()
-    procs = [ctx.Process(target=_plain_worker, args=(key, fn, args, out))
-             for _, jobs, _ in parts for key, fn, args in jobs]
+    jobs = [job for _, part_jobs, _ in parts for job in part_jobs]
+    procs, readers, heard = [], [], False
     t0 = time.perf_counter()
-    for p in procs:
-        p.start()
     try:
+        for key, fn, args in jobs:
+            r, w = ctx.Pipe(duplex=False)
+            p = ctx.Process(target=_plain_worker, args=(key, fn, args, w, os.getpid()))
+            p.start()
+            w.close()  # the child's end: a child that dies unheard reads as EOF here
+            procs.append(p)
+            readers.append(r)
         if during is not None:
             during()
-        results = {}
-        for _ in procs:
-            key, r = out.get(timeout=max(1.0, PLAIN_TIMEOUT_S - (time.perf_counter() - t0)))
-            assert r["ok"], f"plain solve {key}:\n{r['error']}"
-            results[key] = r
+        results, waiting = {}, list(readers)
+        while waiting:
+            left = PLAIN_TIMEOUT_S - (time.perf_counter() - t0)
+            ready = wait(waiting, timeout=max(1.0, left))
+            assert ready, f"no plain solve ended within {PLAIN_TIMEOUT_S} s: {len(waiting)} left"
+            for r in ready:
+                waiting.remove(r)
+                try:
+                    key, res = r.recv()
+                except EOFError:
+                    raise AssertionError("a plain solve's process died without a result") from None
+                assert res["ok"], f"plain solve {key}:\n{res['error']}"
+                results[key] = res
+        heard = True
     finally:
+        for r in readers:
+            r.close()
         for p in procs:
+            if not heard:  # failed or interrupted: the solves still running are of no use
+                p.kill()
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
+                p.join()
+        _stop_resource_tracker()
     wall = time.perf_counter() - t0
     return {name: check({key: results[key] for key, _, _ in jobs}, wall) for name, jobs, check in parts}
 
@@ -1197,8 +1276,9 @@ def zoo_part(dev):
     overrides.  Three timed solves of each on the kernels, with the
     kernels' counts set to 0 before them and read after.  Held to
     benchmark_zoo's contract against the plain path (eager passes, on the
-    first ZOO_PLAIN_LANES lanes, one process per model, run by run_plain
-    after the kernel solves so that they do not share the card with them):
+    first ZOO_PLAIN_LANES lanes on PLAIN_DEVICE, one process per model, run
+    by run_plain after the kernel solves so that they do not share the
+    host with them):
     SOLVED rate within 2 points, median relative cost difference on
     jointly solved lanes < 2e-2, all results finite.  Returns run_plain's
     part, whose check returns each kernel's launches per solve, per
@@ -1251,7 +1331,7 @@ def zoo_part(dev):
                 iters_max=int(it.max()), solved_frac_all=float((st_all == solved).mean()),
                 status_hist={SolverStatus(int(c)).name: int((st_all == c).sum()) for c in sorted(set(st_all.tolist()))},
                 median_terminal_err=float(np.median(rk["terminal_err"])),
-                plain_lanes=L, plain_wall_s=rs["wall_s"], plain_launches=rs["launches"],
+                plain_lanes=L, plain_device=PLAIN_DEVICE, plain_wall_s=rs["wall_s"], plain_launches=rs["launches"],
                 plain_phase_wall_s=plain_wall, solved_rate_kernel=rate_k, solved_rate_plain=rate_s,
                 status_agreement=float((st_k == st_s).mean()), jointly_solved=int(both.sum()),
                 cost_rel_diff_p50=float(np.median(relj)) if both.any() else None,
@@ -1344,17 +1424,16 @@ def obstacle_outcome(solver, defn, params, res, lanes) -> dict:
 
 def obstacle_plain_solve(mode: str, x0s: np.ndarray) -> dict:
     """The plain path's solve in `mode` of the obstacle fleet's lanes x0s
-    [3, lanes] (run in its own process by run_plain): obstacle_outcome's
+    [3, lanes] on PLAIN_DEVICE (run in its own process by run_plain): obstacle_outcome's
     dict, the wall time, host syncs, the kernels' launches and the
     solver's telemetry."""
     import torch
 
-    s, defn, prob = obstacle_solver(mode, "plain", torch.device("cuda", 0))
+    s, defn, prob = obstacle_solver(mode, "plain", torch.device(PLAIN_DEVICE))
     params = prob.params.replace(x0=torch.as_tensor(x0s, device=prob.params.x0.device).float())
     t0 = time.perf_counter()
     res = s.solve(params, fleet_trajectory(defn, x0s.shape[1]))
-    _sync()
-    wall = time.perf_counter() - t0
+    wall = time.perf_counter() - t0  # its last host read ended the solve
     launches = sum(_launches(ks) for ks in obstacle_kernels(s).values())
     return dict(wall_s=wall, host_syncs=s.host_syncs, launches=launches, telemetry=s.telemetry,
                 **obstacle_outcome(s, defn, params, res, x0s.shape[1]))
@@ -1631,7 +1710,7 @@ def obstacles_part(dev):
          lane SOLVED before the polish keeps its status and U bit for bit
          (tests/test_f64_polish.py:85-91);
       5. the fleet's first OBST_PLAIN_LANES lanes on the plain path (eager
-         passes, on the card) in OBST_PLAIN_MODE, split over
+         passes, on PLAIN_DEVICE) in OBST_PLAIN_MODE, split over
          OBST_PLAIN_PROCS processes that run_plain runs after the kernel
          solves (the lanes are independent), held to
          perf/benchmark_zoo.py's contract against the kernels' solve in
@@ -1665,7 +1744,7 @@ def obstacles_part(dev):
         clr = plain["clearance"]
         launches = sum(r["launches"] for r in parts)
         emit(dict(
-            phase="obstacles_vs_plain", mode=OBST_PLAIN_MODE, lanes=L, processes=P,
+            phase="obstacles_vs_plain", mode=OBST_PLAIN_MODE, lanes=L, processes=P, plain_device=PLAIN_DEVICE,
             plain_wall_s=[r["wall_s"] for r in parts], plain_stage_wall_s=plain_wall,
             plain_host_syncs=[r["host_syncs"] for r in parts], plain_launches=launches,
             plain_iters_max=[r["telemetry"]["iters_max"] for r in parts],
@@ -2303,6 +2382,386 @@ def phase_live_rows(dev) -> None:
     assert same["statuses"] and same["U_bitwise"], same
 
 
+MPC_B = 4096
+MPC_CAP = 3  # iterations a tick, total and inner (perf/mpc_device_latency.py)
+MPC_WARM = 2  # warm-up ticks at x0 before the closed loop
+MPC_TICKS = 100  # x h = 0.03 s: the whole 3 s manoeuvre
+MPC_BITWISE_TICKS = 5
+MPC_TRACE_TICKS = 3  # closed-loop ticks traced for the device's idle share (10 took 20 s more on an H100's host)
+MPC_F64_B = 256
+MPC_F64_TICKS = 30
+MPC_SINGLE_WARM = 11  # perf/mpc_device_latency.py:single's ticks before its chain
+MPC_SINGLE_TICKS = 100
+MPC_GOLDEN_F32 = os.path.join(ROOT, "tests", "goldens", "mpc_fleet_jax_f32.npz")
+MPC_GOLDEN_F64 = os.path.join(ROOT, "tests", "goldens", "mpc_fleet_jax_f64.npz")
+
+
+def _mpc_setup(dtype, dev, lanes, **opt_kw):
+    """The MPC fleet's controller (perf/mpc_device_latency.py:fleet):
+    turn-90 with constraints, at most MPC_CAP iterations a tick, the guess
+    shifted each tick, on the fused kernels; x0 uniform in ±0.1 from
+    default_rng(0) (the first `lanes` of MPC_B draws), the initial guess
+    replicated, the plant the model's RK4 step over the batch.  Returns
+    (definition, controller, first state, x0, plant)."""
+    import torch
+
+    from altro_tpu_torch import BatchedMPC, SolverOptions
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.models.unicycle import unicycle_rk4
+
+    defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    opts = SolverOptions(backward_pass="fused", forward_pass="cuda", max_iterations_total=MPC_CAP,
+                         max_iterations_inner=MPC_CAP).replace(**opt_kw)
+    mpc = BatchedMPC(prob, opts, shift=True)
+    x0 = np.random.default_rng(0).uniform(-0.1, 0.1, size=(3, MPC_B))[:, :lanes]
+    model = unicycle_rk4()
+    plant = lambda x, u: model(x, u, 0.0, defn.h)  # noqa: E731
+    return defn, mpc, mpc.init(fleet_trajectory(defn, lanes)), torch.as_tensor(x0, device=dev).to(dtype), plant
+
+
+def _eager_guard(solver) -> dict:
+    """Count calls of the batched solver's eager passes (expansions, the
+    eager sweep, the eager rollouts): a tick on the kernels makes none."""
+    calls = dict(expand=0, riccati_scan=0, rollout=0, closed_loop_rollout=0)
+    for name in calls:
+        fn = getattr(solver, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        setattr(solver, name, counted)
+    return calls
+
+
+def _mpc_f64_lanes(dev) -> dict:
+    """The fleet's first MPC_F64_B lanes in float64 on the fused kernels'
+    float64 instantiations: MPC_WARM warm-up ticks and MPC_F64_TICKS
+    closed-loop ticks against the JAX package's (tests/goldens/
+    mpc_fleet_jax_f64.npz), lane for lane: statuses and iterations equal at
+    every tick, u0 and the final x within tolerances.MPC_F64_ATOL.  Where
+    they part, the same ticks through the eager passes on the card (the
+    kernels' plain versions) say which side rounding decides."""
+    import torch
+
+    from altro_tpu_torch.ops import tolerances as tol
+
+    gold = np.load(MPC_GOLDEN_F64)
+
+    def run(**opt_kw):
+        _, mpc, state, x, plant = _mpc_setup(torch.float64, dev, MPC_F64_B, **opt_kw)
+        status, iters, u0s = [], [], []
+        for tick in range(MPC_WARM + MPC_F64_TICKS):
+            u0, state = mpc.step(state, x)
+            if tick >= MPC_WARM:
+                x = plant(x, u0)
+            status.append(state.status)
+            iters.append(state.iterations)
+            u0s.append(u0)
+        return mpc, [torch.stack(t).cpu().numpy() for t in (status, iters, u0s)] + [x.cpu().numpy()]
+
+    t0 = time.perf_counter()
+    mpc, (status, iters, u0, xf) = run()
+    _sync()
+    wall = time.perf_counter() - t0
+    bad = (status != gold["status"]) | (iters != gold["iterations"])
+    du = np.abs(u0 - gold["u0"]).max(axis=1)  # [ticks, lanes]
+    out = dict(lanes=MPC_F64_B, ticks=MPC_WARM + MPC_F64_TICKS, wall_s=wall, statuses_equal=bool(not bad.any()),
+               u0_max_diff=float(du.max()), x_final_max_diff=float(np.abs(xf - gold["x_final"]).max()),
+               launches=dict(backward_fused=mpc.solver._bwd.launches, forward=mpc.solver._fwd.launches),
+               solved_last_tick=int((status[-1] == 0).sum()))
+    parted = bad | (du > tol.MPC_F64_ATOL)
+    if parted.any():
+        ticks, lanes = np.nonzero(parted)
+        first = [(int(t), int(ln)) for t, ln in zip(ticks, lanes) if t == ticks.min()]
+        _, (e_status, e_iters, e_u0, _) = run(backward_pass="scan", forward_pass="scan")
+        out["parted"] = dict(
+            lanes=sorted(set(lanes.tolist())), first_tick=int(ticks.min()),
+            first=[dict(lane=ln, card=[int(status[t, ln]), int(iters[t, ln])],
+                        jax=[int(gold["status"][t, ln]), int(gold["iterations"][t, ln])],
+                        eager=[int(e_status[t, ln]), int(e_iters[t, ln])],
+                        u0_diff=float(du[t, ln]), eager_u0_diff=float(np.abs(e_u0[t, :, ln] - gold["u0"][t, :, ln]).max()))
+                   for t, ln in first[:8]])
+    return out
+
+
+def _mpc_idle_share(mpc, state, x0, plant) -> dict:
+    """The device's idle share over the first MPC_TRACE_TICKS closed-loop
+    ticks from the warm state: their untraced wall, then the same ticks
+    traced with torch.profiler (CUDA activities only), whose device events
+    (kernels, copies, sets) add up to the device's busy time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync()
+    t0 = time.perf_counter()
+    mpc.rollout_ticks(state, x0, plant, MPC_TRACE_TICKS)
+    _sync()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mpc.rollout_ticks(state, x0, plant, MPC_TRACE_TICKS)
+        _sync()
+    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    device_s = sum(dev_us(e) for e in rows) / 1e6
+    assert device_s > 0, "the MPC fleet's trace holds no device time"
+    return dict(ticks=MPC_TRACE_TICKS, wall_s=wall, device_s=device_s, device_idle_share=1.0 - device_s / wall,
+                device_events=sum(e.count for e in rows))
+
+
+def phase_mpc_fleet(dev) -> dict:
+    """The 4,096-controller MPC fleet (perf/mpc_device_latency.py:fleet) on
+    the fused kernels, float32: two warm-up ticks at x0, then
+    `rollout_ticks` for MPC_TICKS ticks with every count set to 0 just
+    before it.  Checks: both kernels launch on every tick and no tick runs
+    an eager pass; from the warm state, MPC_BITWISE_TICKS ticks of
+    `rollout_ticks` equal as many `step` calls plus the plant bit for bit;
+    the closed loop against the JAX package's on its fused Pallas kernels
+    (tests/goldens/mpc_fleet_jax_f32.npz) within the bounds of
+    ops/tolerances.py; the
+    first 256 lanes in float64, lane for lane (_mpc_f64_lanes).  Returns
+    each kernel's launches per tick."""
+    import torch
+
+    from altro_tpu_torch import SolverStatus
+    from altro_tpu_torch.ops import tolerances as tol
+
+    defn, mpc, state, x0, plant = _mpc_setup(torch.float32, dev, MPC_B)
+    solver = mpc.solver
+    bwd, fwd = solver._bwd, solver._fwd
+    assert bwd is not None and fwd is not None, "the MPC fleet did not select the CUDA kernels"
+    eager = _eager_guard(solver)
+    t0 = time.perf_counter()
+    for _ in range(MPC_WARM):
+        _, state = mpc.step(state, x0)
+    _sync()
+    warm_s = time.perf_counter() - t0
+
+    # rollout_ticks against a loop of step + plant, from the same warm state
+    st_r, x_r, X_r, U_r = mpc.rollout_ticks(state, x0, plant, MPC_BITWISE_TICKS)
+    s, x, Us = state, x0, []
+    for _ in range(MPC_BITWISE_TICKS):
+        u, s = mpc.step(s, x)
+        x = plant(x, u)
+        Us.append(u)
+    same = dict(
+        U_hist=bitwise([U_r], [torch.stack(Us)]), x_final=bitwise([x_r], [x]), status=bool(st_r.status.equal(s.status)),
+        al=bitwise([t for st in st_r.al for t in (st["lam"], st["rho"])], [t for st in s.al for t in (st["lam"], st["rho"])]),
+    )
+
+    # launch preparation of a tick's new params object (x0 replaced)
+    desc = bwd._desc
+    t0 = time.perf_counter()
+    for _ in range(100):
+        bwd._prepare(mpc.prob.params.replace(x0=x0), MPC_B)
+    prepare_us = (time.perf_counter() - t0) * 1e4
+
+    marks = []
+
+    def plant_marked(x, u):  # called once a tick, after the tick's solve
+        marks.append((bwd.launches, fwd.launches))
+        return plant(x, u)
+
+    bwd.launches = fwd.launches = 0
+    _sync()
+    t0 = time.perf_counter()
+    st, xf, X, U = mpc.rollout_ticks(state, x0, plant_marked, MPC_TICKS)
+    _sync()
+    wall = time.perf_counter() - t0
+    syncs = mpc.host_syncs
+    launches = dict(backward_fused=bwd.launches, forward=fwd.launches)
+    per_tick = np.diff(np.asarray([(0, 0)] + marks), axis=0)  # [ticks, 2]
+    status = st.status.cpu().numpy()
+    xf_np = xf.cpu().numpy()
+    dist = np.linalg.norm(xf_np[:2] - defn.xf[:2, None], axis=0)
+    idle = _mpc_idle_share(mpc, state, x0, plant)
+
+    gold = np.load(MPC_GOLDEN_F32)
+    solved_jax = float(gold["status_counts"][-1][int(SolverStatus.SOLVED)]) / MPC_B
+    dist_jax = np.linalg.norm(gold["x_final"][:2].astype(np.float64) - defn.xf[:2, None], axis=0)
+    x_med = float(np.median(np.abs(xf_np - gold["x_final"]).max(axis=0)))
+    solved = float((status == int(SolverStatus.SOLVED)).mean())
+    f64 = _mpc_f64_lanes(dev)
+    hist = {SolverStatus(int(c)).name: int((status == c).sum()) for c in sorted(set(status.tolist()))}
+    out = dict(
+        phase="mpc_fleet", B=MPC_B, N=N, dtype="f32", cap=MPC_CAP, ticks=MPC_TICKS, warmup_s=warm_s, wall_s=wall,
+        ms_per_tick=wall * 1e3 / MPC_TICKS, controller_steps_per_s=MPC_B * MPC_TICKS / wall,
+        host_syncs=syncs, host_syncs_per_tick=syncs / MPC_TICKS,
+        launches=launches, launches_per_tick=dict(backward_fused=launches["backward_fused"] / MPC_TICKS,
+                                                  forward=launches["forward"] / MPC_TICKS),
+        launches_per_tick_min=per_tick.min(axis=0).tolist(), eager_calls=eager,
+        prepare_us_per_new_params=prepare_us, descriptor_rebuilt=bwd._desc is not desc,
+        status_last_tick=hist, solved_frac=solved, solved_frac_jax=solved_jax,
+        goal_dist_p50=float(np.percentile(dist, 50)), goal_dist_p99=float(np.percentile(dist, 99)),
+        goal_dist_p99_jax=float(np.percentile(dist_jax, 99)), x_final_median_diff=x_med,
+        rollout_equals_steps=same, f64=f64, traced=idle,
+    )
+    emit(out)
+    assert tuple(U.shape) == (MPC_TICKS, 2, MPC_B) and tuple(X.shape) == (MPC_TICKS, 3, MPC_B)
+    assert bool(torch.isfinite(U).all()) and bool(torch.isfinite(X).all()), "non-finite closed loop"
+    assert (per_tick > 0).all(), "a tick launched no fused kernel"
+    assert not any(eager.values()), f"a tick ran the eager passes: {eager}"
+    assert all(same.values()), f"rollout_ticks differs from step: {same}"
+    assert abs(solved - solved_jax) * 100 <= tol.MPC_SOLVED_POINTS, (solved, solved_jax)
+    assert abs(out["goal_dist_p99"] - out["goal_dist_p99_jax"]) <= tol.MPC_GOAL_P99_M, out["goal_dist_p99"]
+    assert x_med <= tol.MPC_X_MEDIAN, x_med
+    assert f64["statuses_equal"] and "parted" not in f64, f"float64 lanes parted from the JAX package: {f64}"
+    assert f64["x_final_max_diff"] <= tol.MPC_F64_ATOL, f64
+    return dict(backward_fused=launches["backward_fused"] / MPC_TICKS, forward=launches["forward"] / MPC_TICKS)
+
+
+def phase_per_instance(dev) -> None:
+    """The per-instance solver and controller on the card (plain tensor
+    code: the JAX package's per-instance path reaches no Pallas kernel).
+    Untimed; in the full run it runs in this process while run_plain's
+    processes run.
+      1. ALSolver, float64, turn-90 at ctol 1e-6: SOLVED, 14 / 5
+         iterations, J within 1e-9 of GOLDEN_J (auglag_test.cpp:325-351);
+      2. the same solve at verbose=OUTER: its rows, and U bit for bit
+         with 1;
+      3. ILQRSolver on the unconstrained turn-90: the goldens of
+         tests/test_ilqr.py::TestUnicycle;
+      4. MPC against BatchedMPC's lane 0 (B=4 on the fused kernels),
+         float64, 3 ticks from zero (tests/test_batched_mpc.py:65-78): u0
+         within tolerances.MPC_F64_ATOL.
+    The single controller's ticks run in a process of their own
+    (mpc_single_solve).  Prints each solve's host syncs."""
+    import contextlib
+    import io
+
+    import torch
+
+    from altro_tpu_torch import MPC, ALSolver, BatchedMPC, ILQRSolver, LogLevel, SolverOptions, SolverStatus
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.ops import tolerances as tol
+
+    f64 = torch.float64
+    defn = UnicycleProblem(dtype=f64, device=dev, N=N)
+    prob = defn.make_problem().compile()
+    out = dict(phase="per_instance")
+
+    s = ALSolver(prob, SolverOptions(constraint_tolerance=1e-6))
+    t0 = time.perf_counter()
+    res = s.solve(prob.params, defn.initial_trajectory())
+    _sync()
+    J = float(s.fns.total_cost(prob.params, res.al, res.Z))
+    out["golden"] = dict(wall_s=time.perf_counter() - t0, host_syncs=s.host_syncs, status=int(res.status),
+                         iterations=[res.stats.iterations_total, res.stats.iterations_outer], J_diff=J - GOLDEN_J)
+
+    si = ALSolver(prob, SolverOptions(constraint_tolerance=1e-6, verbose=LogLevel.OUTER))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        t0 = time.perf_counter()
+        res_i = si.solve(prob.params, defn.initial_trajectory())
+        _sync()
+    rows = [ln for ln in buf.getvalue().splitlines() if ln.strip()]
+    out["verbose"] = dict(wall_s=time.perf_counter() - t0, host_syncs=si.host_syncs, rows=rows,
+                               U_bitwise=bitwise([res_i.Z.U], [res.Z.U]),
+                               iterations=[res_i.stats.iterations_total, res_i.stats.iterations_outer])
+
+    uprob = defn.make_problem(add_constraints=False).compile()
+    il = ILQRSolver(uprob, SolverOptions())
+    Z = il.rollout(uprob.params, defn.initial_trajectory())
+    J_init = float(il.fns.total_cost(uprob.params, (), Z))
+    exp = il.expansions(uprob.params, (), Z)
+    bp = il.backward_pass(exp)
+    fp = il.forward_pass(uprob.params, (), Z, bp, exp.costs.sum())
+    t0 = time.perf_counter()
+    ires = il.solve(uprob.params, (), defn.initial_trajectory())
+    _sync()
+    out["ilqr"] = dict(wall_s=time.perf_counter() - t0, host_syncs=il.host_syncs, status=int(ires.status),
+                       iterations=ires.stats.iterations_inner,
+                       J=float(il.fns.total_cost(uprob.params, (), ires.Z)), J_init=J_init,
+                       p0=bp.p[0].tolist(), d0=bp.d[0].tolist(), alpha=float(fp.alpha))
+
+    fleet = BatchedMPC(prob, SolverOptions(backward_pass="fused", forward_pass="cuda"))
+    single = MPC(prob, SolverOptions())
+    assert fleet.solver._bwd is not None and fleet.solver._fwd is not None
+    sf, ss = fleet.init(fleet_trajectory(defn, 4)), single.init(defn.initial_trajectory())
+    du, syncs_single = [], []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        uB, sf = fleet.step(sf, torch.zeros((3, 4), dtype=f64, device=dev))
+        u1, ss = single.step(ss, torch.zeros(3, dtype=f64, device=dev))
+        du.append(float((uB[:, 0] - u1).abs().max()))
+        syncs_single.append(single.host_syncs)
+    out["mpc_vs_fleet_lane0"] = dict(wall_s=time.perf_counter() - t0, u0_max_diff=max(du),
+                                     host_syncs_per_tick=syncs_single, fleet_launches=fleet.solver._bwd.launches)
+
+    emit(out)
+    g, ins, il_out = out["golden"], out["verbose"], out["ilqr"]
+    assert g["status"] == int(SolverStatus.SOLVED) and g["iterations"] == [14, 5], g
+    assert abs(g["J_diff"]) <= 1e-9, g
+    assert ins["U_bitwise"] and ins["iterations"] == g["iterations"] and len(rows) > 5, ins
+    # tests/test_ilqr.py::TestUnicycle (unicycle_ilqr_test.cpp:36-100)
+    assert il_out["status"] == int(SolverStatus.SOLVED) and il_out["iterations"] == 9, il_out
+    assert abs(il_out["J"] - 0.0387016567) <= 1e-5 and abs(J_init - 259.27636137767087) <= 1e-5, il_out
+    np.testing.assert_allclose(il_out["p0"], [0.024904637422419617, -0.46496022574032614, -0.0573096310550007],
+                               atol=1e-5)
+    np.testing.assert_allclose(il_out["d0"], [-2.565783457444465, 5.514158930898376], atol=1e-5 * 5.5)
+    assert il_out["alpha"] == 0.0625, il_out
+    assert max(du) <= tol.MPC_F64_ATOL, du
+
+
+def mpc_single_solve() -> dict:
+    """perf/mpc_device_latency.py:single on the card, in a process of its
+    own (run_plain): the per-instance controller, float32, at most MPC_CAP
+    iterations a tick, MPC_SINGLE_WARM ticks at x0 = 0, then
+    MPC_SINGLE_TICKS ticks of rollout_ticks.  Its ms and host syncs a tick
+    and the final goal xy distance."""
+    import torch
+
+    from altro_tpu_torch import MPC, SolverOptions
+    from altro_tpu_torch.models.problems import UnicycleProblem
+    from altro_tpu_torch.models.unicycle import unicycle_rk4
+
+    dev = torch.device("cuda", 0)
+    d32 = UnicycleProblem(dtype=torch.float32, device=dev, N=N)
+    mpc = MPC(d32.make_problem().compile(), SolverOptions(max_iterations_total=MPC_CAP,
+                                                          max_iterations_inner=MPC_CAP))
+    model = unicycle_rk4()
+    state = mpc.init(d32.initial_trajectory())
+    x = torch.zeros(3, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(MPC_SINGLE_WARM):
+        _, state = mpc.step(state, x)
+    _sync()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _, X, _ = mpc.rollout_ticks(state, x, lambda x, u: model(x, u, 0.0, d32.h), MPC_SINGLE_TICKS)
+    _sync()
+    wall = time.perf_counter() - t0
+    dist = float(np.linalg.norm(X[-1].cpu().numpy()[:2] - d32.xf[:2]))
+    return dict(warm_ticks=MPC_SINGLE_WARM, warm_s=warm, ticks=MPC_SINGLE_TICKS, wall_s=wall,
+                ms_per_tick=wall * 1e3 / MPC_SINGLE_TICKS, host_syncs_per_tick=mpc.host_syncs / MPC_SINGLE_TICKS,
+                goal_dist=dist, status_last_tick=int(state.status), finite=bool(torch.isfinite(X).all()))
+
+
+def single_part(dev):
+    """The single controller's part of the plain stage: one process
+    running mpc_single_solve; its check holds the final goal xy distance
+    within tolerances.SINGLE_GOAL_M of the JAX package's
+    (tests/goldens/mpc_fleet_jax_f32.npz)."""
+    from altro_tpu_torch.ops import tolerances as tol
+
+    def check(results, stage_wall):
+        out = dict(results["single"], phase="mpc_single", stage_wall_s=stage_wall,
+                   goal_dist_jax=float(np.load(MPC_GOLDEN_F32)["single_goal_dist"]))
+        out.pop("ok")
+        emit(out)
+        assert out["finite"], "non-finite closed loop"
+        assert abs(out["goal_dist"] - out["goal_dist_jax"]) <= tol.SINGLE_GOAL_M, out
+        return out
+
+    return "single", [("single", mpc_single_solve, ())], check
+
+
+def phase_mpc_single(dev) -> dict:
+    """The single controller alone, in a process of its own (in the full
+    run it is part of the plain stage)."""
+    return run_plain([single_part(dev)])["single"]
+
+
 def _general_problems(dev):
     """The three general problems of phase_general at GENERAL_N, float64,
     with x0 drawn from seed 0 as their tests draw it: (name, compiled
@@ -2636,10 +3095,85 @@ def ptxas_riccati(log: str) -> dict:
     return out
 
 
+def _end_on_sigterm(signum, frame) -> None:
+    """SIGTERM (a time limit's) ends the script as a failed phase does,
+    through run_plain's clean-up, so that no process it started lives on."""
+    raise SystemExit(128 + signum)
+
+
+def _become_subreaper() -> None:
+    """Make this process the parent of any orphaned descendant (Linux prctl
+    PR_SET_CHILD_SUBREAPER), so that _end_children sees a grandchild whose
+    own parent ended before it."""
+    import ctypes
+
+    ctypes.CDLL(None, use_errno=True).prctl(36, 1)  # 36: PR_SET_CHILD_SUBREAPER
+
+
+def _children() -> dict[int, str]:
+    """The processes whose parent is this one, from /proc: {pid: state}
+    ("Z" for one that ended and is not yet reaped)."""
+    me, out = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]  # the fields after the name
+        except OSError:  # it ended meanwhile
+            continue
+        if int(ppid) == me:
+            out[int(d)] = state
+    return out
+
+
+def _end_children() -> list[str]:
+    """Kill and reap every child of this process that is still there, and
+    the orphans that come to it meanwhile (_become_subreaper); returns the
+    command lines of those that were still running.  Every phase ends its
+    own processes, so this finds none unless one of them failed to."""
+    import signal
+
+    running = []
+    for _ in range(20):  # each round reaps one generation of orphans
+        kids = _children()
+        if not kids:
+            break
+        for pid, state in kids.items():
+            if state != "Z":
+                try:
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        running.append(f.read().replace(b"\0", b" ").decode(errors="replace").strip() or str(pid))
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:  # it ended meanwhile
+                    pass
+        for pid in kids:
+            try:
+                os.waitpid(pid, 0)
+            except ChildProcessError:
+                pass
+    return running
+
+
+def _run(argv) -> int:
+    """main(argv), after which no process it started is left running: any
+    that is (a fault) is killed and named on stderr."""
+    _become_subreaper()
+    try:
+        return main(argv)
+    finally:
+        left = _end_children()
+        if left:
+            print(f"chip_smoke: ended {len(left)} process(es) left running: {left}", file=sys.stderr)
+
+
 def main(argv) -> int:
     import argparse
+    import signal
 
     import torch
+
+    signal.signal(signal.SIGTERM, _end_on_sigterm)
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phase", action="append", default=[],
@@ -2716,12 +3250,15 @@ def main(argv) -> int:
         spec_launches, spec_fwd = timed(phase_speculative)
         tri = timed(phase_triple_integrator)
         timed(phase_live_rows)
+        mpc_launches = timed(phase_mpc_fleet)
 
         def plain_stage(_dev):
-            """The zoo's and the obstacle fleet's plain solves, together,
-            after every timed kernel measurement; the general problems'
-            solves (untimed) run in this process meanwhile."""
-            return run_plain([zoo, obst], during=lambda: timed(phase_general))
+            """The zoo's and the obstacle fleet's plain solves and the
+            single controller's ticks, together, after every timed kernel
+            measurement; the general problems' solves and the per-instance
+            solver's checks (untimed) run in this process meanwhile."""
+            return run_plain([zoo, obst, single_part(_dev)],
+                             during=lambda: (timed(phase_general), timed(phase_per_instance)))
 
         plain = timed(plain_stage)
         zoo_launches, obst_launches = plain["zoo"], plain["obstacles"]
@@ -2735,8 +3272,8 @@ def main(argv) -> int:
     # obstacle fleet's two modes (per solve), the float64 polish of the
     # obstacle fleet and the randomized fleet's complete mode (one solve
     # each), the main path with the speculative line search and the triple
-    # integrator's fleet (per solve), the Riccati kernel on
-    # backward_pass="pallas" (3 solves)
+    # integrator's fleet (per solve), the MPC fleet (per tick), the Riccati
+    # kernel on backward_pass="pallas" (3 solves)
     by_path = {
         name: dict(main_path=main_launches[name], main_path_polish=main_launches["polish"][name],
                    riccati_path=ric_launches[name],
@@ -2745,7 +3282,8 @@ def main(argv) -> int:
                    randomized_f32_throughput_per_solve=rand_launches[name],
                    randomized_complete_per_solve=complete_launches[name],
                    **{f"main_path_speculative_S{S}": spec_launches[S][name] for S in SPEC_S},
-                   triple_integrator_per_solve=tri["launches_per_solve"][name])
+                   triple_integrator_per_solve=tri["launches_per_solve"][name],
+                   mpc_fleet_per_tick=mpc_launches[name])
         for name in ("backward_fused", "forward")
     }
     by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])
@@ -2790,4 +3328,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(_run(sys.argv[1:]))

@@ -2,6 +2,7 @@
 quadrotor and cartpole fleets, built with the JAX package and handed to
 `altro_tpu_torch` through `convert`, so that both packages compute on the
 same data."""
+import contextlib
 import dataclasses
 
 import jax
@@ -23,15 +24,25 @@ from altro_tpu_torch.models.problems import UnicycleProblem as TUnicycle
 F64 = torch.float64
 
 
+@contextlib.contextmanager
+def torch_threads(n):
+    """`n` torch threads inside the block (for a module-scoped fixture,
+    which `one_torch_thread` does not cover)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def one_torch_thread():
     """One torch thread for a test of small eager ops: faster there, and
     the test workers share the cores (each worker's default is all of
     them)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+    with torch_threads(1):
+        yield
 
 
 def numpy_tree(tree):

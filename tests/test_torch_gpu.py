@@ -885,3 +885,52 @@ def test_general_problems_through_the_riccati_kernel_equal_eager(problem):
     scale = max(float(re_["Z"].U.abs().max()), 1.0)
     assert float((rk["Z"].U - re_["Z"].U).abs().max()) <= 1e-9 * scale
     assert float((rk["status"] == int(SolverStatus.SOLVED)).float().mean()) >= 0.99
+
+
+def test_batched_mpc_on_the_kernels_equals_the_eager_passes():
+    """`BatchedMPC` at B=64, float64, 5 closed-loop ticks at most 3
+    iterations a tick (perf/mpc_device_latency.py's configuration): on the
+    fused kernels, with a new params object and the warm AL state every
+    tick, against the eager passes: statuses and iterations equal at every
+    tick, u0 within 1e-9."""
+    from altro_tpu_torch import BatchedMPC
+    from altro_tpu_torch.models.unicycle import unicycle_rk4
+
+    dev = _device()
+    Bz = 64
+    defn = UnicycleProblem(dtype=torch.float64, device=dev)
+    prob = defn.make_problem().compile()
+    model = unicycle_rk4()
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.1, 0.1, (3, Bz)), device=dev)
+    runs = []
+    for kw in (dict(backward_pass="fused", forward_pass="cuda"), {}):
+        mpc = BatchedMPC(prob, SolverOptions(max_iterations_total=3, max_iterations_inner=3, **kw))
+        state, x, ticks = mpc.init(_fleet_Z(defn, Bz)), x0, []
+        for _ in range(5):
+            u0, state = mpc.step(state, x)
+            x = model(x, u0, 0.0, defn.h)
+            ticks.append((u0, state.status, state.iterations))
+        runs.append((mpc, ticks))
+    (mk, tk), (_, te) = runs
+    assert mk.solver._bwd.launches > 0 and mk.solver._fwd.launches > 0
+    for (uk, sk, ik), (ue, se, ie) in zip(tk, te):
+        assert torch.equal(sk, se) and torch.equal(ik, ie)
+        assert float((uk - ue).abs().max()) <= 1e-9
+
+
+def test_al_solver_goldens_on_the_card():
+    """The per-instance `ALSolver` on CUDA tensors, float64: SOLVED, 14
+    total / 5 outer iterations, J within 1e-9 of 0.03893465058924039
+    (`auglag_test.cpp:325-351`)."""
+    from altro_tpu_torch import ALSolver
+
+    dev = _device()
+    defn = UnicycleProblem(dtype=torch.float64, device=dev)
+    prob = defn.make_problem().compile()
+    solver = ALSolver(prob, SolverOptions(constraint_tolerance=1e-6))
+    res = solver.solve(prob.params, defn.initial_trajectory())
+    assert res.Z.U.device.type == "cuda"
+    assert int(res.status) == SolverStatus.SOLVED
+    assert (res.stats.iterations_total, res.stats.iterations_outer) == (14, 5)
+    J = float(solver.fns.total_cost(prob.params, res.al, res.Z))
+    assert abs(J - 0.03893465058924039) <= 1e-9

@@ -87,7 +87,7 @@ def test_rows_hold_the_jax_packages_numbers(level, capsys):
     n_total = int(res["stats"].iterations_total.max())
     assert len(got) == (n_outer if level == LogLevel.OUTER else n_outer + n_total)
     assert len(got) == len(want)
-    logger = SolverLogger(level)
+    logger = SolverLogger(level, fleet=True)
     for g, w in zip(got, want):
         fg, fw = _fields(g, logger), _fields(w, logger)
         assert fg.keys() == fw.keys()

@@ -216,6 +216,10 @@ def test_port_never_imports_jax_at_runtime():
         "assert s.solve(p.params.replace(x0=torch.zeros(3, 2, dtype=torch.float64)), Z)['status'].shape == (2,)\n"
         "from altro_tpu_torch.models.problems import TripleIntegratorProblem, zoo_cartpole, zoo_quadrotor\n"
         "import altro_tpu_torch.ops.riccati, altro_tpu_torch.ops._build\n"
+        "import altro_tpu_torch.utils.timer\n"
+        "from altro_tpu_torch import MPC\n"
+        "m = MPC(p, SolverOptions(max_iterations_total=1))\n"
+        "assert m.step(m.init(Z0), torch.zeros(3, dtype=torch.float64))[0].shape == (2,)\n"
         "zoo_quadrotor(N=4, device='cpu'); zoo_cartpole(N=4, device='cpu')\n"
         "TripleIntegratorProblem(device='cpu').make_problem(add_constraints=True).compile()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
@@ -226,6 +230,69 @@ def test_port_never_imports_jax_at_runtime():
         [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_chip_smoke_plain_stage_leaves_no_process():
+    """chip_smoke's plain stage (run_plain) ends every process it started,
+    multiprocessing's resource tracker included, when its solves succeed,
+    when one fails, and when SIGTERM (a time limit's) arrives meanwhile."""
+    code = (
+        "import os, signal, sys, time\n"
+        "import chip_smoke as cs\n"
+        "kids = lambda: sorted(cs._children())\n"
+        "seen = []\n"
+        "r = cs.run_plain([('a', [('x', dict, ()), ('y', dict, ())], lambda res, wall: sorted(res))],\n"
+        "                 during=lambda: seen.append(len(kids())))\n"
+        "assert r == {'a': ['x', 'y']} and seen == [3], (r, seen)  # two solves and the tracker\n"
+        "assert kids() == [], kids()\n"
+        "try:\n"
+        "    cs.run_plain([('a', [('x', time.sleep, (60,)), ('y', time.sleep, (0.01,))], None)])\n"
+        "except AssertionError as e:\n"
+        "    assert 'plain solve y' in str(e), e\n"
+        "assert kids() == [], kids()\n"
+        "signal.signal(signal.SIGTERM, cs._end_on_sigterm)\n"
+        "t0 = time.perf_counter()\n"
+        "try:\n"
+        "    cs.run_plain([('a', [('x', time.sleep, (60,))], None)],\n"
+        "                 during=lambda: os.kill(os.getpid(), signal.SIGTERM))\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 128 + signal.SIGTERM, e.code\n"
+        "assert kids() == [] and time.perf_counter() - t0 < 30, kids()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_chip_smoke_ends_what_is_left_running():
+    """chip_smoke's last guard (_run): a child still running when main
+    returns, and an orphaned grandchild (the script is their subreaper), are
+    killed, reaped and named; a child that ended is reaped unnamed."""
+    code = (
+        "import subprocess, sys, time\n"
+        "import chip_smoke as cs\n"
+        "def fake_main(argv):\n"
+        "    subprocess.Popen(['sleep', '61'])\n"
+        "    subprocess.Popen(['sh', '-c', 'sleep 62 & exit 0']).wait()\n"
+        "    subprocess.Popen(['true'])\n"
+        "    time.sleep(0.5)\n"
+        "    assert len(cs._children()) == 3, cs._children()  # sleep 61, the orphan, the ended true\n"
+        "    return 7\n"
+        "cs.main = fake_main\n"
+        "assert cs._run([]) == 7\n"
+        "assert cs._children() == {}, cs._children()\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+    assert "ended 2 process(es) left running" in out.stderr, out.stderr
+    assert "sleep 61" in out.stderr and "sleep 62" in out.stderr, out.stderr
 
 
 def test_port_sources_do_not_import_jax():
