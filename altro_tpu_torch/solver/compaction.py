@@ -1,28 +1,37 @@
 """Straggler compaction for the batch-native AL-iLQR solver
-(`altro_tpu/solver/compaction.py`, its device-side tail).
+(`altro_tpu/solver/compaction.py`).
 
 A lockstep batched solve runs until its slowest instance converges.
 `CompactedALSolver` runs the full batch for a capped iteration budget, then
-gathers the unconverged lanes (a stable argsort puts them first) into a
-dense `tail_batch`-wide batch (every per-instance param leaf gathered with
-them, `gather_params`), solves only those with `active` marking the real
-ones, and scatters the results back — round after round until every
-lane has had one uncapped tail solve.  Phase boundaries restart the inner
-solver while duals and penalties carry over (`al_solver.hpp:288-302`).
-Then an optional restart portfolio re-solves the lanes still not SOLVED
-from scratch, under a cascade of penalty-ladder variants, and an optional
-float64 polish re-solves the lanes still unconverged.
+solves only the unconverged lanes (every per-instance param leaf gathered
+with them, `gather_params`) and scatters the results back.  Phase
+boundaries restart the inner solver while duals and penalties carry over
+(`al_solver.hpp:288-302`).  The tail runs one of two ways, as in the JAX
+package:
+  * `device_tail=True`, the JAX package's single-dispatch program: rounds
+    that gather the unconverged lanes (a stable argsort puts them first)
+    into a dense `tail_batch`-wide batch, solve it with `active` marking
+    the real ones, and merge — until every lane has had one uncapped tail
+    solve, or `device_tail_rounds` rounds.  Then an optional restart
+    portfolio re-solves the lanes still not SOLVED from scratch under a
+    cascade of penalty-ladder variants, and optional infeasibility
+    certificates keep provably infeasible lanes out of every solve.
+  * `device_tail=False` (the default), the host-driven rounds: each round
+    solves every unconverged lane in `tail_batch`-wide chunks; with
+    `tail_iters > 0` each tail solve is capped and the lanes it leaves
+    unconverged re-enter the next round, up to `max_tail_rounds`.
+After either, an optional float64 polish re-solves the lanes still
+unconverged.
+
+With `tail_iters == 0` each unconverged lane gets exactly one uncapped tail
+solve from its phase-1 state on both paths, and a lane's solve does not
+depend on the other lanes of its batch, so the two paths give every lane
+the same status, iterations and U.
 
 Where the JAX package differs, and why:
-  * Infeasibility certificates.  The JAX package computes them inside its
-    single-dispatch device program and so requires `device_tail=True`.  The
-    port's rounds are driven from the host but follow that program's
-    semantics (a `tried` mask, argsort gathers, `active` masks), so
-    `detect_infeasible` works here without it: the mask is computed on the
-    device before phase 1, whose `active` leaves the certified lanes out;
-    it joins `tried`, so no tail round gathers them, the restart cascade
-    skips them, and their status becomes INFEASIBLE after the cascade.  No
-    host synchronisation is added.
+  * The host path runs on the host in both packages; the device path does
+    too here (the port has no one-dispatch program yet), with the JAX
+    program's semantics: a `tried` mask, argsort gathers, `active` masks.
   * The f64 polish's passes.  The JAX package forces the scan passes in the
     polish, because the TPU's Pallas kernels do not run in float64.  The
     port's fused kernels have float64 instantiations, while its scan passes
@@ -32,9 +41,10 @@ Where the JAX package differs, and why:
     (shared-param or lane-params, as phase 1 does), with "scan" the eager
     passes.  A problem the kernels refuse in float64 takes the same
     fallback as in phase 1 (`Ineligible`).
-  * The polish's chunks.  The port's kernels take any batch width, so the
-    last chunk is not padded with copies of its first lane; each lane's
-    result does not depend on the others, so the merged result is the same.
+  * The chunks of the host path's tail rounds and of the polish.  The
+    port's kernels take any batch width, so the last chunk is not padded
+    with copies of its first lane; each lane's result does not depend on
+    the others, so the merged result is the same.
 """
 from __future__ import annotations
 
@@ -70,10 +80,15 @@ _POLISH_STAGES = (
 class CompactedALSolver:
     """Capped full-batch phase, then compacted tail rounds.
 
-    Parameters
+    Parameters (the JAX package's keywords and defaults)
     ----------
     phase1_iters : total-iteration cap of the full-batch phase.
-    tail_batch : lane width of each tail round.
+    tail_batch : lane width of each tail round (of each chunk on the host
+        path).
+    tail_iters : host path: total-iteration cap of each tail solve (0:
+        uncapped).  Capped lanes that end unconverged re-enter the next
+        round.  The device path takes only 0.
+    max_tail_rounds : host path: rounds before the last status stands.
     finish_stalled : tail rounds run with `stalled_feasible_exits=False`
         and treat SOLVED_STALLED as resumable, so feasible-but-stalled
         instances keep escalating the penalty until they converge.
@@ -84,24 +99,32 @@ class CompactedALSolver:
         are cast back to the fleet's dtype and merged.  Certified-infeasible
         lanes are never polished.
     polish_batch : lanes per polish solve.
-    restart_portfolio : after the tail rounds, re-solve the lanes not
-        SOLVED from the original initial guess with fresh duals, under each
-        variant in turn, each on the lanes every earlier variant failed
-        (`altro_tpu/solver/compaction.py:291-373`).  A variant is a dict of
-        any of `penalty_scaling`, `initial_penalty`, `max_iterations_outer`,
-        `max_iterations_total`; only lanes it SOLVES are merged.
+    device_tail : run the tail as the JAX package's device program (module
+        docstring); False runs the host-driven rounds.
+    device_tail_rounds : device path: at most this many rounds (0: enough
+        to give every lane one).
+    restart_portfolio : device path: after the tail rounds, re-solve the
+        lanes not SOLVED from the original initial guess with fresh duals,
+        under each variant in turn, each on the lanes every earlier variant
+        failed (`altro_tpu/solver/compaction.py:291-373`).  A variant is a
+        dict of any of `penalty_scaling`, `initial_penalty`,
+        `max_iterations_outer`, `max_iterations_total`; only lanes it
+        SOLVES are merged.
     restart_width : lanes per variant's solve (0: `tail_batch`).
     restart_rounds : passes over the variants.
-    detect_infeasible : certify goal-in-obstacle lanes before phase 1
-        (`problem/infeasibility.py`); they never iterate and end INFEASIBLE.
+    detect_infeasible : device path: certify goal-in-obstacle lanes before
+        phase 1 (`problem/infeasibility.py`); they never iterate and end
+        INFEASIBLE.
     infeasible_step_bound : one-step (x, y) travel bound that enables the
         certificate at knot N-1 (0: knot N only).
 
     After each `solve`, `host_syncs` holds the solve's host
     synchronisations before its final read-back of statuses and
-    iterations, and `telemetry` the iteration distribution, the lanes each
-    restart variant took, the host syncs of the cascade and, when the
-    polish ran, its lanes, stages and wall time.
+    iterations, and `telemetry` the iteration distribution and, when the
+    polish ran, its lanes, stages and wall time; on the device path the
+    number of tail rounds, the lanes each restart variant took and the
+    host syncs of the cascade; on the host path phase 1's wall time and,
+    per tail round, its stragglers and wall time.
     """
 
     def __init__(
@@ -111,9 +134,13 @@ class CompactedALSolver:
         *,
         phase1_iters: int = 20,
         tail_batch: int = 1024,
+        tail_iters: int = 0,
+        max_tail_rounds: int = 8,
         finish_stalled: bool = True,
         f64_polish: bool = False,
         polish_batch: int = 512,
+        device_tail: bool = False,
+        device_tail_rounds: int = 0,
         restart_portfolio: tuple = (),
         restart_width: int = 0,
         restart_rounds: int = 1,
@@ -128,14 +155,22 @@ class CompactedALSolver:
         self.opts = opts or SolverOptions()
         self.phase1_iters = int(phase1_iters)
         self.tail_batch = int(tail_batch)
+        self.tail_iters = int(tail_iters)
+        self.max_tail_rounds = int(max_tail_rounds)
         self.finish_stalled = bool(finish_stalled)
         self.f64_polish = bool(f64_polish)
         self.polish_batch = int(polish_batch)
+        self.device_tail = bool(device_tail)
+        self.device_tail_rounds = int(device_tail_rounds)
         self.restart_portfolio = tuple(restart_portfolio)
         self.restart_width = int(restart_width)
         self.restart_rounds = int(restart_rounds)
         self.detect_infeasible = bool(detect_infeasible)
         self.infeasible_step_bound = float(infeasible_step_bound)
+        if self.restart_portfolio and not self.device_tail:
+            raise ValueError("restart_portfolio requires device_tail=True")
+        if self.detect_infeasible and not self.device_tail:
+            raise ValueError("detect_infeasible requires device_tail=True")
         # phases never update duals from a capped (unconverged) inner solve
         p1_opts = self.opts.replace(
             max_iterations_total=min(self.phase1_iters, self.opts.max_iterations_total),
@@ -147,12 +182,16 @@ class CompactedALSolver:
         )
         if self.finish_stalled:
             tail_opts = tail_opts.replace(stalled_feasible_exits=False)
+        if self.tail_iters > 0:
+            tail_opts = tail_opts.replace(
+                max_iterations_total=min(self.tail_iters, tail_opts.max_iterations_total))
         self._p1 = ALSolverBatched(prob, p1_opts)
         self._tail = ALSolverBatched(prob, tail_opts)
         codes = [int(s) for s in _RESUMABLE]
         if self.finish_stalled:
             codes.append(int(SolverStatus.SOLVED_STALLED))
-        self._codes = torch.as_tensor(codes, dtype=torch.int32, device=self._p1.device)
+        self._codes_np = np.asarray(codes, dtype=np.int32)
+        self._codes = torch.as_tensor(self._codes_np, device=self._p1.device)
         # the restart solver: each variant's duals and penalties come in
         # through its `al` argument, so the solver leaves them as given
         self._restart = None
@@ -297,9 +336,10 @@ class CompactedALSolver:
             res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
         return res, syncs
 
-    def solve(self, params, Z: BatchedTrajectory, al=None):
-        """Same contract as `ALSolverBatched.solve` (batch-last dict)."""
-        t0 = time.perf_counter()
+    def _solve_device(self, params, Z: BatchedTrajectory, al):
+        """Phase 1 and the device program's tail rounds, restart cascade
+        and certificates (module docstring).  Returns (res, host syncs,
+        telemetry)."""
         B = Z.X.shape[-1]
         infeasible = None
         if self.detect_infeasible:
@@ -314,10 +354,10 @@ class CompactedALSolver:
         if infeasible is not None:
             tried = tried | infeasible
         rounds = 0
-        # enough rounds to cover every lane; a lane that ran an uncapped
-        # tail round is terminal.  Once a round gathers no unconverged lane
-        # no later round can, so the loop stops there.
-        for _ in range(-(-B // K_t)):
+        # enough rounds to cover every lane unless capped; a lane that ran
+        # an uncapped tail round is terminal.  Once a round gathers no
+        # unconverged lane no later round can, so the loop stops there.
+        for _ in range(self.device_tail_rounds or -(-B // K_t)):
             undone = torch.isin(res["status"], self._codes) & ~tried
             order = torch.argsort((~undone).to(torch.int8), stable=True)
             idx = order[:K_t]
@@ -326,10 +366,8 @@ class CompactedALSolver:
             if not bool(real.any()):
                 break
             rounds += 1
-            params_t = gather_params(self.prob.params, params, idx)
-            Z_t = res["Z"].replace(X=res["Z"].X[..., idx], U=res["Z"].U[..., idx])
-            al_t = tuple(dict(lam=s["lam"][..., idx], rho=s["rho"][..., idx]) for s in res["al"])
-            sub = self._tail.solve(params_t, Z_t, al_t, active=real)
+            sub = self._tail.solve(gather_params(self.prob.params, params, idx), *self._gather_state(res, idx),
+                                   active=real)
             syncs += self._tail.host_syncs
             res = self._merge(res, sub, idx, real)
             tried[idx] |= real
@@ -340,6 +378,52 @@ class CompactedALSolver:
         if infeasible is not None:
             res = dict(res, status=torch.where(
                 infeasible, int(SolverStatus.INFEASIBLE), res["status"]).to(torch.int32))
+        return res, syncs, dict(tail_rounds=rounds, restart_lanes=restart_lanes,
+                                restart_host_syncs=restart_syncs)
+
+    def _solve_host(self, params, Z: BatchedTrajectory, al, t0: float):
+        """Phase 1 and the host-driven tail rounds
+        (`altro_tpu/solver/compaction.py:502-615`): each round solves every
+        unconverged lane in chunks of `tail_batch`; capped lanes re-enter
+        the next round, and after an uncapped round (`tail_iters == 0`) none
+        does.  Returns (res, host syncs, telemetry)."""
+        res = self._p1.solve(params, Z, al)
+        undone = np.isin(res["status"].cpu().numpy(), self._codes_np)
+        syncs = self._p1.host_syncs + 1
+        tel = dict(phase1_s=time.perf_counter() - t0, tail_rounds=[])
+        dev = Z.X.device
+        while undone.any() and len(tel["tail_rounds"]) < self.max_tail_rounds:
+            t_round = time.perf_counter()
+            lanes = np.nonzero(undone)[0]
+            for start in range(0, len(lanes), self.tail_batch):
+                idx = torch.as_tensor(lanes[start:start + self.tail_batch], dtype=torch.long, device=dev)
+                sub = self._tail.solve(gather_params(self.prob.params, params, idx), *self._gather_state(res, idx))
+                syncs += self._tail.host_syncs
+                res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
+            undone = np.isin(res["status"].cpu().numpy(), self._codes_np)
+            syncs += 1
+            if self.tail_iters == 0:
+                # every straggler just had an uncapped solve: the budget
+                # statuses are terminal now (`_RESUMABLE`)
+                undone[:] = False
+            tel["tail_rounds"].append(dict(stragglers=int(lanes.size), wall_s=time.perf_counter() - t_round))
+        return res, syncs, tel
+
+    @staticmethod
+    def _gather_state(res, idx):
+        """The trajectory and AL state of the lanes `idx` of a result."""
+        Z = res["Z"].replace(X=res["Z"].X[..., idx], U=res["Z"].U[..., idx])
+        return Z, tuple(dict(lam=s["lam"][..., idx], rho=s["rho"][..., idx]) for s in res["al"])
+
+    def solve(self, params, Z: BatchedTrajectory, al=None):
+        """Same contract as `ALSolverBatched.solve` (batch-last dict)."""
+        t0 = time.perf_counter()
+        if self.device_tail:
+            if self.tail_iters > 0:
+                raise ValueError("device_tail supports uncapped tail rounds only (tail_iters=0)")
+            res, syncs, tel = self._solve_device(params, Z, al)
+        else:
+            res, syncs, tel = self._solve_host(params, Z, al, t0)
         # the final read-back, which every solve makes for its telemetry,
         # also decides the polish; each polish stage reads the statuses again
         status, it = torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy()
@@ -355,9 +439,7 @@ class CompactedALSolver:
             polish.append(dict(stage=stage, instances=int(bad.size), wall_s=time.perf_counter() - t_p))
         self.host_syncs = syncs
         self.telemetry = dict(
-            tail_rounds=rounds,
-            restart_lanes=restart_lanes,
-            restart_host_syncs=restart_syncs,
+            tel,
             iters_p50=float(np.percentile(it, 50)),
             iters_p95=float(np.percentile(it, 95)),
             iters_p99=float(np.percentile(it, 99)),

@@ -1,1 +1,1 @@
-from . import logging
+from . import benchmarking, checkpoint, derivative_check, logging, timer, tree

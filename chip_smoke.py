@@ -76,7 +76,16 @@ in parallel), then:
      (tests/goldens/mpc_fleet_jax_f32.npz), and its first 256 lanes in
      f64, 30 ticks, lane for lane with the JAX package's
      (mpc_fleet_jax_f64.npz);
- 16. solves the zoo's and the obstacle fleet's first 512 lanes on the
+ 16. splits the main path's fleet (B=4096, f32, bench options, fused
+     kernels, `ALSolverBatched` with no compaction) over ranks
+     (`altro_tpu_torch/parallel/mesh.py`): a world of one over NCCL in
+     this process and two gloo ranks sharing the card in processes of
+     their own, each rank's lanes bit for bit with the unsharded solve's,
+     its folds equal to the solve's and three one-element all_reduces its
+     only collectives; `BatchedALSolver` bit for bit with the unsharded
+     solve, and bench.make_solver's program with the host-driven tail
+     (`device_tail=False`) bit for bit with its device program;
+ 17. solves the zoo's and the obstacle fleet's first 512 lanes on the
      plain path (on the host's CPU, one thread each), all in processes of
      their own at once, and holds steps 9
      and 10 against them; meanwhile, in this process, solves the problems
@@ -571,12 +580,16 @@ def bench_solver(prob, **opt_kw):
     """bench.make_solver's program on the port: `CompactedALSolver` with
     the bench options (and `opt_kw` over them), phase 1 capped at
     PHASE1_ITERS, tail rounds of TAIL_BATCH lanes and the float64 polish
-    (`bench.py:100-129`; its device_tail is the JAX package's own)."""
+    (`bench.py:100-129`), with its tail as the device program
+    (`device_tail=True`, as `bench.make_solver` sets); `device_tail=False`
+    in `opt_kw` runs the host-driven tail rounds instead."""
     from altro_tpu_torch import SolverOptions
     from altro_tpu_torch.solver.compaction import CompactedALSolver
 
+    device_tail = opt_kw.pop("device_tail", True)
     opts = SolverOptions(**BENCH_OPT_KW).replace(**opt_kw)
-    return CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, f64_polish=True)
+    return CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, f64_polish=True,
+                             device_tail=device_tail)
 
 
 def polish_kernels(solver) -> list:
@@ -918,7 +931,7 @@ def phase_riccati_path(dev) -> dict:
     defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
     prob = defn.make_problem().compile()
     opts = SolverOptions(**BENCH_OPT_KW).replace(backward_pass="pallas")
-    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH)
+    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, device_tail=True)
     rng = np.random.default_rng(0)
     x0 = torch.as_tensor(rng.uniform(-0.1, 0.1, size=(3, B_FLEET)), device=dev).to(dtype)
     x0[:, 0] = 0.0
@@ -1373,7 +1386,8 @@ def obstacle_solver(mode, path, dev, **solver_kw):
     if path == "plain":
         opts = opts.replace(backward_pass="scan", forward_pass="scan")
     kw = dict(OBST_RESTART if mode == "complete" else {}, **solver_kw)
-    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, **kw)
+    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, device_tail=True,
+                               **kw)
     return solver, defn, prob
 
 
@@ -1993,7 +2007,7 @@ def randomized_complete_run(dev) -> dict:
     prob = defn.make_problem().compile()
     step_bound = float(defn.v_bnd * defn.tf / defn.N)
     opts = SolverOptions(**BENCH_OPT_KW).replace(**OBST_OPT_KW, max_iterations_total=RAND_COMPLETE_MAX_TOTAL)
-    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH,
+    solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, device_tail=True,
                                infeasible_step_bound=step_bound, **RAND_COMPLETE)
     kerns = obstacle_kernels(solver)
     params, obstacles, xf = randomized_fleet(defn, prob, B_FLEET, seed=RAND_SEED)
@@ -2610,6 +2624,257 @@ def phase_mpc_fleet(dev) -> dict:
     return dict(backward_fused=launches["backward_fused"] / MPC_TICKS, forward=launches["forward"] / MPC_TICKS)
 
 
+SHARD_WORLD = 2  # gloo ranks that share the one card in the sharded phase
+SHARD_TIMEOUT_S = 180  # each rank's start, warm-up and timed solve
+SHARD_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast", "reduce",
+                     "reduce_scatter_tensor", "all_to_all", "all_to_all_single", "send", "recv", "barrier",
+                     "gather", "scatter")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _count_collectives() -> dict:
+    """Wrap every collective of torch.distributed with a counter of its
+    calls ({name: calls}), to show what a solve issued."""
+    import torch.distributed as dist
+
+    calls = {}
+
+    def wrap(name, fn):
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return counted
+
+    for name in SHARD_COLLECTIVES:
+        if hasattr(dist, name):
+            setattr(dist, name, wrap(name, getattr(dist, name)))
+    return calls
+
+
+def _sharded_rank(rank: int, port: int, pkg: str, conn, parent: int) -> None:
+    """One gloo rank of the sharded phase, spawned, on cuda:0:
+    `ShardedBatchedALSolver` with the bench options on its half of the main
+    path's fleet.  It solves once (warm-up), says "ready" on `conn`, waits
+    for "go" so that both ranks time their solve together and alone on the
+    card, solves again with its kernels' counts and the collectives' counter
+    at 0, and sends its lanes, folds, wall, syncs, launches and
+    collectives (or the traceback)."""
+    _die_with_parent(parent)
+    try:
+        sys.path.insert(0, pkg)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        from altro_tpu_torch import SolverOptions
+        from altro_tpu_torch.parallel.mesh import ShardedBatchedALSolver, init_distributed
+
+        dev = torch.device("cuda", 0)
+        mesh = init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=SHARD_WORLD,
+                                rank=rank, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            calls = _count_collectives()
+            _, prob, params, Zb = _main_fleet(dev)
+            s = ShardedBatchedALSolver(prob, mesh, SolverOptions(**BENCH_OPT_KW))
+            kerns = (s.solver._bwd, s.solver._fwd)
+            assert all(k is not None for k in kerns), "a rank did not select the CUDA kernels"
+            p_l, Z_l = s.shard_params(params), s.shard_batch(Zb)
+            assert p_l.x0.device == dev and Z_l.X.device == dev, "a rank's slice is not on the card"
+            s.solve(p_l, Z_l)
+            _sync()
+            conn.send(("ready", rank))
+            assert conn.recv() == "go"
+            for k in kerns:
+                k.launches = 0
+            calls.clear()
+            t0 = time.perf_counter()
+            res, viol, solved, stalled = s.solve(p_l, Z_l)
+            _sync()
+            wall = time.perf_counter() - t0
+            r = dict(
+                ok=True, wall_s=wall, host_syncs=s.solver.host_syncs, lanes=int(res["status"].shape[0]),
+                devices=sorted({str(t.device) for t in (res["Z"].U, res["status"], viol, solved)}),
+                launches=dict(backward_fused=kerns[0].launches, forward=kerns[1].launches),
+                status=res["status"].cpu().numpy(), iterations=res["stats"].iterations_total.cpu().numpy(),
+                U=res["Z"].U.cpu().numpy(), folds=(float(viol), int(solved), int(stalled)),
+                collectives=list(s.collectives), calls=dict(calls),
+            )
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # noqa: BLE001 - the parent reports it and fails the phase
+        r = dict(ok=False, error=traceback.format_exc())
+    try:
+        conn.send(("result", r))
+    except BrokenPipeError:  # the parent stopped listening: it has failed already
+        pass
+    conn.close()
+
+
+def _receive(conns, kind: str) -> list:
+    """One (kind, value) message from each rank, in rank order, within
+    SHARD_TIMEOUT_S; a rank that died or failed fails the phase."""
+    from multiprocessing.connection import wait
+
+    got, t0 = {}, time.perf_counter()
+    while len(got) < len(conns):
+        left = SHARD_TIMEOUT_S - (time.perf_counter() - t0)
+        ready = wait([c for i, c in enumerate(conns) if i not in got], timeout=max(1.0, left))
+        assert ready, f"no word from {len(conns) - len(got)} sharded rank(s) within {SHARD_TIMEOUT_S} s"
+        for c in ready:
+            try:
+                k, v = c.recv()
+            except EOFError:
+                raise AssertionError("a sharded rank's process died") from None
+            if k == "result":
+                assert v["ok"], f"sharded rank {conns.index(c)}:\n{v['error']}"
+            assert k == kind, (k, kind)
+            got[conns.index(c)] = v
+    return [got[i] for i in range(len(conns))]
+
+
+def phase_sharded(dev) -> dict:
+    """The multi-device layer on the main path's fleet (B=4096, N=100, f32,
+    the bench options, both fused kernels), through `ALSolverBatched` with
+    no compaction, whose lanes the sharded solvers split:
+      1. a world of one rank over NCCL in this process:
+         `ShardedBatchedALSolver` bit for bit with the unsharded solve, its
+         folds the solve's max violation and counts;
+      2. two gloo ranks on cuda:0 in processes of their own (NCCL takes
+         one rank per GPU; gloo reduces CUDA tensors), 2,048 lanes each:
+         statuses, iterations and U bit for bit with the unsharded solve's
+         lanes, the folds equal to its, three one-element all_reduces per
+         solve and no other collective; each rank's wall for one solve
+         after a warm-up (both at once), host syncs and kernel launches;
+      3. `BatchedALSolver` (batch-leading) bit for bit with the unsharded
+         solve once the layout is moved back;
+      4. bench.make_solver's program with the host-driven tail
+         (`device_tail=False`) lane for lane bit for bit with its device
+         program (the main path's solve).
+    The ranks start first and warm up while this process runs 1, 3 and 4
+    and times the unsharded solve after a warm-up, as each rank times its
+    own (wall, host syncs, launches).  Returns each fused kernel's
+    launches on each rank's timed solve."""
+    import datetime
+    import multiprocessing as mp
+
+    import torch
+    import torch.distributed as dist
+
+    import altro_tpu_torch
+    from altro_tpu_torch import SolverOptions, SolverStatus, Trajectory
+    from altro_tpu_torch.parallel.batch import BatchedALSolver
+    from altro_tpu_torch.parallel.mesh import ShardedBatchedALSolver, init_distributed
+    from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    ctx = mp.get_context("spawn")
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(altro_tpu_torch.__file__)))
+    port = _free_port()
+    procs, conns = [], []
+    try:
+        for rank in range(SHARD_WORLD):
+            mine, theirs = ctx.Pipe()
+            p = ctx.Process(target=_sharded_rank, args=(rank, port, pkg, theirs, os.getpid()))
+            p.start()
+            theirs.close()  # the child's end: a child that dies unheard reads as EOF here
+            procs.append(p)
+            conns.append(mine)
+
+        _, prob, params, Zb = _main_fleet(dev)
+        opts = SolverOptions(**BENCH_OPT_KW)
+        unsharded = ALSolverBatched(prob, opts)
+        unsharded.solve(params, Zb)  # warm-up, as the ranks have one
+        for k in (unsharded._bwd, unsharded._fwd):
+            k.launches = 0
+        t0 = time.perf_counter()
+        ref = unsharded.solve(params, Zb)
+        _sync()
+        ref_run = dict(wall_s=time.perf_counter() - t0, host_syncs=unsharded.host_syncs,
+                       launches=dict(backward_fused=unsharded._bwd.launches, forward=unsharded._fwd.launches))
+        status = ref["status"]
+        folds_ref = (float(ref["stats"].violations.max()), int((status == int(SolverStatus.SOLVED)).sum()),
+                     int((status == int(SolverStatus.SOLVED_STALLED)).sum()))
+
+        mesh = init_distributed(backend="nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1,
+                                rank=0, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+        try:
+            s1 = ShardedBatchedALSolver(prob, mesh, opts)
+            res1, *folds1 = s1.solve(s1.shard_params(params), s1.shard_batch(Zb))
+            nccl = dict(_same_solve(res1, ref), folds=[float(folds1[0]), int(folds1[1]), int(folds1[2])],
+                        collectives=list(s1.collectives), mesh=[mesh.size(), list(mesh.mesh_dim_names)],
+                        device=str(folds1[0].device))
+        finally:
+            dist.destroy_process_group()
+
+        Zl = Trajectory(X=Zb.X.movedim(-1, 0), U=Zb.U.movedim(-1, 0), t=Zb.t.expand(B_FLEET, -1),
+                        h=Zb.h.expand(B_FLEET, -1))
+        rb = BatchedALSolver(prob, opts).solve(params.replace(x0=params.x0.T), Zl)
+        batched = dict(statuses=bool(rb.status.equal(status)),
+                       iterations=bool(rb.stats.iterations_total.equal(ref["stats"].iterations_total)),
+                       U_bitwise=bitwise([rb.Z.U], [ref["Z"].U.movedim(-1, 0).contiguous()]))
+
+        main = _main_reference(dev)["res"]
+        host = bench_solver(prob, device_tail=False)
+        t0 = time.perf_counter()
+        rh = host.solve(params, Zb)
+        _sync()
+        host_tail = dict(_same_solve(rh, main), wall_s=time.perf_counter() - t0, host_syncs=host.host_syncs,
+                         tail_rounds=host.telemetry["tail_rounds"], polish=host.telemetry.get("polish"))
+
+        _receive(conns, "ready")
+        for c in conns:
+            c.send("go")
+        ranks = _receive(conns, "result")
+    finally:
+        for c in conns:
+            c.close()
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        _stop_resource_tracker()
+
+    W = B_FLEET // SHARD_WORLD
+    U_ref, st_ref, it_ref = ref["Z"].U.cpu().numpy(), status.cpu().numpy(), ref["stats"].iterations_total.cpu().numpy()
+    per_rank = []
+    for r, out in enumerate(ranks):
+        lanes = slice(r * W, (r + 1) * W)
+        per_rank.append(dict(
+            lanes=out["lanes"], devices=out["devices"], wall_s=out["wall_s"], host_syncs=out["host_syncs"],
+            launches=out["launches"], folds=list(out["folds"]), collectives=out["collectives"],
+            collective_bytes=sum(c[2] for c in out["collectives"]), calls=out["calls"],
+            statuses=bool(np.array_equal(out["status"], st_ref[lanes])),
+            iterations=bool(np.array_equal(out["iterations"], it_ref[lanes])),
+            U_bitwise=bool(np.array_equal(out["U"].view(np.uint32), U_ref[..., lanes].view(np.uint32))),
+        ))
+    emit(dict(phase="sharded", B=B_FLEET, N=N, dtype="f32", world=SHARD_WORLD, unsharded=ref_run,
+              folds_unsharded=list(folds_ref), nccl_world_of_one=nccl, per_rank=per_rank,
+              batched_al_solver=batched, host_tail=host_tail))
+    assert all(nccl[k] for k in ("statuses", "iterations", "U_bitwise")), f"NCCL world of one: {nccl}"
+    assert nccl["folds"] == list(folds_ref) and len(nccl["collectives"]) == 3 and nccl["device"] == "cuda:0", nccl
+    for r, pr in enumerate(per_rank):
+        assert pr["devices"] == ["cuda:0"] and pr["lanes"] == W, pr
+        assert pr["statuses"] and pr["iterations"] and pr["U_bitwise"], f"rank {r} parted from the unsharded lanes"
+        assert pr["folds"] == list(folds_ref), (pr["folds"], folds_ref)
+        assert [c[:2] for c in pr["collectives"]] == [("all_reduce_max", 1), ("all_reduce_sum", 1),
+                                                      ("all_reduce_sum", 1)], pr["collectives"]
+        assert pr["calls"] == {"all_reduce": 3}, pr["calls"]
+        assert pr["launches"]["backward_fused"] > 0 and pr["launches"]["forward"] > 0, pr["launches"]
+    assert all(batched.values()), f"BatchedALSolver parted from ALSolverBatched: {batched}"
+    assert all(host_tail[k] for k in ("statuses", "iterations", "alpha", "U_bitwise", "cost_bitwise")), (
+        f"the host-driven tail parted from the device program: {host_tail}")
+    return [pr["launches"] for pr in per_rank]
+
+
 def phase_per_instance(dev) -> None:
     """The per-instance solver and controller on the card (plain tensor
     code: the JAX package's per-instance path reaches no Pallas kernel).
@@ -3037,7 +3302,7 @@ def phase_profile(dev) -> None:
 
     for path, kw in (("main", {}), ("riccati", dict(backward_pass="pallas"))):
         opts = SolverOptions(**BENCH_OPT_KW).replace(**kw)
-        solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH)
+        solver = CompactedALSolver(prob, opts, phase1_iters=PHASE1_ITERS, tail_batch=TAIL_BATCH, device_tail=True)
         kerns = {
             name: [getattr(sub, attr) for sub in (solver._p1, solver._tail) if getattr(sub, attr) is not None]
             for name, attr in (("backward_fused", "_bwd"), ("forward", "_fwd"), ("riccati", "_ric"))
@@ -3251,6 +3516,7 @@ def main(argv) -> int:
         tri = timed(phase_triple_integrator)
         timed(phase_live_rows)
         mpc_launches = timed(phase_mpc_fleet)
+        sharded_launches = timed(phase_sharded)
 
         def plain_stage(_dev):
             """The zoo's and the obstacle fleet's plain solves and the
@@ -3272,8 +3538,9 @@ def main(argv) -> int:
     # obstacle fleet's two modes (per solve), the float64 polish of the
     # obstacle fleet and the randomized fleet's complete mode (one solve
     # each), the main path with the speculative line search and the triple
-    # integrator's fleet (per solve), the MPC fleet (per tick), the Riccati
-    # kernel on backward_pass="pallas" (3 solves)
+    # integrator's fleet (per solve), the MPC fleet (per tick), each sharded
+    # rank's timed solve, the Riccati kernel on backward_pass="pallas" (3
+    # solves)
     by_path = {
         name: dict(main_path=main_launches[name], main_path_polish=main_launches["polish"][name],
                    riccati_path=ric_launches[name],
@@ -3283,7 +3550,8 @@ def main(argv) -> int:
                    randomized_complete_per_solve=complete_launches[name],
                    **{f"main_path_speculative_S{S}": spec_launches[S][name] for S in SPEC_S},
                    triple_integrator_per_solve=tri["launches_per_solve"][name],
-                   mpc_fleet_per_tick=mpc_launches[name])
+                   mpc_fleet_per_tick=mpc_launches[name],
+                   sharded_per_rank=[rank[name] for rank in sharded_launches])
         for name in ("backward_fused", "forward")
     }
     by_path["riccati"] = dict(riccati_path=ric_launches["riccati"])

@@ -2,6 +2,7 @@
 quadrotor and cartpole fleets, built with the JAX package and handed to
 `altro_tpu_torch` through `convert`, so that both packages compute on the
 same data."""
+import concurrent.futures
 import contextlib
 import dataclasses
 
@@ -43,6 +44,15 @@ def one_torch_thread():
     them)."""
     with torch_threads(1):
         yield
+
+
+def alongside(port_fn, jax_fn):
+    """(jax_fn(), port_fn()) with the port's call in a second thread, so
+    that the JAX package's compile, native code that releases the GIL,
+    overlaps the port's solve."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        port = pool.submit(port_fn)
+        return jax_fn(), port.result()
 
 
 def numpy_tree(tree):

@@ -154,7 +154,7 @@ def test_compaction_kernels_match_eager_path_f64():
     params = prob.params.replace(x0=x0)
     out = {}
     for kind, kw in (("eager", {}), ("kernels", dict(backward_pass="fused", forward_pass="cuda"))):
-        comp = CompactedALSolver(prob, SolverOptions(**kw), phase1_iters=5, tail_batch=8)
+        comp = CompactedALSolver(prob, SolverOptions(**kw), phase1_iters=5, tail_batch=8, device_tail=True)
         out[kind] = comp.solve(params, _fleet_Z(defn, 16))
     assert torch.equal(out["eager"]["status"], out["kernels"]["status"])
     assert torch.equal(out["eager"]["stats"].iterations_total, out["kernels"]["stats"].iterations_total)
@@ -685,7 +685,7 @@ def test_polish_on_the_kernels_matches_the_plain_passes():
     out, tel = {}, {}
     for kind, kw in (("plain", {}), ("kernels", dict(backward_pass="fused", forward_pass="cuda"))):
         comp = CompactedALSolver(prob, SolverOptions(**opts, **kw), phase1_iters=8, tail_batch=8,
-                                 f64_polish=True, polish_batch=3)
+                                 f64_polish=True, polish_batch=3, device_tail=True)
         out[kind] = comp.solve(params, _fleet_Z(defn, Bp))
         tel[kind] = [(s["stage"], s["instances"]) for s in comp.telemetry["polish"]["stages"]]
         if kind == "kernels":
@@ -713,7 +713,7 @@ def test_history_on_the_kernels_changes_no_decision():
     res, syncs = {}, {}
     for cap in (0, 96):
         comp = CompactedALSolver(prob, SolverOptions(**bench, iteration_history_capacity=cap),
-                                 phase1_iters=14, tail_batch=1024, f64_polish=True)
+                                 phase1_iters=14, tail_batch=1024, f64_polish=True, device_tail=True)
         res[cap] = comp.solve(params, _fleet_Z(defn, Bh))
         syncs[cap] = comp.host_syncs
         assert comp._p1._bwd.launches > 0 and comp._p1._fwd.launches > 0
@@ -934,3 +934,60 @@ def test_al_solver_goldens_on_the_card():
     assert (res.stats.iterations_total, res.stats.iterations_outer) == (14, 5)
     J = float(solver.fns.total_cost(prob.params, res.al, res.Z))
     assert abs(J - 0.03893465058924039) <= 1e-9
+
+
+def test_two_gloo_ranks_on_one_card_are_the_unsharded_solve(tmp_path):
+    """Two gloo ranks of tests/_torch_dist_worker.py on cuda:0, on the fused
+    kernels, float64: each rank's lanes of the lane-major and obstacle
+    fleets (B=64) and of the batch-leading triple-integrator fleet (B=16)
+    bit for bit with the unsharded solve on the card, the folds equal to
+    its, and three one-element all_reduces each solve's only collectives."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from _torch_dist_worker import KERNELS, instance_case, lane_major_case, obstacles_case
+    from altro_tpu_torch.parallel.batch import BatchedALSolver
+
+    dev = _device()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    worker = Path(__file__).parent / "_torch_dist_worker.py"
+    procs = [subprocess.Popen([sys.executable, str(worker), str(r), "2", str(port), str(tmp_path), "cuda:0", "kernels"],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        for p in procs:
+            log, _ = p.communicate(timeout=600)
+            assert p.returncode == 0, log.decode(errors="replace")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, case in (("lane_major", lane_major_case), ("obstacles", obstacles_case), ("instance", instance_case)):
+        ranks = [dict(np.load(tmp_path / f"rank{r}_{name}.npz")) for r in range(2)]
+        prob, opts, params, Z = case(dev)
+        opts = opts.replace(**KERNELS)
+        if name == "instance":
+            ref = BatchedALSolver(prob, opts).solve(params, Z)
+            status, it, U, viol = ref.status, ref.stats.iterations_total, ref.Z.U, ref.stats.violations
+        else:
+            solver = ALSolverBatched(prob, opts)
+            assert solver._bwd is not None and solver._fwd is not None
+            ref = solver.solve(params, Z)
+            status, it, U, viol = ref["status"], ref["stats"].iterations_total, ref["Z"].U, ref["stats"].violations
+        status, it, U = status.cpu().numpy(), it.cpu().numpy(), U.cpu().numpy()
+        W = status.shape[0] // 2
+        folds = [float(viol.max()), int((status == int(SolverStatus.SOLVED)).sum()),
+                 int((status == int(SolverStatus.SOLVED_STALLED)).sum())]
+        for r, out in enumerate(ranks):
+            lanes = slice(r * W, (r + 1) * W)
+            np.testing.assert_array_equal(out[f"{name}_status"], status[lanes])
+            np.testing.assert_array_equal(out[f"{name}_iterations"], it[lanes])
+            lane_U = U[lanes] if name == "instance" else U[..., lanes]
+            np.testing.assert_array_equal(out[f"{name}_U"].view(np.uint64), lane_U.view(np.uint64))
+            assert list(out[f"{name}_folds"]) == folds
+            assert list(out[f"{name}_collectives"]) == ["all_reduce_max:1:8", "all_reduce_sum:1:4", "all_reduce_sum:1:4"]
+            assert list(out[f"{name}_calls"]) == ["all_reduce:3"]

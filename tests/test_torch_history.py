@@ -96,7 +96,7 @@ def test_history_through_the_compaction_splice_matches_jax():
     kw = dict(phase1_iters=6, tail_batch=5)
     ref = numpy_tree(JCompacted(prob_j, JOptions(iteration_history_capacity=K), device_tail=True, **kw)
                      .solve(params_j, Z_j))
-    comp = CompactedALSolver(prob_t, SolverOptions(iteration_history_capacity=K), **kw)
+    comp = CompactedALSolver(prob_t, SolverOptions(iteration_history_capacity=K), device_tail=True, **kw)
     res = comp.solve(params_t, Z_t)
     totals = res["stats"].iterations_total.numpy()
     np.testing.assert_array_equal(res["status"].numpy(), ref["status"])
@@ -112,7 +112,7 @@ def test_history_changes_no_decision():
     B = 16
     _, _, _, prob_t, params_t, Z_t = _fleet(B, spread=0.4)
     for make in (lambda o: ALSolverBatched(prob_t, o),
-                 lambda o: CompactedALSolver(prob_t, o, phase1_iters=6, tail_batch=5)):
+                 lambda o: CompactedALSolver(prob_t, o, phase1_iters=6, tail_batch=5, device_tail=True)):
         off, on = make(SolverOptions()), make(SolverOptions(iteration_history_capacity=8))
         r0, r1 = off.solve(params_t, Z_t), on.solve(params_t, Z_t)
         assert tuple(r0["stats"].rows.shape) == (0, 8, B)

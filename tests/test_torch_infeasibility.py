@@ -157,7 +157,7 @@ def test_compacted_solver_reports_infeasible_as_jax():
                 line_search_max_iterations=20, max_stall_iterations=10)
     kw = dict(phase1_iters=10, tail_batch=B, detect_infeasible=True)
     ref = numpy_tree(JCompacted(prob_j, JOptions(**opts), device_tail=True, **kw).solve(pj, Z_j))
-    comp = CompactedALSolver(prob_t, SolverOptions(**opts), **kw)
+    comp = CompactedALSolver(prob_t, SolverOptions(**opts), device_tail=True, **kw)
     res = comp.solve(pt, convert.trajectory(numpy_tree(Z_j), "cpu", F64))
     status = res["status"].numpy()
     np.testing.assert_array_equal(status, ref["status"])

@@ -318,9 +318,9 @@ def test_restart_portfolio_matches_jax():
                 max_iterations_total=20, **SCAN)
     kw = dict(phase1_iters=8, tail_batch=W, restart_portfolio=PORTFOLIO, restart_width=W, restart_rounds=1)
     ref = numpy_tree(JCompacted(prob_j, JOptions(**opts), device_tail=True, **kw).solve(params_j, Z_j))
-    base = CompactedALSolver(prob_t, SolverOptions(**opts), phase1_iters=8, tail_batch=W)
+    base = CompactedALSolver(prob_t, SolverOptions(**opts), phase1_iters=8, tail_batch=W, device_tail=True)
     before = base.solve(params_t, Z_t)["status"].numpy()
-    comp = CompactedALSolver(prob_t, SolverOptions(**opts), **kw)
+    comp = CompactedALSolver(prob_t, SolverOptions(**opts), device_tail=True, **kw)
     res = comp.solve(params_t, Z_t)
     np.testing.assert_array_equal(res["status"].numpy(), ref["status"])
     np.testing.assert_array_equal(res["stats"].iterations_total.numpy(), ref["stats"].iterations_total)

@@ -398,7 +398,7 @@ def test_compacted_solver_gathers_per_instance_params_as_jax():
                 max_iterations_total=20, backward_pass="scan", forward_pass="scan")
     kw = dict(phase1_iters=8, tail_batch=W, restart_portfolio=PORTFOLIO, restart_width=W, restart_rounds=1)
     ref = numpy_tree(JCompacted(prob_j, JOptions(**opts), device_tail=True, **kw).solve(params_j, Z_j))
-    comp = CompactedALSolver(prob_t, SolverOptions(**opts), **kw)
+    comp = CompactedALSolver(prob_t, SolverOptions(**opts), device_tail=True, **kw)
     res = comp.solve(params_t, Z_t)
     np.testing.assert_array_equal(res["status"].numpy(), ref["status"])
     np.testing.assert_array_equal(res["stats"].iterations_total.numpy(), ref["stats"].iterations_total)

@@ -36,7 +36,7 @@ def test_polish_matches_jax(cascade):
     kw = dict(phase1_iters=8, tail_batch=8, f64_polish=True, polish_batch=3, **(SHORT_CASCADE if cascade else {}))
     jsolver = JCompacted(prob_j, JOptions(**opts), device_tail=True, **kw)
     ref = numpy_tree(jsolver.solve(params_j, Z_j))
-    comp = CompactedALSolver(prob_t, SolverOptions(**opts), **kw)
+    comp = CompactedALSolver(prob_t, SolverOptions(**opts), device_tail=True, **kw)
     res = comp.solve(params_t, Z_t)
     want, got = jsolver.telemetry["polish"], comp.telemetry["polish"]
     assert got["instances"] == want["instances"] > 3

@@ -30,7 +30,8 @@ def test_polish_finishes_the_f32_residue():
     Zb = BatchedTrajectory(X=Z0.X[..., None].expand(-1, -1, B).contiguous(),
                            U=Z0.U[..., None].expand(-1, -1, B).contiguous(), t=Z0.t, h=Z0.h)
     opts = SolverOptions(initial_penalty=1.0, line_search_max_iterations=20, max_stall_iterations=10)
-    pol = CompactedALSolver(prob, opts, phase1_iters=14, tail_batch=B, f64_polish=True, polish_batch=16)
+    pol = CompactedALSolver(prob, opts, phase1_iters=14, tail_batch=B, f64_polish=True, polish_batch=16,
+                           device_tail=True)
     before = []
     run_polish = pol._run_polish
 

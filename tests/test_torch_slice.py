@@ -128,7 +128,7 @@ def test_compaction_matches_jax_device_tail(jax_compacted, passes):
     and tail solvers inherit the option and each builds the wrapper."""
     params_j, Z_j, ref = jax_compacted
     prob = UnicycleProblem(dtype=F64, N=30, device="cpu").make_problem().compile()
-    comp = CompactedALSolver(prob, SolverOptions(**PASSES[passes]), phase1_iters=5, tail_batch=8)
+    comp = CompactedALSolver(prob, SolverOptions(**PASSES[passes]), phase1_iters=5, tail_batch=8, device_tail=True)
     if passes == "riccati":
         assert comp._p1._ric is not None and comp._tail._ric is not None
     res = comp.solve(
@@ -197,8 +197,9 @@ def test_chip_smoke_runs_the_bench_program():
 
 
 def test_port_never_imports_jax_at_runtime():
-    """Importing altro_tpu_torch and running a tiny solve leaves jax out of
-    sys.modules."""
+    """Importing altro_tpu_torch (every module, the multi-device layer and
+    the utilities too) and running a tiny solve leaves jax and the JAX
+    package out of sys.modules."""
     code = (
         "import sys, torch\n"
         "from altro_tpu_torch import SolverOptions\n"
@@ -217,12 +218,16 @@ def test_port_never_imports_jax_at_runtime():
         "from altro_tpu_torch.models.problems import TripleIntegratorProblem, zoo_cartpole, zoo_quadrotor\n"
         "import altro_tpu_torch.ops.riccati, altro_tpu_torch.ops._build\n"
         "import altro_tpu_torch.utils.timer\n"
+        "import altro_tpu_torch.parallel.batch, altro_tpu_torch.parallel.mesh, altro_tpu_torch.native\n"
+        "import altro_tpu_torch.utils.checkpoint, altro_tpu_torch.utils.derivative_check\n"
+        "import altro_tpu_torch.utils.benchmarking\n"
         "from altro_tpu_torch import MPC\n"
         "m = MPC(p, SolverOptions(max_iterations_total=1))\n"
         "assert m.step(m.init(Z0), torch.zeros(3, dtype=torch.float64))[0].shape == (2,)\n"
         "zoo_quadrotor(N=4, device='cpu'); zoo_cartpole(N=4, device='cpu')\n"
         "TripleIntegratorProblem(device='cpu').make_problem(add_constraints=True).compile()\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if m.startswith('jax'))\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] == 'altro_tpu']\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -274,10 +279,11 @@ def test_chip_smoke_ends_what_is_left_running():
     code = (
         "import subprocess, sys, time\n"
         "import chip_smoke as cs\n"
+        "ended = []  # held, so that the Popen object's finalizer cannot reap the ended child first\n"
         "def fake_main(argv):\n"
         "    subprocess.Popen(['sleep', '61'])\n"
         "    subprocess.Popen(['sh', '-c', 'sleep 62 & exit 0']).wait()\n"
-        "    subprocess.Popen(['true'])\n"
+        "    ended.append(subprocess.Popen(['true']))\n"
         "    time.sleep(0.5)\n"
         "    assert len(cs._children()) == 3, cs._children()  # sleep 61, the orphan, the ended true\n"
         "    return 7\n"
