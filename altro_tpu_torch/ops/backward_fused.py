@@ -850,3 +850,14 @@ class BackwardFusedKernel(FusedKernel):
         self._launch(args, sig, lane_tab, Z.X)
         return K, d, dV1, dV2, failed != 0, J0
 
+
+
+def build_backward_fused_kernel(prob, opts, *, dtype=torch.float32, device="cuda"):
+    """The fused backward kernel for `prob`, or None where the problem is
+    one it does not take (`Ineligible`): the function form of
+    `altro_tpu/ops/backward_fused_pallas.py:build_backward_fused_kernel`,
+    without the TPU's interpret mode and tile geometry."""
+    try:
+        return BackwardFusedKernel(prob, opts, dtype=dtype, device=device)
+    except Ineligible:
+        return None

@@ -37,7 +37,7 @@ from .backward_fused import (
     _ptr, chunk_knots, forward_smem,
 )
 
-__all__ = ["ForwardKernel", "Ineligible"]
+__all__ = ["ForwardKernel", "Ineligible", "build_forward_kernel"]
 
 
 class ForwardKernel(FusedKernel):
@@ -125,3 +125,14 @@ class ForwardKernel(FusedKernel):
         )
         self._launch(args, sig, lane_tab, Z.X)
         return Xn, Ubar, J, valid != 0, status
+
+
+def build_forward_kernel(prob, opts, *, dtype=torch.float32, device="cuda"):
+    """The forward kernel for `prob`, or None where the problem is one it
+    does not take (`Ineligible`): the function form of
+    `altro_tpu/ops/forward_pallas.py:build_forward_kernel`, without the
+    TPU's interpret mode and tile geometry."""
+    try:
+        return ForwardKernel(prob, opts, dtype=dtype, device=device)
+    except Ineligible:
+        return None

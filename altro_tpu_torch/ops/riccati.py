@@ -36,7 +36,7 @@ from .backward_fused import (
     sweep_scratch,
 )
 
-__all__ = ["Ineligible", "RiccatiKernel", "riccati_plain"]
+__all__ = ["Ineligible", "RiccatiKernel", "riccati_cuda", "riccati_plain"]
 
 SMEM_SM = 233_472  # shared memory of one H100 multiprocessor, bytes; 1,024 of it kept per block
 COPY_THREADS = 32  # the copy warp
@@ -219,3 +219,13 @@ class RiccatiKernel:
             lib.launch(self.entry, args, torch.cuda.current_stream(dev).cuda_stream)
         self.launches += 1
         return K, d, dV1, dV2, failed != 0
+
+
+def riccati_cuda(exp: dict, rho, *, gain_limit: float = 1e8):
+    """One sweep of the Riccati kernel over `exp` at ρ [B], with the
+    contract of `riccati_scan`: the function form of
+    `altro_tpu/ops/riccati_pallas.py:riccati_pallas`.  Each call builds the
+    `RiccatiKernel` of the expansions' (n, m) and type; where none is
+    instantiated it raises `Ineligible`, with no fallback."""
+    A = exp["A"]
+    return RiccatiKernel(A.shape[1], exp["B"].shape[2], gain_limit=gain_limit, dtype=A.dtype)(exp, rho)

@@ -92,6 +92,19 @@ OBSTACLE_F32_REL = dict(K=5e-6, d=5e-6, dV1=8e-6, dV2=4e-6, J0=2e-6, Xn=4e-6, Ub
 # float64 plain sweep is 0.70-1.37 times the plain float32 sweep's
 F32_VS_F64_RATIO = 4.0
 
+# the associative-scan sweep (`solver/pscan_batched.py:riccati_pscan_batched`)
+# against the Riccati kernel at ρ=0 on the parking expansions (N=100,
+# B=4096): the largest |Δ| of each output over the lanes that did not fail,
+# relative to max(max |kernel|, 1).  The two compose the same recursion in
+# another order, so float64 agrees to rounding.  Observed on an H100
+# (700 W): float64 K 3.0e-13, d 2.0e-13, dV1 3.2e-14, dV2 3.2e-14; float32
+# K 1.2e-4, d 8.3e-5, dV1 1.3e-5, dV2 1.3e-5 (the kernel is itself 7.3e-5
+# from the plain float32 sweep, above)
+PSCAN_REL = dict(
+    f64=dict(K=1e-9, d=1e-9, dV1=1e-9, dV2=1e-9),
+    f32=dict(K=1e-3, d=8e-4, dV1=1e-4, dV2=1e-4),
+)
+
 # regularizations of the backward checks.  The quadrotor's open-loop hover
 # sweep is ill-conditioned at small ρ: a one-ulp move of the float64 inputs
 # moves the plain version's gains by about 1e-5 at ρ=10 and 1e-12 at ρ=1e3

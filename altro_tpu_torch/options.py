@@ -132,7 +132,9 @@ class SolverOptions:
         if self.backward_pass == "pscan":
             raise ValueError(
                 "backward_pass='pscan' was retired (measured slower than "
-                "the sequential sweep everywhere); use 'scan', 'riccati' or 'fused'"
+                "the sequential sweep everywhere); use 'scan', 'riccati' or 'fused', "
+                "or call solver.pscan.backward_pass_pscan or "
+                "solver.pscan_batched.riccati_pscan_batched directly for research"
             )
         if self.backward_pass not in _BACKWARD:
             raise ValueError(

@@ -1,13 +1,17 @@
 """Sharded batched solves over `torch.distributed` (`altro_tpu/parallel/mesh.py`).
 
-The batch of scenarios is split over the ranks of the default process
-group, one contiguous slice each.  Per-scenario solves are independent, so
-each rank solves its slice alone; the only communication is the three
+The batch of scenarios is split over the ranks of a one-dimensional
+`DeviceMesh` (`make_mesh`), one contiguous slice each, in the mesh's
+order: the rank at position i of the mesh's dimension takes the i-th
+slice, as the JAX mesh's i-th device takes the i-th shard.  Per-scenario
+solves are independent, so each rank solves its slice alone; the only
+communication is the three
 scalar statistics folds the reference also performs
 (`altro/augmented_lagrangian/al_solver.hpp:417-434`): the maximum
 violation (one `MAX` `all_reduce`) and the SOLVED and SOLVED_STALLED counts
-(two `SUM` `all_reduce`s), one element each, 12 or 16 bytes a rank per
-solve.  The JAX package runs them as `pmax`/`psum` inside `shard_map`.
+(two `SUM` `all_reduce`s) over the mesh dimension's process group, one
+element each, 12 or 16 bytes a rank per solve.  The JAX package runs them
+as `pmax`/`psum` inside `shard_map`.
 
 Backends: NCCL for ranks on their own GPUs (it takes one rank per GPU),
 gloo on the CPU and for several ranks sharing one GPU (gloo reduces CUDA
@@ -27,13 +31,17 @@ from ..utils.tree import tree_map
 from .batch import BatchedALSolver, map_axes, params_axes
 
 
-def make_mesh(axis: str = "batch"):
-    """A one-dimensional `DeviceMesh` over the ranks of the default group,
-    its dimension named `axis`."""
+def make_mesh(devices=None, axis: str = "batch"):
+    """A one-dimensional `DeviceMesh` over the global ranks `devices`, in
+    that order (None: every rank of the default group), its dimension named
+    `axis`.  The JAX call form `make_mesh(devices)` reads here as a list of
+    ranks.  Every rank of the default group builds the mesh (its process
+    group is made collectively), also a rank that is not in it."""
     from torch.distributed.device_mesh import DeviceMesh
 
+    ranks = list(range(dist.get_world_size())) if devices is None else [int(r) for r in devices]
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, list(range(dist.get_world_size())), mesh_dim_names=(axis,))
+    return DeviceMesh(device_type, ranks, mesh_dim_names=(axis,))
 
 
 def init_distributed(**kwargs):
@@ -45,25 +53,33 @@ def init_distributed(**kwargs):
     return make_mesh()
 
 
-def _local_range(B: int) -> tuple[int, int]:
-    """This rank's contiguous slice [start, stop) of a batch of B."""
-    world, rank = dist.get_world_size(), dist.get_rank()
+def _local_range(B: int, mesh, axis: str) -> tuple[int, int]:
+    """This rank's contiguous slice [start, stop) of a batch of B: the slice
+    of its position along the mesh dimension `axis`."""
+    dim = mesh.mesh_dim_names.index(axis)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
+    world, pos = mesh.size(dim), coord[dim]
     if B % world:
         raise ValueError(f"a batch of {B} does not split evenly over {world} ranks")
     size = B // world
-    return rank * size, (rank + 1) * size
+    return pos * size, (pos + 1) * size
 
 
 class _Folds:
-    """The solve's statistics folds, recorded: `collectives` lists each
-    `all_reduce` of the last solve as (op, elements, bytes)."""
+    """The solve's statistics folds over the process group of the mesh
+    dimension `axis`, recorded: `collectives` lists each `all_reduce` of
+    the last solve as (op, elements, bytes)."""
 
-    def __init__(self):
+    def __init__(self, mesh, axis: str):
+        self.mesh = mesh
+        self.axis = axis
         self.collectives: list[tuple[str, int, int]] = []
 
     def _all_reduce(self, value: torch.Tensor, op, name: str) -> torch.Tensor:
         buf = value.reshape(1).clone()
-        dist.all_reduce(buf, op=op)
+        dist.all_reduce(buf, op=op, group=self.mesh.get_group(self.axis))
         self.collectives.append((name, buf.numel(), buf.numel() * buf.element_size()))
         return buf[0]
 
@@ -87,17 +103,15 @@ class ShardedALSolver(_Folds):
 
     def __init__(self, prob: CompiledProblem, mesh, opts: SolverOptions = None,
                  in_axes: ProblemParams = None, axis: str = "batch"):
-        super().__init__()
+        super().__init__(mesh, axis)
         self.prob = prob
-        self.mesh = mesh
-        self.axis = axis
         self.in_axes = in_axes if in_axes is not None else params_axes(x0=0)
         self.solver = BatchedALSolver(prob, opts, self.in_axes)
         self.device = prob.params.x0.device
 
     def _slice(self, leaf, axis: int = 0) -> torch.Tensor:
         leaf = torch.as_tensor(leaf)
-        start, stop = _local_range(leaf.shape[axis])
+        start, stop = _local_range(leaf.shape[axis], self.mesh, self.axis)
         return leaf.narrow(axis, start, stop - start).contiguous().to(self.device)
 
     def shard_batch(self, tree):
@@ -130,16 +144,14 @@ class ShardedBatchedALSolver(_Folds):
     collectives are the three folds (module docstring)."""
 
     def __init__(self, prob: CompiledProblem, mesh, opts: SolverOptions = None, axis: str = "batch"):
-        super().__init__()
+        super().__init__(mesh, axis)
         self.prob = prob
-        self.mesh = mesh
-        self.axis = axis
         self.solver = ALSolverBatched(prob, opts)
         self.device = prob.params.x0.device
 
     def _slice_last(self, leaf) -> torch.Tensor:
         leaf = torch.as_tensor(leaf)
-        start, stop = _local_range(leaf.shape[-1])
+        start, stop = _local_range(leaf.shape[-1], self.mesh, self.axis)
         return leaf[..., start:stop].contiguous().to(self.device)
 
     def shard_batch(self, tree):

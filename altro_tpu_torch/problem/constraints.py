@@ -152,6 +152,9 @@ class Constraint:
             return self.jac_fn(self.params, x, u)
         return jacfwd(self.fn, argnums=(1, 2))(self.params, x, u)
 
+    def replace(self, **updates) -> "Constraint":
+        return dataclasses.replace(self, **updates)
+
 
 def _goal_eval(params, x, u):
     del u

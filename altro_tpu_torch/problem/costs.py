@@ -26,6 +26,9 @@ class CostExpansionTerms:
     lxu: torch.Tensor  # [n, m] cross term
     luu: torch.Tensor
 
+    def replace(self, **updates) -> "CostExpansionTerms":
+        return dataclasses.replace(self, **updates)
+
 
 @dataclasses.dataclass(frozen=True)
 class Cost:
@@ -44,6 +47,9 @@ class Cost:
         if self.expand_fn is not None:
             return self.expand_fn(self.params, x, u)
         return ad_expansion(self.fn, self.params, x, u)
+
+    def replace(self, **updates) -> "Cost":
+        return dataclasses.replace(self, **updates)
 
 
 def ad_expansion(fn: Callable, params, x, u) -> CostExpansionTerms:

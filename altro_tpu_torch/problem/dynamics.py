@@ -17,7 +17,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
-from torch.func import jacfwd
+import torch
+from torch.func import hessian, jacfwd
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,16 @@ class ContinuousModel:
 
     def __call__(self, x, u, t):
         return self.fn(self.params, x, u, t)
+
+    def hessian_vp(self, x, u, t, b):
+        """The Hessian of the b-weighted dynamics, ∂²(bᵀf)/∂(x,u)², over the
+        stacked z = (x, u): (n+m)×(n+m).  The reference's
+        `FunctionBase::Hessian` (`altro/common/functionbase.hpp:53-87`);
+        the solver, Gauss-Newton as the reference's, does not use it."""
+        return _hessian_vp(lambda x_, u_: self.fn(self.params, x_, u_, t), x, u, b)
+
+    def replace(self, **updates) -> "ContinuousModel":
+        return dataclasses.replace(self, **updates)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +73,23 @@ class DiscreteModel:
         if self.jac_fn is not None:
             return self.jac_fn(self.params, x, u, t, h)
         return jacfwd(self.fn, argnums=(1, 2))(self.params, x, u, t, h)
+
+    def hessian_vp(self, x, u, t, h, b):
+        """∂²(bᵀf)/∂(x,u)² of the discrete step (see
+        `ContinuousModel.hessian_vp`; the reference routes it through
+        `DiscreteDynamics`, `problem/dynamics.hpp:167-186`)."""
+        return _hessian_vp(lambda x_, u_: self.fn(self.params, x_, u_, t, h), x, u, b)
+
+    def replace(self, **updates) -> "DiscreteModel":
+        return dataclasses.replace(self, **updates)
+
+
+def _hessian_vp(f: Callable, x, u, b):
+    """One `torch.func.hessian` of z ↦ bᵀ f(z[:n], z[n:])."""
+    x, u = torch.as_tensor(x), torch.as_tensor(u)
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    n = x.shape[0]
+    return hessian(lambda z: b @ f(z[:n], z[n:]))(torch.cat([x, u.to(x.dtype)]))
 
 
 def rk4_step(f: Callable, params, x, u, t, h):

@@ -31,6 +31,9 @@ class ALResult:
     K: torch.Tensor
     d: torch.Tensor
 
+    def replace(self, **updates) -> "ALResult":
+        return dataclasses.replace(self, **updates)
+
 
 class ALSolver:
     """AL-iLQR solver over a compiled problem.  `host_syncs` counts the

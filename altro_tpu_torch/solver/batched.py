@@ -39,7 +39,7 @@ from ..options import LogLevel, SolverOptions
 from ..problem.constraints import Cone, dual_cone
 from ..problem.costs import _quadcost_eval, ad_expansion
 from ..problem.problem import CompiledProblem, ProblemParams, param_row
-from ..types import SolverStatus
+from ..types import SolverStatus, Trajectory
 
 # SolverOptions.matmul_precision="highest": float32 matrix products stay in
 # full float32 on CUDA, so TF32 is off for matmuls and for cuDNN alike.
@@ -269,7 +269,9 @@ _HISTORY_COLUMNS = (
 )
 
 
-def batched_stats_init(B: int, dtype, device, history_capacity: int = 0) -> BatchedStats:
+def batched_stats_init(B: int, dtype, history_capacity: int = 0, device=None) -> BatchedStats:
+    """Zeroed stats of B lanes with `history_capacity` history rows, on
+    `device` (None: the default device)."""
     z = torch.zeros((B,), dtype=dtype, device=device)
     i = torch.zeros((B,), dtype=torch.int32, device=device)
     return BatchedStats(
@@ -330,6 +332,19 @@ def to_batch_last(Z) -> BatchedTrajectory:
     )
 
 
+def from_batch_last(Zb: BatchedTrajectory) -> Trajectory:
+    """The batch-leading `Trajectory` of a batch-last one, the inverse of
+    `to_batch_last`: X [B, N+1, n], U [B, N, m], and the shared time grid
+    broadcast to t [B, N+1], h [B, N]."""
+    B = Zb.X.shape[-1]
+    return Trajectory(
+        X=torch.movedim(Zb.X, -1, 0).contiguous(),
+        U=torch.movedim(Zb.U, -1, 0).contiguous(),
+        t=Zb.t.expand((B,) + tuple(Zb.t.shape)),
+        h=Zb.h.expand((B,) + tuple(Zb.h.shape)),
+    )
+
+
 def zselect(mask, Za: BatchedTrajectory, Zb: BatchedTrajectory) -> BatchedTrajectory:
     """Masked select on BatchedTrajectory (t, h carry no batch axis)."""
     return Za.replace(X=torch.where(mask, Za.X, Zb.X), U=torch.where(mask, Za.U, Zb.U))
@@ -373,6 +388,13 @@ class ALSolverBatched:
     fused kernels (and the TPU kernels) do: the solvers whose passes are
     the kernels' plain versions set it.  Otherwise every constraint runs its
     own `fn`, as the JAX package's scan path does.
+
+    Two facts of the inner loop that `parallel/batch.py:_InstanceStats`
+    builds on, and that a change here must keep or carry over to it: each
+    inner iteration calls `forward_pass` once, and then, after
+    `_record_history`, `_emit_inner_row(active, stats)` wherever
+    `self._logger` is not None (the logger is only compared with None
+    before it reaches `_emit_inner_row` and `_emit_outer_row`).
     """
 
     def __init__(self, prob: CompiledProblem, opts: SolverOptions = None, *,
@@ -499,11 +521,14 @@ class ALSolverBatched:
             self._knot_idx[id(fam)] = ks
         return ks
 
-    def dyn_step_fam(self, fam, fp, x, u, t, h):
+    def dyn_step_fam(self, fam, canon, fp, x, u, t, h):
         """One discrete step of family `fam` (params `fp`, one knot's),
         batch-last: the model takes x [n, B] as it takes x [n] (see
         problem/dynamics), and a per-instance param leaf's trailing batch
-        axis broadcasts as x's does."""
+        axis broadcasts as x's does.  `canon`, the family's canonical
+        params, is the JAX signature's: there it tells the per-instance
+        leaves apart for `vmap`; broadcasting needs no such map, so it is
+        not read here."""
         model = fam.model
         if model is not None and model.method == "rk4":
             f = model.continuous_fn
@@ -521,7 +546,14 @@ class ALSolverBatched:
         package): the family and params `CompiledProblem.dynamics_segment`
         names for k."""
         fam, fp = self.prob.dynamics_segment(params.dynamics, k)
-        return self.dyn_step_fam(fam, fp, x, u, t, h)
+        return self.dyn_step_fam(fam, None, fp, x, u, t, h)
+
+    def dyn_step(self, params, x, u, t, h):
+        """One step of the problem's first dynamics family (the JAX
+        package's single-family fast path): `params` is that family's
+        params."""
+        return self.dyn_step_fam(self.prob.dynamics_families[0], self.prob.params.dynamics[0],
+                                 params, x, u, t, h)
 
     def _fam_jacobian(self, fam, canon, fp, X, U, t, h):
         """Discrete Jacobians A [K,n,n,B], Bd [K,n,m,B] of one family over
@@ -871,13 +903,14 @@ class ALSolverBatched:
             out = res
         return out, rho, drho
 
-    def backward_pass_fused(self, bwd, params, al_pad, Z, rho, drho):
-        """Backward pass through the fused expansion+Riccati kernel `bwd`
-        (`ops/backward_fused.py`), with the retry semantics of
-        :meth:`backward_pass`; the trajectory's AL cost J0 comes out of the
-        same pass."""
+    def backward_pass_fused(self, params, al_pad, Z, rho, drho, kern=None):
+        """Backward pass through the fused expansion+Riccati kernel `kern`
+        (`ops/backward_fused.py`; None: the solver's own), with the retry
+        semantics of :meth:`backward_pass`; the trajectory's AL cost J0
+        comes out of the same pass."""
+        kern = self._bwd if kern is None else kern
         (K, d, dV1, dV2, failed, J0), rho, drho = self._retry(
-            lambda r: bwd(params, al_pad, Z, r), rho, drho
+            lambda r: kern(params, al_pad, Z, r), rho, drho
         )
         return dict(K=K, d=d, dV1=dV1, dV2=dV2, failed=failed, J0=J0, rho=rho, drho=drho)
 
@@ -952,11 +985,11 @@ class ALSolverBatched:
         Zbar = Z.replace(X=torch.cat([x0[None], Xn], dim=0), U=Ubar)
         return Zbar, valid, status, J
 
-    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None, fwd=None):
+    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None, fwd_kern=None):
         """Per-instance backtracking line search (`ilqr.hpp:512-558`).
 
         `rho`/`drho` are the post-decrease regularization; a failed search
-        increases them from there.  With the forward kernel `fwd` and
+        increases them from there.  With the forward kernel `fwd_kern` and
         `al_pad` (the padded AL state of the inner solve) each try runs the
         kernel, and with `line_search_parallel` S > 1, S tries run in one
         launch (`_line_search_speculative`); without them, the eager
@@ -965,10 +998,10 @@ class ALSolverBatched:
         """
         opts = self.opts
         S = int(opts.line_search_parallel)
-        if fwd is not None and S > 1:
-            c = self._line_search_speculative(fwd, params, al_pad, Z, bp, J0, S)
+        if fwd_kern is not None and S > 1:
+            c = self._line_search_speculative(fwd_kern, params, al_pad, Z, bp, J0, S)
         else:
-            c = self._line_search_sequential(fwd, params, al, al_pad, Z, bp, J0)
+            c = self._line_search_sequential(fwd_kern, params, al, al_pad, Z, bp, J0)
         rho = bp["rho"] if rho is None else rho
         drho = bp["drho"] if drho is None else drho
         Z_out = zselect(c["success"], c["Zbar"], Z)
@@ -1189,7 +1222,7 @@ class ALSolverBatched:
             stats = c["stats"]
             if bwd is not None:
                 # expansions inside the sweep; J0 from the kernel's Kahan sum
-                bp = self.backward_pass_fused(bwd, params, al_pad, c["Z"], c["rho"], c["drho"])
+                bp = self.backward_pass_fused(params, al_pad, c["Z"], c["rho"], c["drho"], bwd)
                 J0 = bp["J0"]
             else:
                 exp = self.expand(params, al, c["Z"])
@@ -1362,7 +1395,7 @@ class ALSolverBatched:
                     dict(lam=s["lam"], rho=torch.full_like(s["rho"], opts.initial_penalty))
                     for s in al
                 )
-        stats = batched_stats_init(Bsz, dt, dev, opts.iteration_history_capacity)
+        stats = batched_stats_init(Bsz, dt, opts.iteration_history_capacity, dev)
         if opts.iteration_history_capacity > 0 and self.prob.constraint_families:
             # seed the violation and penalty columns as the per-instance
             # solver's pre-solve log does (`altro_tpu/solver/batched.py:1725-1735`)

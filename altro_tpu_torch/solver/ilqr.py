@@ -47,6 +47,9 @@ class ForwardPassResult:
     drho: torch.Tensor
     status: torch.Tensor
 
+    def replace(self, **updates) -> "ForwardPassResult":
+        return dataclasses.replace(self, **updates)
+
 
 @dataclasses.dataclass(frozen=True)
 class ILQRResult:
@@ -56,6 +59,9 @@ class ILQRResult:
     d: torch.Tensor  # [N, m] final feedforward gains
     status: torch.Tensor
     stats: SolverStats
+
+    def replace(self, **updates) -> "ILQRResult":
+        return dataclasses.replace(self, **updates)
 
 
 def _status(code: int, like: torch.Tensor) -> torch.Tensor:

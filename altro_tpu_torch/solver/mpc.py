@@ -36,6 +36,9 @@ class MPCState:
     status: torch.Tensor
     iterations: Any  # total iterations of the last solve: an int, or [B] for BatchedMPC
 
+    def replace(self, **updates) -> "MPCState":
+        return dataclasses.replace(self, **updates)
+
 
 def _warm_options(opts: Optional[SolverOptions]) -> SolverOptions:
     """The controllers keep the duals across re-solves (`reset_duals=False`)

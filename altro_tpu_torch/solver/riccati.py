@@ -37,6 +37,9 @@ class BackwardPassResult:
     failed: bool
     attempts: int  # sweeps run, each ended by one host synchronisation
 
+    def replace(self, **updates) -> "BackwardPassResult":
+        return dataclasses.replace(self, **updates)
+
 
 def increase_regularization(rho, drho, opts: SolverOptions):
     """ρ, dρ damped increase (`ilqr.hpp:770-775`)."""

@@ -23,7 +23,9 @@ in parallel), then:
   4. checks the Riccati kernel against its plain version on the parking
      expansions (N=100, B=4096 and B=1000), at the model zoo's shapes
      (quadrotor n=13 N=50, cartpole n=4 N=60, B=2048) and on the triple
-     integrator's (n=6, N=10, B=2048), float64 and float32;
+     integrator's (n=6, N=10, B=2048), float64 and float32, and the
+     associative-scan sweep (`solver/pscan_batched.py`) against the kernel
+     on the B=4096 parking expansions at ρ=0, both timed;
   5. drives `backward_pass="pallas"` (the Riccati kernel over the eager
      expansions) through `CompactedALSolver` on the B=4096 parking fleet,
      and the float64 golden through the Riccati kernel;
@@ -79,10 +81,10 @@ in parallel), then:
  16. splits the main path's fleet (B=4096, f32, bench options, fused
      kernels, `ALSolverBatched` with no compaction) over ranks
      (`altro_tpu_torch/parallel/mesh.py`): a world of one over NCCL in
-     this process and two gloo ranks sharing the card in processes of
-     their own, each rank's lanes bit for bit with the unsharded solve's,
-     its folds equal to the solve's and three one-element all_reduces its
-     only collectives; `BatchedALSolver` bit for bit with the unsharded
+     this process (on `make_mesh()` and on `make_mesh([0])`) and two gloo
+     ranks sharing the card in processes of their own, each rank's lanes
+     bit for bit with the unsharded solve's, its folds equal to the
+     solve's and three one-element all_reduces its only collectives; `BatchedALSolver` bit for bit with the unsharded
      solve, and bench.make_solver's program with the host-driven tail
      (`device_tail=False`) bit for bit with its device program;
  17. solves the zoo's and the obstacle fleet's first 512 lanes on the
@@ -866,11 +868,41 @@ def riccati_fleet(name, B, dtype, dev, rng):
     return prob, Z0, zoo_x0s(x0, B, rng).to(dtype)
 
 
+def pscan_vs_kernel(kern, exp, dtype) -> dict:
+    """The associative-scan sweep `riccati_pscan_batched` (plain tensor
+    code, as the JAX package's is plain jax.numpy) against the Riccati
+    kernel through its function form `riccati_cuda`, at ρ=0 on the same
+    expansions: the failure flags, and the largest |Δ| of K, d, dV1 and
+    dV2 over the lanes that did not fail relative to max(max |kernel|, 1)
+    (tolerances.PSCAN_REL).  The sweep and `kern`, a `RiccatiKernel` built
+    once as the other rows time it, each timed with cuda_ms, median of 5."""
+    import torch
+
+    from altro_tpu_torch.ops import tolerances as tol
+    from altro_tpu_torch.ops.riccati import riccati_cuda
+    from altro_tpu_torch.solver.pscan_batched import riccati_pscan_batched
+
+    tag = "f64" if dtype == torch.float64 else "f32"
+    rho = torch.zeros((exp["A"].shape[-1],), dtype=dtype, device=exp["A"].device)
+    got = riccati_pscan_batched(exp, rho)
+    want = riccati_cuda(exp, rho)
+    _sync()
+    ok = ~want[4]
+    rel = {}
+    for key, g, w in zip(("K", "d", "dV1", "dV2"), got[:4], want[:4]):
+        g, w = g[..., ok].double(), w[..., ok].double()
+        rel[key] = float((g - w).abs().max() / w.abs().max().clamp(min=1.0)) if bool(ok.any()) else 0.0
+    return dict(flags_equal=bool(torch.equal(got[4], want[4])), n_failed=int(want[4].sum()), rel_err=rel,
+                limit=tol.PSCAN_REL[tag], ms=cuda_ms(lambda: riccati_pscan_batched(exp, rho), 5),
+                kernel_ms=cuda_ms(lambda: kern(exp, rho), 5))
+
+
 def phase_riccati_vs_plain(dev) -> dict:
     """The Riccati kernel against its plain version: parking expansions
     (N=100, B=4096 and B=1000, as phase_kernels builds them), the zoo's
     quadrotor (N=50) and cartpole (N=60) and the triple integrator (N=10)
-    at B=2048; f64 and f32."""
+    at B=2048; f64 and f32.  At the parking B=4096 expansions, also the
+    associative-scan sweep against the kernel (`pscan_vs_kernel`)."""
     import torch
 
     from altro_tpu_torch.ops import tolerances as tol
@@ -899,11 +931,15 @@ def phase_riccati_vs_plain(dev) -> dict:
             work = riccati_work(Nk, n, m, B, item)
             bound_ms, bound_by = bound(*work, tag)
             geo = kern.geometry(B)
+            pscan = pscan_vs_kernel(kern, exp, dtype) if (name, B) == ("parking", B_FLEET) else None
             emit({"phase": "riccati_vs_plain", "problem": name, "dtype": tag, "n": n, "m": m,
                   "N": Nk, "B": B, "cases": errs, "timed_rho": float(rho[0]), "ms": ms,
                   "device_ms": dms, "plain_ms": plain_ms, "bytes": work[0], "flops": work[1],
                   "bound_ms": bound_ms, "bound_by": bound_by, "blocks": geo.blocks,
-                  "threads": geo.threads, "knots": geo.knots, "smem": geo.smem})
+                  "threads": geo.threads, "knots": geo.knots, "smem": geo.smem, "pscan": pscan})
+            if pscan is not None:
+                assert pscan["flags_equal"], f"pscan {tag}: failure flags differ from the kernel's"
+                assert all(v <= pscan["limit"][k] for k, v in pscan["rel_err"].items()), f"pscan {tag}: {pscan}"
             if (name, B) == ("parking", B_FLEET):
                 summary[tag] = dict(
                     max_abs_err=max(c[k]["max_abs"] for c in errs.values() for k in ("K", "d")),
@@ -2676,7 +2712,7 @@ def _sharded_rank(rank: int, port: int, pkg: str, conn, parent: int) -> None:
         import torch.distributed as dist
 
         from altro_tpu_torch import SolverOptions
-        from altro_tpu_torch.parallel.mesh import ShardedBatchedALSolver, init_distributed
+        from altro_tpu_torch.parallel.mesh import ShardedBatchedALSolver, init_distributed, make_mesh
 
         dev = torch.device("cuda", 0)
         mesh = init_distributed(backend="gloo", init_method=f"tcp://localhost:{port}", world_size=SHARD_WORLD,
@@ -2747,7 +2783,8 @@ def phase_sharded(dev) -> dict:
     no compaction, whose lanes the sharded solvers split:
       1. a world of one rank over NCCL in this process:
          `ShardedBatchedALSolver` bit for bit with the unsharded solve, its
-         folds the solve's max violation and counts;
+         folds the solve's max violation and counts, on the mesh over every
+         rank (`make_mesh()`) and on `make_mesh([0])` alike;
       2. two gloo ranks on cuda:0 in processes of their own (NCCL takes
          one rank per GPU; gloo reduces CUDA tensors), 2,048 lanes each:
          statuses, iterations and U bit for bit with the unsharded solve's
@@ -2772,7 +2809,7 @@ def phase_sharded(dev) -> dict:
     import altro_tpu_torch
     from altro_tpu_torch import SolverOptions, SolverStatus, Trajectory
     from altro_tpu_torch.parallel.batch import BatchedALSolver
-    from altro_tpu_torch.parallel.mesh import ShardedBatchedALSolver, init_distributed
+    from altro_tpu_torch.parallel.mesh import ShardedBatchedALSolver, init_distributed, make_mesh
     from altro_tpu_torch.solver.batched import ALSolverBatched
 
     ctx = mp.get_context("spawn")
@@ -2811,6 +2848,11 @@ def phase_sharded(dev) -> dict:
             nccl = dict(_same_solve(res1, ref), folds=[float(folds1[0]), int(folds1[1]), int(folds1[2])],
                         collectives=list(s1.collectives), mesh=[mesh.size(), list(mesh.mesh_dim_names)],
                         device=str(folds1[0].device))
+            # the same world on a mesh over the rank list [0] (the JAX call form)
+            s0 = ShardedBatchedALSolver(prob, make_mesh([0]), opts)
+            res0, *folds0 = s0.solve(s0.shard_params(params), s0.shard_batch(Zb))
+            nccl["listed_mesh"] = dict(_same_solve(res0, res1), folds=[float(folds0[0]), int(folds0[1]),
+                                                                       int(folds0[2])])
         finally:
             dist.destroy_process_group()
 
@@ -2861,6 +2903,9 @@ def phase_sharded(dev) -> dict:
               batched_al_solver=batched, host_tail=host_tail))
     assert all(nccl[k] for k in ("statuses", "iterations", "U_bitwise")), f"NCCL world of one: {nccl}"
     assert nccl["folds"] == list(folds_ref) and len(nccl["collectives"]) == 3 and nccl["device"] == "cuda:0", nccl
+    listed = nccl["listed_mesh"]
+    assert all(listed[k] for k in ("statuses", "iterations", "U_bitwise")) and listed["folds"] == nccl["folds"], (
+        f"make_mesh([0]) parted from make_mesh(): {listed}")
     for r, pr in enumerate(per_rank):
         assert pr["devices"] == ["cuda:0"] and pr["lanes"] == W, pr
         assert pr["statuses"] and pr["iterations"] and pr["U_bitwise"], f"rank {r} parted from the unsharded lanes"

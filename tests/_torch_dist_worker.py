@@ -19,6 +19,9 @@ tests, so the caller can hold each shard against the JAX package:
                 x0 moved by ±0.4 (tests/multihost_worker.py)
   indivisible — the ValueError of a batch of 3 (world 2 and up), saved
                 with the instance case
+  reversed    — the lane_major case on `make_mesh` over the ranks in
+                reverse order, given as the JAX call form's positional
+                list: the last rank takes the first slice
 With `kernels` every case runs the fused CUDA kernels (`KERNELS`), which
 need the card.  It imports nothing of JAX.
 """
@@ -36,7 +39,9 @@ from altro_tpu_torch.models.problems import TripleIntegratorProblem, UnicyclePro
 from altro_tpu_torch.parallel.mesh import (  # noqa: E402
     ShardedALSolver,
     ShardedBatchedALSolver,
+    _local_range,
     init_distributed,
+    make_mesh,
 )
 from altro_tpu_torch.solver.batched import BatchedTrajectory  # noqa: E402
 
@@ -155,6 +160,14 @@ def main(argv) -> int:
         except ValueError as e:
             indivisible = f"ValueError: {e}"
         record(out_dir, rank, "instance", s, res, folds, calls, indivisible=indivisible, **mesh_info)
+        rev = make_mesh(list(reversed(range(world))))
+        prob, opts, params, Zb = lane_major_case(dev)
+        s = ShardedBatchedALSolver(prob, rev, opts.replace(**passes))
+        p_l, Z_l = s.shard_params(params), s.shard_batch(Zb)
+        calls.clear()
+        res, *folds = s.solve(p_l, Z_l)
+        record(out_dir, rank, "reversed", s, res, folds, calls, lanes=np.array(_local_range(B, rev, "batch")),
+               mesh_ranks=np.array(rev.mesh.tolist()), **mesh_info)
     finally:
         dist.destroy_process_group()
     return 0

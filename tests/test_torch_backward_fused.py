@@ -114,15 +114,22 @@ def _model_without_functor(builder):
 )
 def test_ineligible_structures_raise(make, dtype):
     """Structures the kernels do not take raise Ineligible when the wrapper
-    is built, and the solver then runs the eager passes."""
+    is built (`build_backward_fused_kernel` and `build_forward_kernel`
+    return None), and the solver then runs the eager passes."""
     from altro_tpu_torch.ops.backward_fused import Ineligible
     from altro_tpu_torch.ops.forward import ForwardKernel
     from altro_tpu_torch.solver.batched import ALSolverBatched
+
+    from altro_tpu_torch.ops.backward_fused import build_backward_fused_kernel as build_bwd
+    from altro_tpu_torch.ops.forward import build_forward_kernel as build_fwd
 
     prob = make(_unicycle_builder()).compile()
     for cls in (BackwardFusedKernel, ForwardKernel):
         with pytest.raises(Ineligible):
             cls(prob, TOptions(), dtype=dtype, device="cpu")
+    # the function forms return None instead, as the JAX package's do
+    assert build_bwd(prob, TOptions(), dtype=dtype, device="cpu") is None
+    assert build_fwd(prob, TOptions(), dtype=dtype, device="cpu") is None
     if dtype == F64:
         solver = ALSolverBatched(prob, TOptions(backward_pass="fused", forward_pass="cuda"))
         assert solver._bwd is None and solver._fwd is None
@@ -134,3 +141,28 @@ def test_wrapper_refuses_devices_without_kernel(fleet):
     Z = fleet.Z_t.replace(X=fleet.Z_t.X.to("meta"), U=fleet.Z_t.U.to("meta"))
     with pytest.raises(ValueError, match="no kernel or plain version"):
         kern(fleet.params_t, kern.pad_al(fleet.al_t), Z, torch.zeros(B, dtype=F64))
+
+
+def test_build_functions_give_the_kernels(fleet):
+    """`build_backward_fused_kernel` and `build_forward_kernel` on an
+    eligible problem: the kernels, whose outputs on the fleet (CPU
+    tensors: the plain versions) equal those of the classes built
+    directly, bit for bit."""
+    from altro_tpu_torch.ops.backward_fused import build_backward_fused_kernel as build_bwd
+    from altro_tpu_torch.ops.forward import ForwardKernel
+    from altro_tpu_torch.ops.forward import build_forward_kernel as build_fwd
+
+    kb = build_bwd(fleet.prob_t, TOptions(), dtype=F64, device="cpu")
+    kf = build_fwd(fleet.prob_t, TOptions(), dtype=F64, device="cpu")
+    assert isinstance(kb, BackwardFusedKernel) and isinstance(kf, ForwardKernel)
+    Bsz = fleet.Z_t.X.shape[-1]
+    out = kb(fleet.params_t, kb.pad_al(fleet.al_t), fleet.Z_t, torch.zeros(Bsz, dtype=F64))
+    for got, want in zip(out, _port(fleet, 0.0)):
+        np.testing.assert_array_equal(got.numpy(), want)
+    N, m, n = fleet.prob_t.N, fleet.prob_t.m, fleet.prob_t.n
+    K, d, alpha = torch.zeros((N, m, n, Bsz), dtype=F64), torch.zeros((N, m, Bsz), dtype=F64), torch.ones(Bsz, dtype=F64)
+    direct = ForwardKernel(fleet.prob_t, TOptions(), dtype=F64, device="cpu")
+    for got, want in zip(kf(fleet.params_t, kf.pad_al(fleet.al_t), fleet.Z_t, K, d, alpha),
+                         direct(fleet.params_t, direct.pad_al(fleet.al_t), fleet.Z_t, K, d, alpha)):
+        assert torch.equal(got, want)
+    assert kb.launches == kf.launches == 0

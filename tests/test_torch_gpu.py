@@ -939,7 +939,8 @@ def test_al_solver_goldens_on_the_card():
 def test_two_gloo_ranks_on_one_card_are_the_unsharded_solve(tmp_path):
     """Two gloo ranks of tests/_torch_dist_worker.py on cuda:0, on the fused
     kernels, float64: each rank's lanes of the lane-major and obstacle
-    fleets (B=64) and of the batch-leading triple-integrator fleet (B=16)
+    fleets (B=64, the lane-major one also on the mesh over the ranks in
+    reverse order) and of the batch-leading triple-integrator fleet (B=16)
     bit for bit with the unsharded solve on the card, the folds equal to
     its, and three one-element all_reduces each solve's only collectives."""
     import socket
@@ -966,7 +967,8 @@ def test_two_gloo_ranks_on_one_card_are_the_unsharded_solve(tmp_path):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for name, case in (("lane_major", lane_major_case), ("obstacles", obstacles_case), ("instance", instance_case)):
+    for name, case in (("lane_major", lane_major_case), ("obstacles", obstacles_case), ("instance", instance_case),
+                       ("reversed", lane_major_case)):
         ranks = [dict(np.load(tmp_path / f"rank{r}_{name}.npz")) for r in range(2)]
         prob, opts, params, Z = case(dev)
         opts = opts.replace(**KERNELS)
@@ -983,7 +985,8 @@ def test_two_gloo_ranks_on_one_card_are_the_unsharded_solve(tmp_path):
         folds = [float(viol.max()), int((status == int(SolverStatus.SOLVED)).sum()),
                  int((status == int(SolverStatus.SOLVED_STALLED)).sum())]
         for r, out in enumerate(ranks):
-            lanes = slice(r * W, (r + 1) * W)
+            # on the mesh over the ranks in reverse order, rank r takes the other half
+            lanes = slice(*(int(v) for v in out["lanes"])) if name == "reversed" else slice(r * W, (r + 1) * W)
             np.testing.assert_array_equal(out[f"{name}_status"], status[lanes])
             np.testing.assert_array_equal(out[f"{name}_iterations"], it[lanes])
             lane_U = U[lanes] if name == "instance" else U[..., lanes]

@@ -150,6 +150,38 @@ def test_sharded_batched_matches_jax(ranks, case):
     assert int(solved) + int(stalled) > 0
 
 
+def test_reversed_mesh_matches_jax(ranks):
+    """`make_mesh` over the ranks in reverse order, called as the JAX
+    package calls it (a positional list): rank 1 takes lanes [0, 32) and
+    rank 0 lanes [32, 64), each rank's lanes those that the JAX
+    ShardedBatchedALSolver places on the same device of
+    make_mesh(jax.devices()[:2][::-1]) (statuses and iterations equal, U
+    within 1e-9, as test_sharded_batched_matches_jax); the folds are the
+    JAX folds and those of the mesh in rank order."""
+    prob, opts, params, Zb = jax_lane_major()
+    devices = jax.devices()[:WORLD]
+    s = JShardedBatched(prob, jmake_mesh(devices[::-1]), opts)
+    res, viol, solved, stalled = s.solve(s.shard_params(params), s.shard_batch(Zb))
+    status, it = (np.asarray(a) for a in (res["status"], res["stats"].iterations_total))
+    shard_of = {sh.device: sh for sh in res["Z"].U.addressable_shards}
+    got, in_order = ranks("reversed"), ranks("lane_major")
+    W = B // WORLD
+    for r, out in got.items():
+        start, stop = (int(v) for v in out["lanes"])
+        assert (start, stop) == ((WORLD - 1 - r) * W, (WORLD - r) * W)
+        assert list(out["mesh_ranks"]) == list(range(WORLD))[::-1]
+        shard = shard_of[devices[r]]
+        assert shard.index[-1] == slice(start, stop)
+        np.testing.assert_array_equal(out["reversed_status"], status[start:stop])
+        np.testing.assert_array_equal(out["reversed_iterations"], it[start:stop])
+        np.testing.assert_allclose(out["reversed_U"], np.asarray(shard.data), rtol=0, atol=1e-9)
+        v, n_solved, n_stalled = out["reversed_folds"]
+        assert (int(n_solved), int(n_stalled)) == (int(solved), int(stalled))
+        np.testing.assert_allclose(v, float(viol), rtol=1e-9)
+        assert list(out["reversed_folds"]) == list(in_order[r]["lane_major_folds"])
+        assert list(out["reversed_collectives"]) == ["all_reduce_max:1:8", "all_reduce_sum:1:4", "all_reduce_sum:1:4"]
+
+
 def test_sharded_al_solver_matches_jax(ranks):
     """ShardedALSolver (batch-leading) on tests/multihost_worker.py's
     triple-integrator fleet (B=16): each rank's 8 lanes against the JAX
@@ -257,22 +289,82 @@ def test_batched_al_solver_matches_jax(batched_pair):
         np.testing.assert_allclose(st.rho.numpy(), st_ref.rho, rtol=0)
 
 
-def test_batched_al_solver_fills_stats_its_own_way(batched_pair):
-    """The leaves the docstring names: no history rows at the default
-    capacity (the per-instance solver keeps stats_capacity rows), so every
-    length is 0; `cost` is the per-instance solver's on the SOLVED lanes
-    and differs on the lane that ends MAX_PENALTY, where the lane-major
-    solver keeps the cost its last inner solve started from."""
+def test_batched_al_solver_stats_match_jax(batched_pair):
+    """Every leaf of the stats as the JAX BatchedALSolver (the per-instance
+    solver vmapped) fills it, on lanes that include one ending MAX_PENALTY:
+    the iteration counts and the row pointer `length` equal; `cost` (the
+    last cost logged), `violations`, `max_penalty`, `initial_cost`,
+    `alpha` and `regularization` within 1e-9 relative (and 1e-15
+    absolute: a violation of 2e-8 is the residual of states of order 1,
+    whose rounding is 2.2e-16); the history rows up to and including the
+    pointer's (the values after each iteration, then the final ones) in
+    those columns the same, the rows after it zero, and the final leaves
+    the pointer's row; each lane's own time grid.
+
+    The named exception (BatchedALSolver's docstring): three columns that
+    are ill-conditioned functions of the ones above, each held at 1e-9
+    relative of what it is computed from.  The two solvers' costs differ
+    by up to 8.6e-11 relative (their trajectories by their order of
+    operations), so
+    - `cost_decrease`, the difference of the costs before and after an
+      iteration, is held within 1e-9 of the larger of the two, and of the
+      lane's largest logged cost (measured: 8.4e-11; relative to the
+      decrease itself, up to 7.3e-4 where it is 1.6e-10);
+    - `improvement_ratio`, that decrease over the line search's predicted
+      one, is held through the prediction (decrease / ratio) within 1e-9
+      relative, with the cost's rounding eps * cost as the floor (measured:
+      2.3e-10, and 3.9e-19 where the prediction is 1.9e-11), on the
+      iterations whose line search succeeded, and within 1e-3 absolute
+      (measured: 5.5e-4 where the decrease is 1.6e-10); after a failed
+      one both solvers carry the ratio over unchanged;
+    - `gradient`, the feedforward gains' size, comes from solves with the
+      penalty ρ on the active rows, whose rounding grows as eps * ρ: it is
+      held within min(1e-9 + 30 eps ρ, 1e-6) relative, ρ the row's largest
+      penalty (measured: 7.8e-11 on the SOLVED lanes, up to 1e4; 3.2e-7
+      at ρ = 1e8, 14.5 eps ρ)."""
+    from altro_tpu_torch.types import _COLUMNS
+
     ref, res, _, _ = batched_pair
-    assert tuple(res.stats.rows.shape) == (4, 0, 8) and ref.stats.rows.shape == (4, 304, 8)
-    assert (res.stats.length.numpy() == 0).all() and (ref.stats.length > 0).all()
+    st, sj = res.stats, ref.stats
     status = res.status.numpy()
-    solved = status == int(SolverStatus.SOLVED)
-    capped = status == int(SolverStatus.MAX_PENALTY)
-    assert solved.any() and capped.any()
-    np.testing.assert_allclose(res.stats.cost.numpy()[solved], ref.stats.cost[solved], rtol=1e-9)
-    assert not np.allclose(res.stats.cost.numpy()[capped], ref.stats.cost[capped], rtol=1e-3)
-    np.testing.assert_array_equal(res.stats.cost.numpy()[capped], res.stats.initial_cost.numpy()[capped])
+    assert (status == int(SolverStatus.SOLVED)).any() and (status == int(SolverStatus.MAX_PENALTY)).any()
+    for name in ("iterations_inner", "iterations_outer", "iterations_total", "length"):
+        np.testing.assert_array_equal(getattr(st, name).numpy(), getattr(sj, name), err_msg=name)
+    for name in ("cost", "violations", "max_penalty", "initial_cost", "alpha", "regularization"):
+        np.testing.assert_allclose(getattr(st, name).numpy(), getattr(sj, name), rtol=1e-9, atol=1e-15, err_msg=name)
+    rows = st.rows.numpy()
+    assert rows.shape == sj.rows.shape == (4, 304, 8)
+    col = {name: i for i, name in enumerate(_COLUMNS)}
+    eps = np.finfo(np.float64).eps
+    for b, L in enumerate(sj.length):
+        got, want = rows[b, :L + 1], sj.rows[b, :L + 1]
+        for name in ("cost", "alpha", "regularization", "violations", "max_penalty"):
+            np.testing.assert_allclose(got[:, col[name]], want[:, col[name]], rtol=1e-9, atol=1e-15,
+                                       err_msg=f"lane {b} {name}")
+        for stats, r in ((st, got), (sj, want)):  # the final leaves are the pointer's row
+            for name in _COLUMNS:
+                assert float(getattr(stats, name)[b]) == r[L, col[name]], f"lane {b} {name}"
+        J = want[:, col["cost"]]
+        scale = np.maximum(np.abs(J), np.abs(np.concatenate([[sj.initial_cost[b]], J[:-1]])))
+        dg, dw = got[:, col["cost_decrease"]], want[:, col["cost_decrease"]]
+        assert (np.abs(dg - dw) <= 1e-9 * np.minimum(scale, np.abs(J).max())).all(), f"lane {b} cost_decrease"
+        zg, zw = got[:, col["improvement_ratio"]], want[:, col["improvement_ratio"]]
+        ok = dw != 0  # a line search that succeeded
+        pg, pw = dg[ok] / zg[ok], dw[ok] / zw[ok]
+        assert (np.abs(pg - pw) <= 1e-9 * np.abs(pw) + eps * np.abs(J[ok])).all(), f"lane {b} improvement_ratio"
+        np.testing.assert_allclose(zg, zw, rtol=0, atol=1e-3, err_msg=f"lane {b} improvement_ratio")
+        carried = np.nonzero(~ok)[0]
+        assert (dg[carried] == 0).all() and carried.min(initial=1) > 0, f"lane {b} failed line searches"
+        np.testing.assert_array_equal(zg[carried], zg[carried - 1])
+        np.testing.assert_array_equal(zw[carried], zw[carried - 1])
+        rho = want[:, col["max_penalty"]]
+        np.testing.assert_array_less(np.abs(got[:, col["gradient"]] - want[:, col["gradient"]]),
+                                     np.minimum(1e-9 + 30 * eps * rho, 1e-6) * np.abs(want[:, col["gradient"]])
+                                     + 1e-300,
+                                     err_msg=f"lane {b} gradient")
+        assert not rows[b, L + 1:].any() and not sj.rows[b, L + 1:].any()
+    np.testing.assert_array_equal(res.Z.t.numpy(), ref.Z.t)
+    np.testing.assert_array_equal(res.Z.h.numpy(), ref.Z.h)
 
 
 def test_batched_al_solver_warm_start(batched_pair):
@@ -303,7 +395,10 @@ def test_params_axes_prefix_trees():
     """`params_axes` is the JAX package's prefix tree: an int batches every
     leaf below it, None shares them, a dict chooses per entry.  Batching
     only the cost's `q` moves that leaf's batch axis to the end and leaves
-    the others as they are; lanes whose time grids differ raise."""
+    the others as they are.  Lanes whose time grids differ solve, each as
+    the JAX BatchedALSolver solves it: statuses, iterations and the row
+    pointer equal, U within rtol 1e-8 / atol 1e-10 (as
+    test_batched_al_solver_matches_jax), the logged cost within 1e-9."""
     from altro_tpu_torch.parallel.batch import batch_last_inputs
 
     assert params_axes() == params_axes(x0=0, dynamics=None, costs=None, constraints=None)
@@ -327,5 +422,26 @@ def test_params_axes_prefix_trees():
     p_all, _, _ = batch_last_inputs(params_axes(x0=0, costs=0),
                                     params.replace(costs=({k: v[None].expand(Bb, *v.shape) for k, v in cost.items()},)), Z)
     assert all(p_all.costs[0][k].shape == v.shape + (Bb,) for k, v in cost.items())
-    with pytest.raises(ValueError, match="time grids differ"):
-        batch_last_inputs(params_axes(), params, Z.replace(t=Z.t + torch.arange(Bb)[:, None]))
+    # lanes 1 and 3 on a grid 5% longer than lanes 0 and 2's: two lane-major
+    # solves put back in order, as the JAX class vmaps the grids whole
+    Bg = 4
+    defn = JUnicycle()
+    defn.N = 12
+    defn.__post_init__()
+    prob_j = defn.make_problem(add_constraints=True).compile()
+    x0s = np.asarray(defn.x0)[None, :] + np.random.default_rng(2).uniform(-0.1, 0.1, (Bg, 3))
+    scale = np.array([1.0, 1.05, 1.0, 1.05])[:, None]
+    Zj = _broadcast(defn.initial_trajectory(), Bg)
+    Zj = Zj.replace(t=Zj.t * scale, h=Zj.h * scale)
+    ref = numpy_tree(JBatched(prob_j, JOptions()).solve(prob_j.params.replace(x0=jnp.asarray(x0s)), Zj))
+    with torch_threads(1):
+        res = BatchedALSolver(prob, SolverOptions()).solve(
+            prob.params.replace(x0=torch.as_tensor(x0s)), convert.instance_trajectory(numpy_tree(Zj), "cpu", F64))
+    np.testing.assert_array_equal(res.Z.t.numpy(), ref.Z.t)
+    np.testing.assert_array_equal(res.Z.h.numpy(), ref.Z.h)
+    np.testing.assert_array_equal(res.status.numpy(), ref.status)
+    np.testing.assert_array_equal(res.stats.iterations_total.numpy(), ref.stats.iterations_total)
+    np.testing.assert_array_equal(res.stats.length.numpy(), ref.stats.length)
+    np.testing.assert_allclose(res.Z.U.numpy(), ref.Z.U, rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(res.stats.cost.numpy(), ref.stats.cost, rtol=1e-9)
+    assert not np.allclose(ref.Z.U[0], ref.Z.U[1], atol=1e-6)

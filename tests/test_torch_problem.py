@@ -159,3 +159,98 @@ def test_compile_families_match_jax(constrained):
             assert dt_.keys() == dj_.keys()
             for key in dt_:
                 np.testing.assert_allclose(dt_[key].numpy(), dj_[key].numpy(), atol=TOL, err_msg=key)
+
+
+def test_dynamics_hessian_vector_product_unicycle():
+    """`hessian_vp`, twin of tests/test_problem_layer.py:178-224: the
+    unicycle's ∂²(bᵀf)/∂(x,u)² against its analytic form (for f = [v cosθ,
+    v sinθ, ω]: -b0 v cosθ - b1 v sinθ at (θ,θ), -b0 sinθ + b1 cosθ at
+    (θ,v), zero elsewhere) within 1e-12, its RK4 step's against central
+    differences of the gradient within 1e-5, and both against the JAX
+    methods on the same inputs within 1e-10."""
+    from torch.func import grad
+
+    from altro_tpu.models.unicycle import unicycle as j_unicycle
+    from altro_tpu.problem.dynamics import discretize as j_discretize
+    from altro_tpu_torch.models.unicycle import unicycle as t_unicycle
+    from altro_tpu_torch.problem.dynamics import discretize as t_discretize
+
+    x, u, b, h = np.array([0.3, -0.2, 0.7]), np.array([1.1, 0.4]), np.array([0.5, -1.2, 2.0]), 0.05
+    model = t_unicycle()
+    H = model.hessian_vp(_t(x), _t(u), _t(0.0), _t(b)).numpy()
+    assert H.shape == (5, 5)
+    expect = np.zeros((5, 5))
+    expect[2, 2] = -b[0] * u[0] * np.cos(x[2]) - b[1] * u[0] * np.sin(x[2])
+    expect[2, 3] = expect[3, 2] = -b[0] * np.sin(x[2]) + b[1] * np.cos(x[2])
+    np.testing.assert_allclose(H, expect, rtol=0, atol=1e-12)
+    H_j = j_unicycle().hessian_vp(jnp.asarray(x), jnp.asarray(u), 0.0, jnp.asarray(b))
+    np.testing.assert_allclose(H, np.asarray(H_j), rtol=0, atol=1e-10)
+
+    dm = t_discretize(model, "rk4")
+    Hd = dm.hessian_vp(_t(x), _t(u), _t(0.0), _t(h), _t(b)).numpy()
+    g = grad(lambda z: _t(b) @ dm.fn(dm.params, z[:3], z[3:], _t(0.0), _t(h)))
+    z0, eps = np.concatenate([x, u]), 1e-6
+    fd = np.stack([(g(_t(z0 + eps * e)) - g(_t(z0 - eps * e))).numpy() / (2 * eps) for e in np.eye(5)])
+    np.testing.assert_allclose(Hd, fd, rtol=0, atol=1e-5)
+    Hd_j = j_discretize(j_unicycle(), "rk4").hessian_vp(jnp.asarray(x), jnp.asarray(u), 0.0, h, jnp.asarray(b))
+    np.testing.assert_allclose(Hd, np.asarray(Hd_j), rtol=0, atol=1e-10)
+
+
+def test_replace_on_every_dataclass():
+    """`replace(**updates)` on the port's dataclasses, as the JAX package
+    gives every pytree dataclass (`altro_tpu/_pytree.py:45-48`): a new
+    instance with the field changed and the original unchanged."""
+    import dataclasses
+
+    from altro_tpu_torch.problem.constraints import Constraint
+    from altro_tpu_torch.problem.costs import Cost, CostExpansionTerms
+    from altro_tpu_torch.problem.dynamics import ContinuousModel, DiscreteModel
+    from altro_tpu_torch.solver.al import ALResult
+    from altro_tpu_torch.solver.ilqr import ForwardPassResult, ILQRResult
+    from altro_tpu_torch.solver.mpc import MPCState
+    from altro_tpu_torch.solver.riccati import BackwardPassResult
+
+    for cls in (Constraint, Cost, CostExpansionTerms, ContinuousModel, DiscreteModel, ALResult, ILQRResult,
+                ForwardPassResult, BackwardPassResult, MPCState):
+        fields = [f.name for f in dataclasses.fields(cls)]
+        obj = cls(**{name: i for i, name in enumerate(fields)})
+        new = obj.replace(**{fields[0]: "new"})
+        assert type(new) is cls and getattr(new, fields[0]) == "new" and getattr(obj, fields[0]) == 0
+        assert all(getattr(new, name) == getattr(obj, name) for name in fields[1:])
+
+
+def test_from_batch_last_and_dyn_step_match_jax():
+    """`from_batch_last` inverts `to_batch_last` and lays the trajectory out
+    as the JAX function does (the shared t, h broadcast to [B, ...]); the
+    batched solver's `dyn_step` is one step of the first dynamics family on
+    x [n, B], u [m, B], as the JAX method's, within 1e-12."""
+    from altro_tpu.solver.batched import ALSolverBatched as JSolver
+    from altro_tpu.solver.batched import from_batch_last as j_from_batch_last
+    from altro_tpu.solver.batched import to_batch_last as j_to_batch_last
+    from altro_tpu_torch.solver.batched import from_batch_last, to_batch_last
+
+    rng = np.random.default_rng(4)
+    B, N = 5, 7
+    X, U = rng.standard_normal((N + 1, 3, B)), rng.standard_normal((N, 2, B))
+    t, h = np.arange(N + 1) * 0.1, np.full(N, 0.1)
+    Z = from_batch_last(BatchedTrajectory(X=_t(X), U=_t(U), t=_t(t), h=_t(h)))
+    Zj = j_from_batch_last(j_to_batch_last(at.Trajectory(X=jnp.asarray(np.moveaxis(X, -1, 0)),
+                                                         U=jnp.asarray(np.moveaxis(U, -1, 0)),
+                                                         t=jnp.asarray(t), h=jnp.asarray(h))))
+    for key in ("X", "U", "t", "h"):
+        np.testing.assert_array_equal(getattr(Z, key).numpy(), np.asarray(getattr(Zj, key)), err_msg=key)
+    back = to_batch_last(Z)
+    assert torch.equal(back.X, _t(X)) and torch.equal(back.U, _t(U)) and torch.equal(back.t, _t(t))
+
+    defn_t = TUnicycle(dtype=F64, N=N, device="cpu")
+    prob_t = defn_t.make_problem().compile()
+    defn_j = JUnicycle()
+    defn_j.N = N
+    defn_j.__post_init__()
+    prob_j = defn_j.make_problem(add_constraints=True).compile()
+    x, u = rng.uniform(-1, 1, (3, B)), rng.uniform(-1, 1, (2, B))
+    got = ALSolverBatched(prob_t, tt.SolverOptions()).dyn_step(prob_t.params.dynamics[0], _t(x), _t(u), _t(0.2),
+                                                                _t(0.03))
+    want = JSolver(prob_j, at.SolverOptions()).dyn_step(prob_j.params.dynamics[0], jnp.asarray(x), jnp.asarray(u),
+                                                        0.2, 0.03)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=TOL)

@@ -24,7 +24,7 @@ from altro_tpu.solver.batched import ALSolverBatched, to_batch_last
 from altro_tpu_torch import SolverOptions as TOptions
 from altro_tpu_torch import convert
 from altro_tpu_torch.ops import tolerances as tol
-from altro_tpu_torch.ops.riccati import Ineligible, RiccatiKernel, riccati_plain
+from altro_tpu_torch.ops.riccati import Ineligible, RiccatiKernel, riccati_cuda, riccati_plain
 
 from _torch_fleet import F64, numpy_tree, zoo_fleet_jax
 
@@ -89,6 +89,20 @@ def test_matches_jax_riccati_pallas_interpret(unicycle_exp, case):
     B = exp["A"].shape[-1]
     ref = riccati_pallas(exp, jnp.full((B,), rho), interpret=True)
     _assert_matches(_port(exp, rho), ref, all_fail=case == "poisoned")
+
+
+def test_riccati_cuda_is_the_kernel_function(unicycle_exp):
+    """`riccati_cuda`, the function form of `riccati_pallas`: on CPU
+    tensors the kernel's plain version, bit for bit the wrapper's, no
+    launch; a shape without a kernel raises Ineligible (no fallback)."""
+    exp = convert.expansions(numpy_tree(unicycle_exp), "cpu", F64)
+    rho = torch.full((exp["A"].shape[-1],), 0.37, dtype=F64)
+    got = riccati_cuda(exp, rho, gain_limit=1e8)
+    want = RiccatiKernel(3, 2, dtype=F64)(exp, rho)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(Ineligible):
+        riccati_cuda({"A": torch.zeros((2, 5, 5, 4), dtype=F64), "B": torch.zeros((2, 5, 2, 4), dtype=F64)},
+                     torch.zeros(4, dtype=F64))
 
 
 @pytest.fixture(scope="module", params=["quadrotor", "cartpole"])

@@ -197,9 +197,9 @@ def test_chip_smoke_runs_the_bench_program():
 
 
 def test_port_never_imports_jax_at_runtime():
-    """Importing altro_tpu_torch (every module, the multi-device layer and
-    the utilities too) and running a tiny solve leaves jax and the JAX
-    package out of sys.modules."""
+    """Importing altro_tpu_torch (every module, the multi-device layer, the
+    associative-scan sweeps and the utilities too) and running a tiny solve
+    leaves jax and the JAX package out of sys.modules."""
     code = (
         "import sys, torch\n"
         "from altro_tpu_torch import SolverOptions\n"
@@ -219,6 +219,7 @@ def test_port_never_imports_jax_at_runtime():
         "import altro_tpu_torch.ops.riccati, altro_tpu_torch.ops._build\n"
         "import altro_tpu_torch.utils.timer\n"
         "import altro_tpu_torch.parallel.batch, altro_tpu_torch.parallel.mesh, altro_tpu_torch.native\n"
+        "import altro_tpu_torch.solver.pscan, altro_tpu_torch.solver.pscan_batched\n"
         "import altro_tpu_torch.utils.checkpoint, altro_tpu_torch.utils.derivative_check\n"
         "import altro_tpu_torch.utils.benchmarking\n"
         "from altro_tpu_torch import MPC\n"
