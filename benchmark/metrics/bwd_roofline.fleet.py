@@ -1,0 +1,7 @@
+"""bwd_roofline.fleet: the fused backward kernel's share of its roofline
+over the traced stretch (the frozen count over its device time)."""
+from benchmark.harness.readers import roofline_percent
+
+
+def read(run):
+    return roofline_percent(run, "backward_fused", "backward_fused_kernel")

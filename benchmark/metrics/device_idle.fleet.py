@@ -1,0 +1,7 @@
+"""device_idle.fleet: the share of the traced stretch with no device
+activity (torch.profiler)."""
+from benchmark.harness.readers import idle_percent
+
+
+def read(run):
+    return idle_percent(run)
