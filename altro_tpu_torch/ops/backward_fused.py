@@ -58,6 +58,7 @@ import torch
 
 from ..problem.constraints import Cone
 from ..problem.costs import _quadcost_eval
+from ..utils.timer import host_read, span
 from . import _build
 
 # models with a device functor in csrc/models.cuh: name -> (n, m, the
@@ -598,10 +599,14 @@ class FusedKernel:
                 src.off = -1
 
         def host(name, t, size):
-            """A shared leaf on the host in float64, or zeros for a per-lane one."""
+            """A shared leaf on the host in float64 (a `kernel_prep` host read
+            where it is a tensor), or zeros for a per-lane one."""
             if name in sig:
                 return torch.zeros(size, dtype=torch.float64)
-            a = torch.as_tensor(t).detach().to("cpu", torch.float64)
+            if torch.is_tensor(t):
+                a = host_read("kernel_prep", lambda: t.detach().to("cpu", torch.float64))
+            else:
+                a = torch.as_tensor(t, dtype=torch.float64)
             if a.numel() != size:
                 raise ValueError(f"param {name!r} of {a.numel()} entries where {size} were expected")
             return a
@@ -674,14 +679,19 @@ class FusedKernel:
                 c.a[:m] = host(f"con{fi}_lb", cp["lb"], m).tolist()
                 c.b[:m] = host(f"con{fi}_ub", cp["ub"], m).tolist()
 
+        def upload(t):
+            """A host tensor on the device: a copy that waits for the
+            device's queue (a `kernel_prep` host read)."""
+            return host_read("kernel_prep", lambda: t.to(self.device))
+
         def dev_bytes(struct):
-            return torch.frombuffer(bytearray(bytes(struct)), dtype=torch.uint8).to(self.device)
+            return upload(torch.frombuffer(bytearray(bytes(struct)), dtype=torch.uint8))
 
         table = torch.cat([run[3].reshape(-1) for run, _ in fams]) if fams else torch.zeros(1, dtype=torch.float64)
         tab = table.numel() if table.numel() * self._itemsize <= TABLE_SMEM else 0
         geo = self._layout(tab, lay.words if lay is not None else None)
         self._geo = (geo, geo.abi())
-        self._desc = (dev_bytes(d), table.to(self.device, self.dtype))
+        self._desc = (dev_bytes(d), upload(table.to(self.dtype)))
         self._lanes = (ln, dev_bytes(ln)) if lay is not None else None
         self._desc_key = (sig, shared)
         self._prep = []
@@ -753,13 +763,15 @@ class FusedKernel:
         objects' are kept: the launches of one solve all get the same params
         (and the speculative line search's launches the same widened ones)
         and prepare nothing again, and a new params object (a tail or
-        restart round's gathered leaves) gets its own lane table."""
+        restart round's gathered leaves) gets its own lane table.  A miss
+        is the tracer's span `kernel.prepare`."""
         entry = next((e for e in self._prep if e[0] is params), None)
         if entry is None:
-            sig = self.param_sig(params)
-            _, table = self._problem_desc(params, sig)
-            entry = (params, sig, table, self.lane_table(params, sig, B) if sig else None)
-            self._prep = (self._prep + [entry])[-2:]
+            with span("kernel.prepare"):
+                sig = self.param_sig(params)
+                _, table = self._problem_desc(params, sig)
+                entry = (params, sig, table, self.lane_table(params, sig, B) if sig else None)
+                self._prep = (self._prep + [entry])[-2:]
         _, sig, table, lane_tab = entry
         if lane_tab is not None and lane_tab.shape[1] != B:
             raise ValueError(f"per-instance params of batch {lane_tab.shape[1]} for a launch of batch {B}")

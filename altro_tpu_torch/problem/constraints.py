@@ -174,6 +174,16 @@ def goal_constraint(xf) -> Constraint:
     )
 
 
+def _rows(idx: tuple):
+    """An index of the rows `idx`: a slice where they are contiguous, else
+    a list."""
+    if not idx:
+        return slice(0, 0)
+    if idx == tuple(range(idx[0], idx[0] + len(idx))):
+        return slice(idx[0], idx[0] + len(idx))
+    return list(idx)
+
+
 def control_bound(lb, ub) -> Constraint:
     """Box bound lb <= u <= ub in inequality-cone form
     (`basic_constraints.hpp:42-151`).  Only finite bounds produce rows,
@@ -193,8 +203,11 @@ def control_bound(lb, ub) -> Constraint:
     dim = len(lo_idx) + len(hi_idx)
     if dim == 0:
         raise ValueError("Control bound has no finite bounds")
-    lo_arr = list(lo_idx)
-    hi_arr = list(hi_idx)
+    # basic slices where the rows are contiguous (every finite bound, the
+    # usual case): a list index is copied to the device on every call, and
+    # a host-to-device copy waits for the device's queue
+    lo_arr = _rows(lo_idx)
+    hi_arr = _rows(hi_idx)
 
     def eval_fn(params, x, u):
         del x

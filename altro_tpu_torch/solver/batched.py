@@ -8,9 +8,13 @@ path it would take alone: per-instance regularization, line-search α, dual
 and penalty state, and convergence masks that freeze finished instances.
 
 Each lockstep `lax.while_loop` of the JAX package is a Python `while` over
-device masks here, so every exit test is one host synchronisation;
-`ALSolverBatched.host_syncs` counts them per solve, and the live fleet
-rows of `verbose` > SILENT (one read of the device's values each) too.
+device masks here, so every exit test is one host synchronisation, read
+through `utils/timer.py:host_read` at its site (`inner_exit`, `outer_exit`,
+`line_search`, `bp_retry`; the live fleet rows of `verbose` > SILENT,
+`fleet_row`); `ALSolverBatched.host_syncs` counts them per solve, the
+kernels' (`kernel_prep`) included.  The loops' phases are tracer spans:
+`al.solve`, `al.outer`, `al.duals`, `ilqr.rollout`, `ilqr.iter`,
+`ilqr.backward`, `ilqr.forward`.
 
 The eager passes (`expand` + `riccati_scan`, `closed_loop_rollout` +
 `total_cost`) are the parity oracle and the plain versions of the CUDA
@@ -40,6 +44,7 @@ from ..problem.constraints import Cone, dual_cone
 from ..problem.costs import _quadcost_eval, ad_expansion
 from ..problem.problem import CompiledProblem, ProblemParams, param_row
 from ..types import SolverStatus, Trajectory
+from ..utils.timer import host_read, host_reads, root_span, span
 
 # SolverOptions.matmul_precision="highest": float32 matrix products stay in
 # full float32 on CUDA, so TF32 is off for matmuls and for cuDNN alike.
@@ -455,22 +460,25 @@ class ALSolverBatched:
                               (prob.constraint_families, prob.params.constraints))
             for fam, cp in zip(fams, cps)
         }
-        # host synchronisations of the last `solve` (one per loop exit test)
+        # host synchronisations of the last `solve` (`host_read`s: one per
+        # loop exit test, live row and read of the kernels' preparation)
         self.host_syncs = 0
         # the speculative search's params and AL state widened to S·B lanes:
         # (params, S, widened params), (padded AL, S, widened padded AL)
         self._spec_params = None
         self._spec_al = None
 
-    def _any(self, mask: torch.Tensor) -> bool:
-        self.host_syncs += 1
-        return bool(mask.any())
+    @staticmethod
+    def _any(mask: torch.Tensor, site: str) -> bool:
+        """One exit test: whether any lane of `mask` is set (one host read
+        at `site`)."""
+        return host_read(site, lambda: bool(mask.any()))
 
     # ------------------------------------------------------ live observability
     def _read_row(self, *vals) -> list:
         """One host read of a row's device values (one sync)."""
-        self.host_syncs += 1
-        return torch.stack([v.to(torch.float64) for v in vals]).tolist()
+        row = torch.stack([v.to(torch.float64) for v in vals])
+        return host_read("fleet_row", row.tolist)
 
     def _emit_inner_row(self, active, stats: BatchedStats) -> None:
         """The fleet's row after a lockstep inner iteration, at INNER and
@@ -891,7 +899,7 @@ class ALSolverBatched:
         count = torch.zeros_like(rho, dtype=torch.int32)
         done = torch.zeros_like(rho, dtype=torch.bool)
         out = None
-        while out is None or self._any(~done):
+        while out is None or self._any(~done, "bp_retry"):
             res = sweep(rho)
             failed = res[4]
             rho2, drho2 = _increase_reg(rho, drho, opts)
@@ -1071,7 +1079,7 @@ class ALSolverBatched:
                 status=torch.where(active, status, c["status"]),
                 Zbar=zselect(active, Zbar, c["Zbar"]),
             )
-            more = self._any((~c["success"]) & (c["it"] < max_it))
+            more = self._any((~c["success"]) & (c["it"] < max_it), "line_search")
         return c
 
     def _widened(self, params, al_pad, S: int):
@@ -1169,7 +1177,7 @@ class ALSolverBatched:
                 status=torch.where(active, pick(status_s), c["status"]),
                 Zbar=zselect(active, Z.replace(X=pick(Zbar_s.X), U=pick(Zbar_s.U)), c["Zbar"]),
             )
-            more = self._any((~c["success"]) & (c["it"] < max_it))
+            more = self._any((~c["success"]) & (c["it"] < max_it), "line_search")
         return c
 
     # ------------------------------------------------------------- inner solve
@@ -1190,17 +1198,18 @@ class ALSolverBatched:
             al_pad = bwd.pad_al(al)
         elif fwd is not None:
             al_pad = fwd.pad_al(al)
-        if fwd is not None:
-            # K=d=α=0 turns the fused kernel into the open-loop rollout + cost
-            # (unguarded, like the reference's Rollout, `ilqr.hpp:453-459`)
-            Zro, _, _, J_init = self._fwd_rollout_cost(
-                fwd, params, al_pad, Z, Z.X.new_zeros((N, m, n, Bsz)),
-                Z.X.new_zeros((N, m, Bsz)), Z.X.new_zeros((Bsz,)), False,
-            )
-            Z = zselect(outer_active, Zro, Z)
-        else:
-            Z = zselect(outer_active, self.rollout(params, Z), Z)
-            J_init = self.total_cost(params, al, Z)
+        with span("ilqr.rollout"):
+            if fwd is not None:
+                # K=d=α=0 turns the fused kernel into the open-loop rollout + cost
+                # (unguarded, like the reference's Rollout, `ilqr.hpp:453-459`)
+                Zro, _, _, J_init = self._fwd_rollout_cost(
+                    fwd, params, al_pad, Z, Z.X.new_zeros((N, m, n, Bsz)),
+                    Z.X.new_zeros((N, m, Bsz)), Z.X.new_zeros((Bsz,)), False,
+                )
+                Z = zselect(outer_active, Zro, Z)
+            else:
+                Z = zselect(outer_active, self.rollout(params, Z), Z)
+                J_init = self.total_cost(params, al, Z)
         stats = stats.replace(
             initial_cost=torch.where(outer_active, J_init, stats.initial_cost),
             iterations_inner=torch.where(outer_active, 0, stats.iterations_inner).to(torch.int32),
@@ -1217,80 +1226,83 @@ class ALSolverBatched:
             K=Z.X.new_zeros((N, m, n, Bsz)),
             d=Z.X.new_zeros((N, m, Bsz)),
         )
-        while self._any(~c["done"]):
-            active = ~c["done"]
-            stats = c["stats"]
-            if bwd is not None:
-                # expansions inside the sweep; J0 from the kernel's Kahan sum
-                bp = self.backward_pass_fused(params, al_pad, c["Z"], c["rho"], c["drho"], bwd)
-                J0 = bp["J0"]
-            else:
-                exp = self.expand(params, al, c["Z"])
-                J0 = exp["costs"].sum(dim=0)
-                bp = self.backward_pass(exp, c["rho"], c["drho"])
-            rho_d, drho_d = _decrease_reg(bp["rho"], bp["drho"], opts)
-            fp = self.forward_pass(params, al, c["Z"], bp, J0, rho_d, drho_d, al_pad, fwd)
-            status = torch.where(
-                bp["failed"], int(SolverStatus.BACKWARD_PASS_REGULARIZATION_FAILED),
-                fp["status"],
-            ).to(torch.int32)
-            cost_new = torch.where(fp["success"], fp["J"], c["cost_last"])
-            grad = (bp["d"].abs() / (fp["Z"].U.abs() + 1.0)).amax(dim=1).mean(dim=0)
-            dJ = c["cost_last"] - cost_new
-            step = active.to(torch.int32)
-            inner = stats.iterations_inner + step
-            total = stats.iterations_total + step
+        while self._any(~c["done"], "inner_exit"):
+            with span("ilqr.iter"):
+                active = ~c["done"]
+                stats = c["stats"]
+                with span("ilqr.backward"):
+                    if bwd is not None:
+                        # expansions inside the sweep; J0 from the kernel's Kahan sum
+                        bp = self.backward_pass_fused(params, al_pad, c["Z"], c["rho"], c["drho"], bwd)
+                        J0 = bp["J0"]
+                    else:
+                        exp = self.expand(params, al, c["Z"])
+                        J0 = exp["costs"].sum(dim=0)
+                        bp = self.backward_pass(exp, c["rho"], c["drho"])
+                rho_d, drho_d = _decrease_reg(bp["rho"], bp["drho"], opts)
+                with span("ilqr.forward"):
+                    fp = self.forward_pass(params, al, c["Z"], bp, J0, rho_d, drho_d, al_pad, fwd)
+                status = torch.where(
+                    bp["failed"], int(SolverStatus.BACKWARD_PASS_REGULARIZATION_FAILED),
+                    fp["status"],
+                ).to(torch.int32)
+                cost_new = torch.where(fp["success"], fp["J"], c["cost_last"])
+                grad = (bp["d"].abs() / (fp["Z"].U.abs() + 1.0)).amax(dim=1).mean(dim=0)
+                dJ = c["cost_last"] - cost_new
+                step = active.to(torch.int32)
+                inner = stats.iterations_inner + step
+                total = stats.iterations_total + step
 
-            small_dj = dJ < opts.cost_tolerance
-            converged = small_dj & (grad < opts.gradient_tolerance)
-            stall = torch.where(
-                active & small_dj, c["stall"] + 1, torch.where(active, 0, c["stall"])
-            ).to(torch.int32)
-            if opts.max_stall_iterations > 0:
-                stalled = (stall >= opts.max_stall_iterations) & ~converged
-            else:
-                stalled = torch.zeros_like(converged)
-            hit_inner = inner >= opts.max_iterations_inner
-            hit_total = total >= max_total
-            bad = status != int(SolverStatus.UNSOLVED)
-            status = torch.where(
-                converged, int(SolverStatus.SOLVED),
-                torch.where(
-                    stalled, int(SolverStatus.SOLVED_STALLED),
+                small_dj = dJ < opts.cost_tolerance
+                converged = small_dj & (grad < opts.gradient_tolerance)
+                stall = torch.where(
+                    active & small_dj, c["stall"] + 1, torch.where(active, 0, c["stall"])
+                ).to(torch.int32)
+                if opts.max_stall_iterations > 0:
+                    stalled = (stall >= opts.max_stall_iterations) & ~converged
+                else:
+                    stalled = torch.zeros_like(converged)
+                hit_inner = inner >= opts.max_iterations_inner
+                hit_total = total >= max_total
+                bad = status != int(SolverStatus.UNSOLVED)
+                status = torch.where(
+                    converged, int(SolverStatus.SOLVED),
                     torch.where(
-                        hit_inner, int(SolverStatus.MAX_INNER_ITERATIONS),
-                        torch.where(hit_total, int(SolverStatus.MAX_ITERATIONS), status),
+                        stalled, int(SolverStatus.SOLVED_STALLED),
+                        torch.where(
+                            hit_inner, int(SolverStatus.MAX_INNER_ITERATIONS),
+                            torch.where(hit_total, int(SolverStatus.MAX_ITERATIONS), status),
+                        ),
                     ),
-                ),
-            ).to(torch.int32)
-            done_new = converged | stalled | hit_inner | hit_total | bad
-            stats = stats.replace(
-                iterations_inner=torch.where(active, inner, stats.iterations_inner),
-                iterations_total=torch.where(active, total, stats.iterations_total),
-                cost=torch.where(active, cost_new, stats.cost),
-                cost_decrease=torch.where(active, dJ, stats.cost_decrease),
-                gradient=torch.where(active, grad, stats.gradient),
-                alpha=torch.where(active & fp["success"], fp["alpha"], stats.alpha),
-                improvement_ratio=torch.where(
-                    active & fp["success"], fp["z"], stats.improvement_ratio
-                ),
-                regularization=torch.where(active, bp["rho"], stats.regularization),
-            )
-            stats = _record_history(stats, active)
-            if self._logger is not None:
-                self._emit_inner_row(active, stats)
-            c = dict(
-                Z=zselect(active, fp["Z"], c["Z"]),
-                rho=torch.where(active, fp["rho"], c["rho"]),
-                drho=torch.where(active, fp["drho"], c["drho"]),
-                stats=stats,
-                cost_last=torch.where(active, cost_new, c["cost_last"]),
-                status=torch.where(active, status, c["status"]),
-                done=c["done"] | (active & done_new),
-                stall=stall,
-                K=torch.where(active, bp["K"], c["K"]),
-                d=torch.where(active, bp["d"], c["d"]),
-            )
+                ).to(torch.int32)
+                done_new = converged | stalled | hit_inner | hit_total | bad
+                stats = stats.replace(
+                    iterations_inner=torch.where(active, inner, stats.iterations_inner),
+                    iterations_total=torch.where(active, total, stats.iterations_total),
+                    cost=torch.where(active, cost_new, stats.cost),
+                    cost_decrease=torch.where(active, dJ, stats.cost_decrease),
+                    gradient=torch.where(active, grad, stats.gradient),
+                    alpha=torch.where(active & fp["success"], fp["alpha"], stats.alpha),
+                    improvement_ratio=torch.where(
+                        active & fp["success"], fp["z"], stats.improvement_ratio
+                    ),
+                    regularization=torch.where(active, bp["rho"], stats.regularization),
+                )
+                stats = _record_history(stats, active)
+                if self._logger is not None:
+                    self._emit_inner_row(active, stats)
+                c = dict(
+                    Z=zselect(active, fp["Z"], c["Z"]),
+                    rho=torch.where(active, fp["rho"], c["rho"]),
+                    drho=torch.where(active, fp["drho"], c["drho"]),
+                    stats=stats,
+                    cost_last=torch.where(active, cost_new, c["cost_last"]),
+                    status=torch.where(active, status, c["status"]),
+                    done=c["done"] | (active & done_new),
+                    stall=stall,
+                    K=torch.where(active, bp["K"], c["K"]),
+                    d=torch.where(active, bp["d"], c["d"]),
+                )
         return c
 
     # ------------------------------------------------------------- AL outer
@@ -1369,7 +1381,14 @@ class ALSolverBatched:
         (`altro_tpu/solver/batched.py:1689-1705`); the restart portfolio
         (`solver/compaction.py`) runs its variants with them.
         """
-        self.host_syncs = 0
+        reads = host_reads()
+        try:
+            with root_span("al.solve"):
+                return self._solve(params, Z, al, active, lane_opts)
+        finally:
+            self.host_syncs = host_reads() - reads
+
+    def _solve(self, params, Z, al, active, lane_opts):
         opts = self.opts
         dt = Z.X.dtype
         dev = Z.X.device
@@ -1420,79 +1439,82 @@ class ALSolverBatched:
             K=Z.X.new_zeros((N, m, n, Bsz)),
             d=Z.X.new_zeros((N, m, Bsz)),
         )
-        while self._any(~c["done"]):
-            active = ~c["done"]
-            res = self.ilqr_solve(params, c["al"], c["Z"], c["stats"], active, lane_opts)
-            Z2 = res["Z"]
-            stats = res["stats"]
-            inner_solved = res["status"] == int(SolverStatus.SOLVED)
-            # a stall-exited inner solve continues the outer loop but
-            # taints the final status to SOLVED_STALLED
-            inner_ok = inner_solved | (res["status"] == int(SolverStatus.SOLVED_STALLED))
-            upd = active if opts.update_duals_on_failed_inner else (active & inner_ok)
-            al_new, viol = self._outer_duals_and_violation(params, Z2, c["al"], upd)
-            pen = Z.X.new_zeros((Bsz,))
-            for st in al_new:
-                pen = torch.maximum(pen, st["rho"].amax(dim=0))
-            outer = stats.iterations_outer + active.to(torch.int32)
-            stats = stats.replace(
-                iterations_outer=torch.where(active, outer, stats.iterations_outer),
-                violations=torch.where(active, viol, stats.violations),
-                max_penalty=torch.where(active, pen, stats.max_penalty),
-            )
-            sat = viol < opts.constraint_tolerance
-            pen_hi = pen > opts.maximum_penalty
-            outer_hi = outer >= max_outer
-            total_hi = stats.iterations_total >= max_total
-            # stalled_feasible_exits=False: a feasible-but-stalled instance
-            # keeps escalating the penalty until its inner solve converges
-            sat_done = sat if opts.stalled_feasible_exits else (sat & inner_solved)
-            status = torch.where(
-                ~inner_ok, res["status"],
-                torch.where(
-                    sat_done,
-                    torch.where(
-                        inner_solved, int(SolverStatus.SOLVED),
-                        int(SolverStatus.SOLVED_STALLED),
-                    ),
-                    torch.where(
-                        pen_hi, int(SolverStatus.MAX_PENALTY),
+        while self._any(~c["done"], "outer_exit"):
+            with span("al.outer"):
+                active = ~c["done"]
+                res = self.ilqr_solve(params, c["al"], c["Z"], c["stats"], active, lane_opts)
+                Z2 = res["Z"]
+                stats = res["stats"]
+                inner_solved = res["status"] == int(SolverStatus.SOLVED)
+                # a stall-exited inner solve continues the outer loop but
+                # taints the final status to SOLVED_STALLED
+                inner_ok = inner_solved | (res["status"] == int(SolverStatus.SOLVED_STALLED))
+                # the duals, violations, statuses and penalties of the lanes that ran
+                with span("al.duals"):
+                    upd = active if opts.update_duals_on_failed_inner else (active & inner_ok)
+                    al_new, viol = self._outer_duals_and_violation(params, Z2, c["al"], upd)
+                    pen = Z.X.new_zeros((Bsz,))
+                    for st in al_new:
+                        pen = torch.maximum(pen, st["rho"].amax(dim=0))
+                    outer = stats.iterations_outer + active.to(torch.int32)
+                    stats = stats.replace(
+                        iterations_outer=torch.where(active, outer, stats.iterations_outer),
+                        violations=torch.where(active, viol, stats.violations),
+                        max_penalty=torch.where(active, pen, stats.max_penalty),
+                    )
+                    sat = viol < opts.constraint_tolerance
+                    pen_hi = pen > opts.maximum_penalty
+                    outer_hi = outer >= max_outer
+                    total_hi = stats.iterations_total >= max_total
+                    # stalled_feasible_exits=False: a feasible-but-stalled instance
+                    # keeps escalating the penalty until its inner solve converges
+                    sat_done = sat if opts.stalled_feasible_exits else (sat & inner_solved)
+                    status = torch.where(
+                        ~inner_ok, res["status"],
                         torch.where(
-                            outer_hi, int(SolverStatus.MAX_OUTER_ITERATIONS),
+                            sat_done,
                             torch.where(
-                                total_hi, int(SolverStatus.MAX_ITERATIONS),
-                                int(SolverStatus.UNSOLVED),
+                                inner_solved, int(SolverStatus.SOLVED),
+                                int(SolverStatus.SOLVED_STALLED),
+                            ),
+                            torch.where(
+                                pen_hi, int(SolverStatus.MAX_PENALTY),
+                                torch.where(
+                                    outer_hi, int(SolverStatus.MAX_OUTER_ITERATIONS),
+                                    torch.where(
+                                        total_hi, int(SolverStatus.MAX_ITERATIONS),
+                                        int(SolverStatus.UNSOLVED),
+                                    ),
+                                ),
                             ),
                         ),
-                    ),
-                ),
-            ).to(torch.int32)
-            if not opts.stalled_feasible_exits:
-                # a cap ending a continuing feasible-stalled instance keeps
-                # the SOLVED_STALLED label
-                capped = pen_hi | outer_hi | total_hi
-                status = torch.where(
-                    inner_ok & sat & ~sat_done & capped,
-                    int(SolverStatus.SOLVED_STALLED), status,
-                ).to(torch.int32)
-            done_new = (~inner_ok) | sat_done | pen_hi | outer_hi | total_hi
-            # scale penalties only for continuing instances
-            cont = active & ~done_new
-            if self._logger is not None:
-                self._emit_outer_row(cont, torch.where(active, status, c["status"]), stats)
-            al_next = tuple(
-                dict(lam=st["lam"], rho=torch.where(cont, st["rho"] * ps_lane, st["rho"]))
-                for st in al_new
-            )
-            c = dict(
-                Z=zselect(active, Z2, c["Z"]),
-                al=al_select(active, al_next, c["al"]),
-                stats=stats,
-                status=torch.where(active, status, c["status"]),
-                done=c["done"] | (active & done_new),
-                K=torch.where(active, res["K"], c["K"]),
-                d=torch.where(active, res["d"], c["d"]),
-            )
+                    ).to(torch.int32)
+                    if not opts.stalled_feasible_exits:
+                        # a cap ending a continuing feasible-stalled instance keeps
+                        # the SOLVED_STALLED label
+                        capped = pen_hi | outer_hi | total_hi
+                        status = torch.where(
+                            inner_ok & sat & ~sat_done & capped,
+                            int(SolverStatus.SOLVED_STALLED), status,
+                        ).to(torch.int32)
+                    done_new = (~inner_ok) | sat_done | pen_hi | outer_hi | total_hi
+                    # scale penalties only for continuing instances
+                    cont = active & ~done_new
+                    if self._logger is not None:
+                        self._emit_outer_row(cont, torch.where(active, status, c["status"]), stats)
+                    al_next = tuple(
+                        dict(lam=st["lam"], rho=torch.where(cont, st["rho"] * ps_lane, st["rho"]))
+                        for st in al_new
+                    )
+                c = dict(
+                    Z=zselect(active, Z2, c["Z"]),
+                    al=al_select(active, al_next, c["al"]),
+                    stats=stats,
+                    status=torch.where(active, status, c["status"]),
+                    done=c["done"] | (active & done_new),
+                    K=torch.where(active, res["K"], c["K"]),
+                    d=torch.where(active, res["d"], c["d"]),
+                )
         return dict(
             Z=c["Z"], al=c["al"], status=c["status"], stats=c["stats"], K=c["K"], d=c["d"],
         )

@@ -57,6 +57,7 @@ from ..options import SolverOptions
 from ..problem.infeasibility import goal_obstacle_certificates
 from ..problem.problem import CompiledProblem
 from ..types import SolverStatus
+from ..utils.timer import FINAL_READBACK, host_read, host_reads, root_span, span
 from .batched import ALSolverBatched, BatchedTrajectory, gather_params
 
 # statuses that mean "ran out of a phase budget, still making progress";
@@ -119,12 +120,20 @@ class CompactedALSolver:
         certificate at knot N-1 (0: knot N only).
 
     After each `solve`, `host_syncs` holds the solve's host
-    synchronisations before its final read-back of statuses and
-    iterations, and `telemetry` the iteration distribution and, when the
-    polish ran, its lanes, stages and wall time; on the device path the
-    number of tail rounds, the lanes each restart variant took and the
-    host syncs of the cascade; on the host path phase 1's wall time and,
-    per tail round, its stragglers and wall time.
+    synchronisations (`utils/timer.py:host_read`) but its final read-back
+    of statuses and iterations, and `telemetry` the iteration distribution
+    and, when the polish ran, its lanes, stages and wall time; on the
+    device path the number of tail rounds, the lanes each restart variant
+    took and the host syncs of the cascade; on the host path phase 1's
+    wall time and, per tail round, its stragglers and wall time.
+
+    Tracer spans (`utils/timer.py`): `compaction.solve` around a solve,
+    `compaction.phase1`, one `compaction.tail_round` per round (host path:
+    per round of chunks), one `compaction.restart` per variant, one
+    `compaction.polish` per polish chunk, `compaction.gather` and
+    `compaction.merge` around each sub-solve's gather and merge; host reads
+    at `tail_round`, `restart`, `polish_readback` and `final_readback`, and
+    the uploads of host lane indices (`upload`).
     """
 
     def __init__(
@@ -226,46 +235,46 @@ class CompactedALSolver:
             out[..., idx] = torch.where(real, new.to(old.dtype), old[..., idx])
             return out
 
-        res = dict(res)
-        res["Z"] = res["Z"].replace(X=sel(res["Z"].X, sub["Z"].X), U=sel(res["Z"].U, sub["Z"].U))
-        res["al"] = tuple(
-            dict(lam=sel(o["lam"], s["lam"]), rho=sel(o["rho"], s["rho"]))
-            for o, s in zip(res["al"], sub["al"])
-        )
-        res["K"] = sel(res["K"], sub["K"])
-        res["d"] = sel(res["d"], sub["d"])
-        res["status"] = sel(res["status"], sub["status"])
-        st, su = res["stats"], sub["stats"]
-
         def add(old, new):
             out = old.clone()
             out[idx] += new * real.to(new.dtype)
             return out
 
-        rows = st.rows
-        cap = rows.shape[0]
-        if cap > 0:
-            # row j of lane idx[b] takes the sub-solve's row j - T0[b], with
-            # T0 the lane's iterations before this merge
-            r = torch.arange(cap, device=rows.device)[:, None] - st.iterations_total[idx].long()[None, :]
-            valid = (r >= 0) & (r < su.iterations_total.long()[None, :]) & real[None, :]
-            src = su.rows.gather(0, r.clamp(0, cap - 1)[:, None, :].expand(cap, rows.shape[1], r.shape[1]))
-            rows = rows.clone()
-            rows[..., idx] = torch.where(valid[:, None, :], src.to(rows.dtype), rows[..., idx])
-        res["stats"] = st.replace(
-            iterations_inner=sel(st.iterations_inner, su.iterations_inner),
-            iterations_outer=add(st.iterations_outer, su.iterations_outer),
-            iterations_total=add(st.iterations_total, su.iterations_total),
-            rows=rows,
-            **{
-                name: sel(getattr(st, name), getattr(su, name))
-                for name in (
-                    "cost", "cost_decrease", "gradient", "alpha", "improvement_ratio",
-                    "violations", "max_penalty", "regularization",
-                )
-            },
-        )
-        return res
+        with span("compaction.merge"):
+            res = dict(res)
+            res["Z"] = res["Z"].replace(X=sel(res["Z"].X, sub["Z"].X), U=sel(res["Z"].U, sub["Z"].U))
+            res["al"] = tuple(
+                dict(lam=sel(o["lam"], s["lam"]), rho=sel(o["rho"], s["rho"]))
+                for o, s in zip(res["al"], sub["al"])
+            )
+            res["K"] = sel(res["K"], sub["K"])
+            res["d"] = sel(res["d"], sub["d"])
+            res["status"] = sel(res["status"], sub["status"])
+            st, su = res["stats"], sub["stats"]
+            rows = st.rows
+            cap = rows.shape[0]
+            if cap > 0:
+                # row j of lane idx[b] takes the sub-solve's row j - T0[b], with
+                # T0 the lane's iterations before this merge
+                r = torch.arange(cap, device=rows.device)[:, None] - st.iterations_total[idx].long()[None, :]
+                valid = (r >= 0) & (r < su.iterations_total.long()[None, :]) & real[None, :]
+                src = su.rows.gather(0, r.clamp(0, cap - 1)[:, None, :].expand(cap, rows.shape[1], r.shape[1]))
+                rows = rows.clone()
+                rows[..., idx] = torch.where(valid[:, None, :], src.to(rows.dtype), rows[..., idx])
+            res["stats"] = st.replace(
+                iterations_inner=sel(st.iterations_inner, su.iterations_inner),
+                iterations_outer=add(st.iterations_outer, su.iterations_outer),
+                iterations_total=add(st.iterations_total, su.iterations_total),
+                rows=rows,
+                **{
+                    name: sel(getattr(st, name), getattr(su, name))
+                    for name in (
+                        "cost", "cost_decrease", "gradient", "alpha", "improvement_ratio",
+                        "violations", "max_penalty", "regularization",
+                    )
+                },
+            )
+            return res
 
     def _portfolio(self, params, Z0: BatchedTrajectory, res, skip):
         """The fresh-restart cascade over `res`, the tail rounds' result:
@@ -273,81 +282,81 @@ class CompactedALSolver:
         in `skip` (the certified-infeasible lanes, or None), from their
         original initial guess `Z0` with zero duals and the variant's
         initial penalty, under its per-lane options; lanes that come back
-        SOLVED are merged.  Returns (res, the real lanes each variant took,
-        host syncs): one per variant (its lane count, which also ends the
-        cascade once no lane is left), plus its solve's."""
+        SOLVED are merged.  Returns (res, the real lanes each variant
+        took); each variant reads its lane count on the host (a `restart`
+        read, which also ends the cascade once no lane is left)."""
         opts = self.opts
         dt, dev = Z0.X.dtype, Z0.X.device
         R = self.restart_width or self.tail_batch
         solved = int(SolverStatus.SOLVED)
-        lanes, syncs = [], 0
+        lanes = []
         for _ in range(self.restart_rounds):
             for variant in self.restart_portfolio:
-                undone = res["status"] != solved
-                if skip is not None:
-                    undone = undone & ~skip
-                order = torch.argsort((~undone).to(torch.int8), stable=True)
-                idx = order[:R]
-                real = undone[idx]
-                count = int(real.sum())
-                syncs += 1
-                if count == 0:
-                    return res, lanes, syncs
-                lanes.append(count)
-                W = idx.shape[0]
-                lane_opts = dict(
-                    penalty_scaling=torch.full(
-                        (W,), variant.get("penalty_scaling", opts.penalty_scaling), dtype=dt, device=dev),
-                    max_iterations_outer=torch.full(
-                        (W,), variant.get("max_iterations_outer", opts.max_iterations_outer),
-                        dtype=torch.int32, device=dev),
-                    max_iterations_total=torch.full(
-                        (W,), variant.get("max_iterations_total", opts.max_iterations_total),
-                        dtype=torch.int32, device=dev),
-                )
-                rho0 = variant.get("initial_penalty", opts.initial_penalty)
-                al_r = tuple(
-                    dict(lam=torch.zeros((len(f.knots), f.dim, W), dtype=dt, device=dev),
-                         rho=torch.full((len(f.knots), W), rho0, dtype=dt, device=dev))
-                    for f in self.prob.constraint_families
-                )
-                params_r = gather_params(self.prob.params, params, idx)
-                # from the original initial guess, not the failed trajectory
-                Z_r = Z0.replace(X=Z0.X[..., idx], U=Z0.U[..., idx])
-                sub = self._restart.solve(params_r, Z_r, al_r, active=real, lane_opts=lane_opts)
-                syncs += self._restart.host_syncs
-                res = self._merge(res, sub, idx, real & (sub["status"] == solved))
-        return res, lanes, syncs
+                with span("compaction.restart"):
+                    undone = res["status"] != solved
+                    if skip is not None:
+                        undone = undone & ~skip
+                    order = torch.argsort((~undone).to(torch.int8), stable=True)
+                    idx = order[:R]
+                    real = undone[idx]
+                    count = host_read("restart", lambda: int(real.sum()))
+                    if count == 0:
+                        return res, lanes
+                    lanes.append(count)
+                    W = idx.shape[0]
+                    lane_opts = dict(
+                        penalty_scaling=torch.full(
+                            (W,), variant.get("penalty_scaling", opts.penalty_scaling), dtype=dt, device=dev),
+                        max_iterations_outer=torch.full(
+                            (W,), variant.get("max_iterations_outer", opts.max_iterations_outer),
+                            dtype=torch.int32, device=dev),
+                        max_iterations_total=torch.full(
+                            (W,), variant.get("max_iterations_total", opts.max_iterations_total),
+                            dtype=torch.int32, device=dev),
+                    )
+                    rho0 = variant.get("initial_penalty", opts.initial_penalty)
+                    with span("compaction.gather"):
+                        al_r = tuple(
+                            dict(lam=torch.zeros((len(f.knots), f.dim, W), dtype=dt, device=dev),
+                                 rho=torch.full((len(f.knots), W), rho0, dtype=dt, device=dev))
+                            for f in self.prob.constraint_families
+                        )
+                        params_r = gather_params(self.prob.params, params, idx)
+                        # from the original initial guess, not the failed trajectory
+                        Z_r = Z0.replace(X=Z0.X[..., idx], U=Z0.U[..., idx])
+                    sub = self._restart.solve(params_r, Z_r, al_r, active=real, lane_opts=lane_opts)
+                    res = self._merge(res, sub, idx, real & (sub["status"] == solved))
+        return res, lanes
 
     def _run_polish(self, solver: ALSolverBatched, params, Z0: BatchedTrajectory, res, lanes: np.ndarray):
         """Re-solve `lanes` (host indices) with the float64 `solver`, in
         chunks of `polish_batch`, with fresh duals from their original
         initial guess `Z0` (a warm start from the failed f32 trajectory
         converts fewer: its high-penalty shape traps the solve), and merge
-        every chunk's results into `res`.  Returns (res, host syncs)."""
+        every chunk's results into `res`.  Returns `res`."""
         dev, f64 = Z0.X.device, torch.float64
-        syncs = 0
         for start in range(0, len(lanes), self.polish_batch):
-            idx = torch.as_tensor(lanes[start:start + self.polish_batch], dtype=torch.long, device=dev)
-            params_p = gather_params(self.prob.params, params, idx).astype(f64)
-            Z_p = Z0.replace(X=Z0.X[..., idx].to(f64), U=Z0.U[..., idx].to(f64), t=Z0.t.to(f64), h=Z0.h.to(f64))
-            sub = solver.solve(params_p, Z_p)
-            syncs += solver.host_syncs
-            res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
-        return res, syncs
+            with span("compaction.polish"):
+                with span("compaction.gather"):
+                    idx = _upload(lanes[start:start + self.polish_batch], dev)
+                    params_p = gather_params(self.prob.params, params, idx).astype(f64)
+                    Z_p = Z0.replace(X=Z0.X[..., idx].to(f64), U=Z0.U[..., idx].to(f64), t=Z0.t.to(f64),
+                                     h=Z0.h.to(f64))
+                sub = solver.solve(params_p, Z_p)
+                res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
+        return res
 
     def _solve_device(self, params, Z: BatchedTrajectory, al):
         """Phase 1 and the device program's tail rounds, restart cascade
-        and certificates (module docstring).  Returns (res, host syncs,
-        telemetry)."""
+        and certificates (module docstring).  Returns (res, telemetry)."""
         B = Z.X.shape[-1]
         infeasible = None
-        if self.detect_infeasible:
-            infeasible = goal_obstacle_certificates(self.prob, params, B, step_bound=self.infeasible_step_bound)
-            res = self._p1.solve(params, Z, al, active=~infeasible)
-        else:
-            res = self._p1.solve(params, Z, al)
-        syncs = self._p1.host_syncs
+        with span("compaction.phase1"):
+            if self.detect_infeasible:
+                infeasible = goal_obstacle_certificates(self.prob, params, B, step_bound=self.infeasible_step_bound)
+                res = self._p1.solve(params, Z, al, active=~infeasible)
+            else:
+                res = self._p1.solve(params, Z, al)
         K_t = self.tail_batch
         # certified lanes never resume
         tried = torch.zeros((B,), dtype=torch.bool, device=Z.X.device)
@@ -358,99 +367,110 @@ class CompactedALSolver:
         # an uncapped tail round is terminal.  Once a round gathers no
         # unconverged lane no later round can, so the loop stops there.
         for _ in range(self.device_tail_rounds or -(-B // K_t)):
-            undone = torch.isin(res["status"], self._codes) & ~tried
-            order = torch.argsort((~undone).to(torch.int8), stable=True)
-            idx = order[:K_t]
-            real = undone[idx]
-            syncs += 1
-            if not bool(real.any()):
-                break
-            rounds += 1
-            sub = self._tail.solve(gather_params(self.prob.params, params, idx), *self._gather_state(res, idx),
-                                   active=real)
-            syncs += self._tail.host_syncs
-            res = self._merge(res, sub, idx, real)
-            tried[idx] |= real
+            with span("compaction.tail_round"):
+                undone = torch.isin(res["status"], self._codes) & ~tried
+                order = torch.argsort((~undone).to(torch.int8), stable=True)
+                idx = order[:K_t]
+                real = undone[idx]
+                if not host_read("tail_round", lambda: bool(real.any())):
+                    break
+                rounds += 1
+                sub = self._tail.solve(*self._gather(params, res, idx), active=real)
+                res = self._merge(res, sub, idx, real)
+                tried[idx] |= real
         restart_lanes, restart_syncs = [], 0
         if self._restart is not None:
-            res, restart_lanes, restart_syncs = self._portfolio(params, Z, res, infeasible)
-            syncs += restart_syncs
+            reads = host_reads()
+            res, restart_lanes = self._portfolio(params, Z, res, infeasible)
+            restart_syncs = host_reads() - reads
         if infeasible is not None:
             res = dict(res, status=torch.where(
                 infeasible, int(SolverStatus.INFEASIBLE), res["status"]).to(torch.int32))
-        return res, syncs, dict(tail_rounds=rounds, restart_lanes=restart_lanes,
-                                restart_host_syncs=restart_syncs)
+        return res, dict(tail_rounds=rounds, restart_lanes=restart_lanes, restart_host_syncs=restart_syncs)
 
     def _solve_host(self, params, Z: BatchedTrajectory, al, t0: float):
         """Phase 1 and the host-driven tail rounds
         (`altro_tpu/solver/compaction.py:502-615`): each round solves every
         unconverged lane in chunks of `tail_batch`; capped lanes re-enter
         the next round, and after an uncapped round (`tail_iters == 0`) none
-        does.  Returns (res, host syncs, telemetry)."""
-        res = self._p1.solve(params, Z, al)
-        undone = np.isin(res["status"].cpu().numpy(), self._codes_np)
-        syncs = self._p1.host_syncs + 1
+        does.  Returns (res, telemetry)."""
+        with span("compaction.phase1"):
+            res = self._p1.solve(params, Z, al)
+        undone = np.isin(host_read("tail_round", lambda: res["status"].cpu().numpy()), self._codes_np)
         tel = dict(phase1_s=time.perf_counter() - t0, tail_rounds=[])
         dev = Z.X.device
         while undone.any() and len(tel["tail_rounds"]) < self.max_tail_rounds:
-            t_round = time.perf_counter()
-            lanes = np.nonzero(undone)[0]
-            for start in range(0, len(lanes), self.tail_batch):
-                idx = torch.as_tensor(lanes[start:start + self.tail_batch], dtype=torch.long, device=dev)
-                sub = self._tail.solve(gather_params(self.prob.params, params, idx), *self._gather_state(res, idx))
-                syncs += self._tail.host_syncs
-                res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
-            undone = np.isin(res["status"].cpu().numpy(), self._codes_np)
-            syncs += 1
-            if self.tail_iters == 0:
-                # every straggler just had an uncapped solve: the budget
-                # statuses are terminal now (`_RESUMABLE`)
-                undone[:] = False
-            tel["tail_rounds"].append(dict(stragglers=int(lanes.size), wall_s=time.perf_counter() - t_round))
-        return res, syncs, tel
+            with span("compaction.tail_round"):
+                t_round = time.perf_counter()
+                lanes = np.nonzero(undone)[0]
+                for start in range(0, len(lanes), self.tail_batch):
+                    idx = _upload(lanes[start:start + self.tail_batch], dev)
+                    sub = self._tail.solve(*self._gather(params, res, idx))
+                    res = self._merge(res, sub, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
+                undone = np.isin(host_read("tail_round", lambda: res["status"].cpu().numpy()), self._codes_np)
+                if self.tail_iters == 0:
+                    # every straggler just had an uncapped solve: the budget
+                    # statuses are terminal now (`_RESUMABLE`)
+                    undone[:] = False
+                tel["tail_rounds"].append(dict(stragglers=int(lanes.size), wall_s=time.perf_counter() - t_round))
+        return res, tel
+
+    def _gather(self, params, res, idx):
+        """The params, trajectory and AL state of the lanes `idx` of a
+        result."""
+        with span("compaction.gather"):
+            Z = res["Z"].replace(X=res["Z"].X[..., idx], U=res["Z"].U[..., idx])
+            al = tuple(dict(lam=s["lam"][..., idx], rho=s["rho"][..., idx]) for s in res["al"])
+            return gather_params(self.prob.params, params, idx), Z, al
 
     @staticmethod
-    def _gather_state(res, idx):
-        """The trajectory and AL state of the lanes `idx` of a result."""
-        Z = res["Z"].replace(X=res["Z"].X[..., idx], U=res["Z"].U[..., idx])
-        return Z, tuple(dict(lam=s["lam"][..., idx], rho=s["rho"][..., idx]) for s in res["al"])
+    def _readback(site: str, res):
+        """Statuses and total iterations of every lane, on the host."""
+        return host_read(site, lambda: torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy())
 
     def solve(self, params, Z: BatchedTrajectory, al=None):
         """Same contract as `ALSolverBatched.solve` (batch-last dict)."""
         t0 = time.perf_counter()
-        if self.device_tail:
-            if self.tail_iters > 0:
-                raise ValueError("device_tail supports uncapped tail rounds only (tail_iters=0)")
-            res, syncs, tel = self._solve_device(params, Z, al)
-        else:
-            res, syncs, tel = self._solve_host(params, Z, al, t0)
-        # the final read-back, which every solve makes for its telemetry,
-        # also decides the polish; each polish stage reads the statuses again
-        status, it = torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy()
-        polish = []
-        for stage, (solver, (codes, _)) in enumerate(zip(self._polish, _POLISH_STAGES)):
-            bad = np.nonzero(np.isin(status, codes))[0]
-            if bad.size == 0:
-                continue
-            t_p = time.perf_counter()
-            res, s = self._run_polish(solver, params, Z, res, bad)
-            status, it = torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy()
-            syncs += s + 1
-            polish.append(dict(stage=stage, instances=int(bad.size), wall_s=time.perf_counter() - t_p))
-        self.host_syncs = syncs
-        self.telemetry = dict(
-            tel,
-            iters_p50=float(np.percentile(it, 50)),
-            iters_p95=float(np.percentile(it, 95)),
-            iters_p99=float(np.percentile(it, 99)),
-            iters_max=int(it.max()),
-            total_s=time.perf_counter() - t0,
-        )
-        if polish:
-            self.telemetry["polish"] = dict(
-                instances=polish[0]["instances"],
-                stages=polish,
-                wall_s=sum(p["wall_s"] for p in polish),
-                solved_after=int((status == int(SolverStatus.SOLVED)).sum()),
+        reads = host_reads()
+        with root_span("compaction.solve"):
+            if self.device_tail:
+                if self.tail_iters > 0:
+                    raise ValueError("device_tail supports uncapped tail rounds only (tail_iters=0)")
+                res, tel = self._solve_device(params, Z, al)
+            else:
+                res, tel = self._solve_host(params, Z, al, t0)
+            # the final read-back, which every solve makes for its telemetry,
+            # also decides the polish; each polish stage reads the statuses again
+            status, it = self._readback(FINAL_READBACK, res)
+            polish = []
+            for stage, (solver, (codes, _)) in enumerate(zip(self._polish, _POLISH_STAGES)):
+                bad = np.nonzero(np.isin(status, codes))[0]
+                if bad.size == 0:
+                    continue
+                t_p = time.perf_counter()
+                res = self._run_polish(solver, params, Z, res, bad)
+                status, it = self._readback("polish_readback", res)
+                polish.append(dict(stage=stage, instances=int(bad.size), wall_s=time.perf_counter() - t_p))
+            self.telemetry = dict(
+                tel,
+                iters_p50=float(np.percentile(it, 50)),
+                iters_p95=float(np.percentile(it, 95)),
+                iters_p99=float(np.percentile(it, 99)),
+                iters_max=int(it.max()),
+                total_s=time.perf_counter() - t0,
             )
+            if polish:
+                self.telemetry["polish"] = dict(
+                    instances=polish[0]["instances"],
+                    stages=polish,
+                    wall_s=sum(p["wall_s"] for p in polish),
+                    solved_after=int((status == int(SolverStatus.SOLVED)).sum()),
+                )
+        self.host_syncs = host_reads() - reads
         return res
+
+
+def _upload(lanes: np.ndarray, dev) -> torch.Tensor:
+    """Host lane indices on the device: a copy that waits for the device's
+    queue (an `upload` host read)."""
+    return host_read("upload", lambda: torch.as_tensor(lanes, dtype=torch.long, device=dev))

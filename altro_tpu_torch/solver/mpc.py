@@ -14,7 +14,9 @@ a host loop of `step` calls whose histories stay on the device; it adds no
 host synchronisation to the solver's own.  (The JAX package chains the
 ticks into one device program instead; here that is work for a
 device-side loop.)  Each controller's `host_syncs` counts the
-synchronisations of its last `step` or `rollout_ticks`.
+synchronisations of its last `step` or `rollout_ticks`.  A `step` is the
+tracer's span `mpc.step` (`utils/timer.py`), its warm start's shift
+`mpc.shift`.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 from ..options import SolverOptions
 from ..problem.problem import CompiledProblem, ProblemParams
 from ..types import SolverStatus, Trajectory
+from ..utils.timer import host_reads, root_span, span
 from .al import ALSolver
 
 
@@ -95,12 +98,14 @@ class MPC(_Controller):
         """Re-solve from the measured state `x0` [n]; returns (u0, new_state).
         `params` may replace other problem data (moving references,
         obstacles) with the same structure."""
-        params = (params or self.prob.params).replace(x0=torch.as_tensor(x0))
-        res = self.solver.solve(params, state.Z, state.al)
-        self.host_syncs = self.solver.host_syncs
-        Zwarm = _shift_trajectory(res.Z) if self.shift else res.Z
-        new_state = MPCState(Z=Zwarm, al=res.al, status=res.status, iterations=res.stats.iterations_total)
-        return res.Z.U[..., 0, :], new_state
+        with root_span("mpc.step"):
+            params = (params or self.prob.params).replace(x0=torch.as_tensor(x0))
+            res = self.solver.solve(params, state.Z, state.al)
+            self.host_syncs = self.solver.host_syncs
+            with span("mpc.shift"):
+                Zwarm = _shift_trajectory(res.Z) if self.shift else res.Z
+            new_state = MPCState(Z=Zwarm, al=res.al, status=res.status, iterations=res.stats.iterations_total)
+            return res.Z.U[..., 0, :], new_state
 
 
 def _shift_trajectory(Z: Trajectory) -> Trajectory:
@@ -151,13 +156,16 @@ class BatchedMPC(_Controller):
     def step(self, state: MPCState, x0, params: Optional[ProblemParams] = None):
         """Re-solve the whole fleet from the measured states `x0` [n, B];
         returns (u0 [m, B], new_state)."""
-        params = (params or self.prob.params).replace(x0=torch.as_tensor(x0))
-        res = self.solver.solve(params, state.Z, state.al)
-        self.host_syncs = self.solver.host_syncs
-        Zsol = res["Z"]
-        Zwarm = _shift_batch_last(Zsol) if self.shift else Zsol
-        new_state = MPCState(Z=Zwarm, al=res["al"], status=res["status"],
-                             iterations=res["stats"].iterations_total)
+        reads = host_reads()
+        with root_span("mpc.step"):
+            params = (params or self.prob.params).replace(x0=torch.as_tensor(x0))
+            res = self.solver.solve(params, state.Z, state.al)
+            Zsol = res["Z"]
+            with span("mpc.shift"):
+                Zwarm = _shift_batch_last(Zsol) if self.shift else Zsol
+            new_state = MPCState(Z=Zwarm, al=res["al"], status=res["status"],
+                                 iterations=res["stats"].iterations_total)
+        self.host_syncs = host_reads() - reads
         return Zsol.U[0], new_state
 
 
