@@ -130,6 +130,20 @@ struct AltroForwardArgs {
   // the time of the rollout's dependent chain alone (wrong outputs; the
   // kernel_scaling phase of chip_smoke.py measures with it)
   int chain_only;
+  // The line search (search = 1, forward_kernel<T, Model, true>): from
+  // α = alpha[b], each lane tries α, α/f, α/f², ... until a try is accepted
+  // or it has run budget[b] tries, as the lockstep search of
+  // solver/batched.py:_line_search_sequential does (ilqr.hpp:512-558).
+  // Xn, Ubar, valid and status are then those of the lane's last try and J
+  // its last valid cost (J0 before any).
+  const void *J0, *dV1, *dV2;    // [B]: the cost before the search, the expected decrease's terms
+  const int *budget;             // [B]: the lane's tries (0: it runs none)
+  void *alpha_out, *z;           // out: [B] the last α (divided once more after a last rejection), the last ratio
+  void *success, *tries;         // out: [B] int32
+  void *counts;                  // [3] int64, added to: the tries, the lanes with a budget and the
+                                 // lane tries the blocks ran (a block's slowest lane's, each lane)
+  double lower, upper, factor;   // the ratio's bounds, the decrease factor f
+  int search;
   AltroGeometry geo;
 };
 

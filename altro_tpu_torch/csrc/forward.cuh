@@ -11,7 +11,11 @@
 // the first ‖x‖² > state_max² or ‖ū‖² > control_max², status STATE_LIMIT /
 // CONTROL_LIMIT); then the terminal cost and terminal AL terms.  J is a
 // Kahan sum.  With α = 0 and K = d = 0 it is the open-loop rollout + cost
-// that starts each inner solve (launched with check_bounds = 0).
+// that starts each inner solve (launched with check_bounds = 0).  The
+// search mode (forward_kernel<T, Model, true>) runs each lane's whole
+// backtracking line search: tries at α, α/f, ... until one is accepted
+// or the lane's budget is spent, with the test between tries on the
+// device (forward_body below).
 //
 // The model is a device functor of csrc/models.cuh, a template parameter;
 // the kernel is instantiated for the unicycle, the cartpole and the
@@ -199,6 +203,16 @@ __device__ __forceinline__ void add_cost_terms(const AltroForwardArgs& a, const 
   }
 }
 
+// The lane's next step size after a rejected try, α / f, rounded as the
+// lockstep search's eager `alpha / f` rounds it on the card: PyTorch divides
+// a CUDA tensor by a Python number as a product with the number's
+// reciprocal, taken in double (the same as the quotient where f is a power
+// of two, the default 2 among them)
+template <typename T>
+__device__ __forceinline__ T next_alpha(T alpha, double factor) {
+  return mul_rn(alpha, T(__ddiv_rn(1.0, factor)));
+}
+
 // Two warps per block.  Warp 0 runs each lane's chain over chunk c of
 // knots from the stage, leaving x_k, ū_k in the trail; meanwhile warp 1
 // adds the J terms of chunk c − 1 from the trail, then stages chunk c + 1
@@ -207,7 +221,16 @@ __device__ __forceinline__ void add_cost_terms(const AltroForwardArgs& a, const 
 // `lng` and the lane table are read as well: a knot's lane rows are staged
 // with its inputs, knot N's and the static ones once, and each lane's chain
 // reads its dynamics params once, before its first knot.
-template <typename T, class Model, bool LP>
+//
+// With SEARCH the block runs its lanes' line searches (altro_abi.h): after
+// each try the cost warp tests each lane's try as the lockstep search does
+// (valid, z = (J0 − J)/expected in [lower, upper], J < J0, with expected =
+// −α(ΔV1 + αΔV2) and z = −1 where expected ≤ 0), in the same roundings;
+// lanes that accept or have spent their budget stop, and while any lane of
+// the block searches, the block stages its chunks again and runs the
+// searching lanes' next try at α / f.  The others idle: a block waits for
+// its own slowest lane only, and a lane with budget 0 runs no try.
+template <typename T, class Model, bool LP, bool SEARCH>
 __device__ __forceinline__ void forward_body(AltroForwardArgs a, const AltroProblem* __restrict__ prg,
                                              const AltroLanes* __restrict__ lng, const T* __restrict__ lane_tab) {
   using Lay = FwdLayout<T, Model, LP>;
@@ -247,6 +270,26 @@ __device__ __forceinline__ void forward_body(AltroForwardArgs a, const AltroProb
                               reinterpret_cast<std::uintptr_t>(a.lam_rho) |
                               reinterpret_cast<std::uintptr_t>(lane_tab);
   vec = vec && (ptrs & 15u) == 0;
+  // the lane runs the block's try: both warps hold the same `run`
+  bool run = lane_ok;
+  int budget = 0;
+  if constexpr (SEARCH) {
+    budget = lane_ok ? a.budget[b] : 0;
+    run = budget > 0;
+    if (!__syncthreads_or(run)) {  // no lane of the block searches
+      if (warp == 1 && lane_ok) {
+        static_cast<T*>(a.alpha_out)[b] = static_cast<const T*>(a.alpha)[b];
+        static_cast<T*>(a.J)[b] = static_cast<const T*>(a.J0)[b];
+        static_cast<T*>(a.z)[b] = T(-1);
+        static_cast<int*>(a.success)[b] = 0;
+        static_cast<int*>(a.tries)[b] = 0;
+      } else if (warp == 0 && lane_ok) {
+        static_cast<int*>(a.valid)[b] = 1;
+        static_cast<int*>(a.status)[b] = kUnsolved;
+      }
+      return;
+    }
+  }
   if (warp == 1) {
     stage_chunk<T, Model, LP>(a, R, N, 0, stg, vec, l, 32, lane_tab, W);
     if constexpr (LP) {
@@ -267,134 +310,245 @@ __device__ __forceinline__ void forward_body(AltroForwardArgs a, const AltroProb
   T* __restrict__ Ub = static_cast<T*>(a.Ubar);
   const T smax2 = T(pr.state_max2);
   const T cmax2 = T(pr.control_max2);
-  const T alpha = lane_ok && warp == 0 ? static_cast<const T*>(a.alpha)[b] : T(0);
+  T alpha = lane_ok && (SEARCH || warp == 0) ? static_cast<const T*>(a.alpha)[b] : T(0);
   // a lane's static lane rows (row s at stat[s * L])
   const T* stat = tail + W * L + (lane_ok ? l : 0);
   const DynParams<T, Model> dp = [&] {
     if constexpr (LP) return DynParams<T, Model>(pr, *ln, stat, L);
     else return DynParams<T, Model>(pr);
   }();
+  // the search's state of the lane, kept by the cost warp, which tests the tries
+  T J0 = T(0), dV1 = T(0), dV2 = T(0), Jv = T(0), zl = T(-1);
+  int tries = 0;
+  bool success = false;
+  if constexpr (SEARCH) {
+    if (warp == 1 && lane_ok) {
+      J0 = static_cast<const T*>(a.J0)[b];
+      dV1 = static_cast<const T*>(a.dV1)[b];
+      dV2 = static_cast<const T*>(a.dV2)[b];
+      Jv = J0;
+    }
+  }
 
   T x[n];
-#pragma unroll
-  for (int i = 0; i < n; ++i) {
-    x[i] = lane_ok && warp == 0 ? static_cast<const T*>(a.x0)[long(i) * Bl + b] : T(0);
-  }
-  T J = T(0), comp = T(0);
+  T J, comp;
   bool valid = true;
   int status = kUnsolved;
+  for (;;) {  // one try a pass; the plain kernel makes one
+    if (warp == 0 && run) {
+      valid = true;
+      status = kUnsolved;
+    }
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      x[i] = run && warp == 0 ? static_cast<const T*>(a.x0)[long(i) * Bl + b] : T(0);
+    }
+    J = T(0);
+    comp = T(0);
 
-  for (int c = 0; c <= chunks; ++c) {
-    if (warp == 0) {
-      if (c < chunks && lane_ok) {
-        const T* sb = stg + (a.chain_only ? 0 : (c & 1) * buf_len) + l;
-        T* tr = trail + (c & 1) * trail_len + l;
-        for (int kc = 0; kc < KC; ++kc) {
-          const int k = c * KC + kc;
-          if (k >= N) break;
-          const T* s = sb + kc * R * L;  // row q of this lane at s[q * L]
-          const T t_k = tt[k];
-          const T h_k = hh[k];
-          T dx[n], ub[m];
+    for (int c = 0; c <= chunks; ++c) {
+      if (warp == 0) {
+        if (c < chunks && run) {
+          const T* sb = stg + (a.chain_only ? 0 : (c & 1) * buf_len) + l;
+          T* tr = trail + (c & 1) * trail_len + l;
+          for (int kc = 0; kc < KC; ++kc) {
+            const int k = c * KC + kc;
+            if (k >= N) break;
+            const T* s = sb + kc * R * L;  // row q of this lane at s[q * L]
+            const T t_k = tt[k];
+            const T h_k = hh[k];
+            T dx[n], ub[m];
 #pragma unroll
-          for (int j = 0; j < n; ++j) dx[j] = x[j] - s[(Lay::X + j) * L];
+            for (int j = 0; j < n; ++j) dx[j] = x[j] - s[(Lay::X + j) * L];
 #pragma unroll
-          for (int i = 0; i < m; ++i) {
-            T fb = s[(Lay::K + i * n) * L] * dx[0];
+            for (int i = 0; i < m; ++i) {
+              T fb = s[(Lay::K + i * n) * L] * dx[0];
 #pragma unroll
-            for (int j = 1; j < n; ++j) fb += s[(Lay::K + i * n + j) * L] * dx[j];
-            ub[i] = s[(Lay::U + i) * L] + fb + alpha * s[(Lay::d + i) * L];
-          }
+              for (int j = 1; j < n; ++j) fb += s[(Lay::K + i * n + j) * L] * dx[j];
+              ub[i] = s[(Lay::U + i) * L] + fb + alpha * s[(Lay::d + i) * L];
+            }
 #pragma unroll
-          for (int i = 0; i < n; ++i) tr[(kc * nm + i) * L] = x[i];
+            for (int i = 0; i < n; ++i) tr[(kc * nm + i) * L] = x[i];
 #pragma unroll
-          for (int i = 0; i < m; ++i) tr[(kc * nm + n + i) * L] = ub[i];
+            for (int i = 0; i < m; ++i) tr[(kc * nm + n + i) * L] = ub[i];
 
-          T xn[n];
-          dyn_step<T, Model>(pr.method, dp.p, x, ub, t_k, h_k, xn);
-          if (a.check_bounds) {
-            T xn2 = xn[0] * xn[0], un2 = ub[0] * ub[0];
+            T xn[n];
+            dyn_step<T, Model>(pr.method, dp.p, x, ub, t_k, h_k, xn);
+            if (a.check_bounds) {
+              T xn2 = xn[0] * xn[0], un2 = ub[0] * ub[0];
 #pragma unroll
-            for (int i = 1; i < n; ++i) xn2 += xn[i] * xn[i];
+              for (int i = 1; i < n; ++i) xn2 += xn[i] * xn[i];
 #pragma unroll
-            for (int i = 1; i < m; ++i) un2 += ub[i] * ub[i];
-            const bool state_ok = xn2 <= smax2;
-            const bool ctrl_ok = un2 <= cmax2;
-            const bool step_ok = state_ok && ctrl_ok;
-            if (valid && !step_ok) status = !state_ok ? kStateLimit : kControlLimit;
-            valid = valid && step_ok;
-            if (valid) {
+              for (int i = 1; i < m; ++i) un2 += ub[i] * ub[i];
+              const bool state_ok = xn2 <= smax2;
+              const bool ctrl_ok = un2 <= cmax2;
+              const bool step_ok = state_ok && ctrl_ok;
+              if (valid && !step_ok) status = !state_ok ? kStateLimit : kControlLimit;
+              valid = valid && step_ok;
+              if (valid) {
+#pragma unroll
+                for (int i = 0; i < n; ++i) x[i] = xn[i];
+              }
+            } else {
 #pragma unroll
               for (int i = 0; i < n; ++i) x[i] = xn[i];
             }
-          } else {
 #pragma unroll
-            for (int i = 0; i < n; ++i) x[i] = xn[i];
+            for (int i = 0; i < n; ++i) Xn[(long(k) * n + i) * Bl + b] = x[i];
+#pragma unroll
+            for (int i = 0; i < m; ++i) Ub[(long(k) * m + i) * Bl + b] = ub[i];
           }
+          if (c == chunks - 1) {
 #pragma unroll
-          for (int i = 0; i < n; ++i) Xn[(long(k) * n + i) * Bl + b] = x[i];
-#pragma unroll
-          for (int i = 0; i < m; ++i) Ub[(long(k) * m + i) * Bl + b] = ub[i];
+            for (int i = 0; i < n; ++i) xfin[i * L] = x[i];
+          }
         }
-        if (c == chunks - 1) {
+      } else {
+        if (c >= 1 && run) {
+          const T* sb = stg + (a.chain_only ? 0 : ((c - 1) & 1) * buf_len) + l;
+          const T* tr = trail + ((c - 1) & 1) * trail_len + l;
+          for (int kc = 0; kc < KC; ++kc) {
+            const int k = (c - 1) * KC + kc;
+            if (k >= N) break;
+            T xk[n], ub[m];
 #pragma unroll
-          for (int i = 0; i < n; ++i) xfin[i * L] = x[i];
+            for (int i = 0; i < n; ++i) xk[i] = tr[(kc * nm + i) * L];
+#pragma unroll
+            for (int i = 0; i < m; ++i) ub[i] = tr[(kc * nm + n + i) * L];
+            add_cost_terms<T, Model, LP>(a, pr, ctab, k, xk, ub, sb + kc * R * L, L, b, J, comp, ln,
+                                         LaneView<T>{sb + (kc * R + R - W) * L, stat, L});
+          }
+          if (c == chunks) {
+            T xN[n];
+#pragma unroll
+            for (int i = 0; i < n; ++i) xN[i] = xfin[i * L];
+            add_cost_terms<T, Model, LP>(a, pr, ctab, N, xN, nullptr, nullptr, L, b, J, comp, ln,
+                                         LaneView<T>{tail + l, stat, L});
+            if constexpr (!SEARCH) static_cast<T*>(a.J)[b] = sub_rn(J, comp);
+          }
         }
+        __syncwarp();  // the terms of chunk c - 1 are read before its buffer is refilled
+        if (c + 1 < chunks && !a.chain_only) {
+          stage_chunk<T, Model, LP>(a, R, N, c + 1, stg + ((c + 1) & 1) * buf_len, vec, l, 32, lane_tab, W);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
       }
-    } else {
-      if (c >= 1 && lane_ok) {
-        const T* sb = stg + (a.chain_only ? 0 : ((c - 1) & 1) * buf_len) + l;
-        const T* tr = trail + ((c - 1) & 1) * trail_len + l;
-        for (int kc = 0; kc < KC; ++kc) {
-          const int k = (c - 1) * KC + kc;
-          if (k >= N) break;
-          T xk[n], ub[m];
-#pragma unroll
-          for (int i = 0; i < n; ++i) xk[i] = tr[(kc * nm + i) * L];
-#pragma unroll
-          for (int i = 0; i < m; ++i) ub[i] = tr[(kc * nm + n + i) * L];
-          add_cost_terms<T, Model, LP>(a, pr, ctab, k, xk, ub, sb + kc * R * L, L, b, J, comp, ln,
-                                       LaneView<T>{sb + (kc * R + R - W) * L, stat, L});
-        }
-        if (c == chunks) {
-          T xN[n];
-#pragma unroll
-          for (int i = 0; i < n; ++i) xN[i] = xfin[i * L];
-          add_cost_terms<T, Model, LP>(a, pr, ctab, N, xN, nullptr, nullptr, L, b, J, comp, ln,
-                                       LaneView<T>{tail + l, stat, L});
-          static_cast<T*>(a.J)[b] = sub_rn(J, comp);
-        }
-      }
-      __syncwarp();  // the terms of chunk c - 1 are read before its buffer is refilled
-      if (c + 1 < chunks && !a.chain_only) {
-        stage_chunk<T, Model, LP>(a, R, N, c + 1, stg + ((c + 1) & 1) * buf_len, vec, l, 32, lane_tab, W);
-      }
-      cp_async_commit();
-      cp_async_wait<0>();
+      __syncthreads();
     }
-    __syncthreads();
+    if constexpr (!SEARCH) {
+      break;
+    } else {
+      // the trail is free once the last chunk's terms are in: it carries
+      // each lane's `valid` to the cost warp, and its next α and whether it
+      // goes on back to the chain warp
+      T* sc = trail;
+      if (warp == 0 && run) sc[l] = valid ? T(1) : T(0);
+      __syncthreads();
+      if (warp == 1 && run) {
+        const T Jt = sub_rn(J, comp);
+        const bool v = sc[l] != T(0);
+        const T expected = mul_rn(-alpha, add_rn(dV1, mul_rn(alpha, dV2)));
+        const T zt = expected > T(0) ? div_rn(sub_rn(J0, Jt), expected) : T(-1);
+        const bool ok = v && T(a.lower) <= zt && zt <= T(a.upper) && Jt < J0;
+        if (v) Jv = Jt;
+        zl = zt;
+        ++tries;
+        success = ok;
+        if (!ok) alpha = next_alpha(alpha, a.factor);
+        run = !ok && tries < budget;
+        sc[L + l] = alpha;
+        sc[2 * L + l] = run ? T(1) : T(0);
+      }
+      if (!__syncthreads_or(warp == 1 && run)) break;
+      if (warp == 0 && run) {
+        alpha = sc[L + l];
+        run = sc[2 * L + l] != T(0);
+      }
+      if (warp == 1) {
+        stage_chunk<T, Model, LP>(a, R, N, 0, stg, vec, l, 32, lane_tab, W);
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+    }
   }
   if (warp == 0 && lane_ok) {
     static_cast<int*>(a.valid)[b] = valid ? 1 : 0;
     static_cast<int*>(a.status)[b] = status;
   }
+  if constexpr (SEARCH) {
+    if (warp == 1) {
+      if (lane_ok) {
+        static_cast<T*>(a.alpha_out)[b] = alpha;
+        static_cast<T*>(a.J)[b] = Jv;
+        static_cast<T*>(a.z)[b] = zl;
+        static_cast<int*>(a.success)[b] = success ? 1 : 0;
+        static_cast<int*>(a.tries)[b] = tries;
+      }
+      // the block's tries, its lanes with a budget and the lane tries it
+      // ran (its slowest lane's tries for each of its lanes), into the
+      // launch's counts
+      const unsigned sum = __reduce_add_sync(0xffffffffu, unsigned(tries));
+      const unsigned slowest = __reduce_max_sync(0xffffffffu, unsigned(tries));
+      const unsigned lanes = __popc(__ballot_sync(0xffffffffu, budget > 0));
+      const unsigned block = __popc(__ballot_sync(0xffffffffu, lane_ok));
+      if (l == 0 && a.counts != nullptr) {
+        unsigned long long* cnt = static_cast<unsigned long long*>(a.counts);
+        atomicAdd(cnt, static_cast<unsigned long long>(sum));
+        atomicAdd(cnt + 1, static_cast<unsigned long long>(lanes));
+        atomicAdd(cnt + 2, static_cast<unsigned long long>(slowest) * block);
+      }
+    }
+  }
 }
 
 // minBlocksPerMultiprocessor 1: left to itself ptxas holds the kernel to 64
 // registers and spills in f32 (the cartpole's, with the circle rows); the
-// chain is what bounds it, not the blocks an SM holds
-template <typename T, class Model>
+// chain is what bounds it, not the blocks an SM holds.  SEARCH: the line
+// search (altro_abi.h), the same body and name
+template <typename T, class Model, bool SEARCH>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 forward_kernel(AltroForwardArgs a, const AltroProblem* __restrict__ prg) {
-  forward_body<T, Model, false>(a, prg, nullptr, nullptr);
+  forward_body<T, Model, false, SEARCH>(a, prg, nullptr, nullptr);
 }
 
 // the lane-params instantiation: per-instance params from the lane table
-template <typename T, class Model>
+template <typename T, class Model, bool SEARCH>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 forward_lanes_kernel(AltroForwardArgs a, const AltroProblem* __restrict__ prg, const AltroLanes* __restrict__ lng,
                      const T* __restrict__ lane_tab) {
-  forward_body<T, Model, true>(a, prg, lng, lane_tab);
+  forward_body<T, Model, true, SEARCH>(a, prg, lng, lane_tab);
+}
+
+template <typename T, class Model, bool LP, bool SEARCH>
+int launch_forward_kernel(const AltroForwardArgs* args, const AltroProblem* prob, void* stream,
+                          const AltroLanes* lanes_dev, const void* lane_tab) {
+  const AltroGeometry& g = args->geo;
+  const int grid = (args->B + g.lanes - 1) / g.lanes;
+  if (grid > 0) {
+    static int smem_set = 48 * 1024;  // the most dynamic shared memory allowed so far
+    if (g.smem > smem_set) {
+      cudaError_t err;
+      if constexpr (LP) {
+        err = cudaFuncSetAttribute(forward_lanes_kernel<T, Model, SEARCH>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
+      } else {
+        err = cudaFuncSetAttribute(forward_kernel<T, Model, SEARCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   g.smem);
+      }
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set = g.smem;
+    }
+    if constexpr (LP) {
+      forward_lanes_kernel<T, Model, SEARCH><<<grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
+          *args, prob, lanes_dev, static_cast<const T*>(lane_tab));
+    } else {
+      forward_kernel<T, Model, SEARCH>
+          <<<grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(*args, prob);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // `lanes` (host) and `lanes_dev`, `lane_tab` (device): the lane-params
@@ -407,31 +561,11 @@ int launch_forward(const AltroForwardArgs* args, const AltroProblem* prob, void*
   const AltroGeometry& g = args->geo;
   const int W = LP ? lanes->knot_rows : 0, S = LP ? lanes->static_rows : 0;
   if (g.lanes < 1 || g.lanes > 32 || g.knots < 1 || g.threads != kFwdThreads ||
-      Lay(g, args->Ps, args->Fs, W, S).total != g.smem) {
+      Lay(g, args->Ps, args->Fs, W, S).total != g.smem || (args->search && args->chain_only)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int grid = (args->B + g.lanes - 1) / g.lanes;
-  if (grid > 0) {
-    static int smem_set = 48 * 1024;  // the most dynamic shared memory allowed so far
-    if (g.smem > smem_set) {
-      cudaError_t err;
-      if constexpr (LP) {
-        err = cudaFuncSetAttribute(forward_lanes_kernel<T, Model>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-      } else {
-        err = cudaFuncSetAttribute(forward_kernel<T, Model>, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem);
-      }
-      if (err != cudaSuccess) return static_cast<int>(err);
-      smem_set = g.smem;
-    }
-    if constexpr (LP) {
-      forward_lanes_kernel<T, Model><<<grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(
-          *args, prob, lanes_dev, static_cast<const T*>(lane_tab));
-    } else {
-      forward_kernel<T, Model>
-          <<<grid, g.threads, g.smem, static_cast<cudaStream_t>(stream)>>>(*args, prob);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (args->search) return launch_forward_kernel<T, Model, LP, true>(args, prob, stream, lanes_dev, lane_tab);
+  return launch_forward_kernel<T, Model, LP, false>(args, prob, stream, lanes_dev, lane_tab);
 }
 
 }  // namespace altro

@@ -92,8 +92,8 @@ class ForwardArgs(ctypes.Structure):
             "lam", "lam_rho", "lamT", "lamT_rho", "Xn", "Ubar", "J", "valid", "status",
         )
     ] + [(name, _int) for name in ("B", "Ps", "Fs", "Pt", "Ft", "check_bounds", "chain_only")] + [
-        ("geo", Geometry)
-    ]
+        (name, _ptr) for name in ("J0", "dV1", "dV2", "budget", "alpha_out", "z", "success", "tries", "counts")
+    ] + [(name, _dbl) for name in ("lower", "upper", "factor")] + [("search", _int), ("geo", Geometry)]
 
 
 class RiccatiArgs(ctypes.Structure):

@@ -6,7 +6,11 @@ runs a whole line-search try: the feedback control, the stage cost and AL
 terms, the RK4 step and the divergence guard at each knot, then the
 terminal terms, with the state carry in registers and J Kahan-summed.  With
 α = 0 and K = d = 0 (and `check_bounds=False`) it is the open-loop rollout
-that starts each inner solve.
+that starts each inner solve.  `search` runs a lane's whole backtracking
+line search in one launch instead: the kernel's search mode tests each try
+on the device and runs the next only for the lanes of a block that still
+search, so a search costs no host round trip and a block no more tries than
+its slowest lane.
 
 What bounds it on the H100 is the latency of each lane's chain (numbers in
 `csrc/forward.cuh`); the streamed bytes are small.  A block owns LANES
@@ -31,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timer import PLAIN_SEARCH, host_read, search_counts
 from . import _build
 from .backward_fused import (
     FWD_THREADS, LANES, SMEM_MAX, STAGE_WORDS, TABLE_SMEM, FusedKernel, Geometry, Ineligible, PaddedAL,
@@ -92,6 +97,16 @@ class ForwardKernel(FusedKernel):
             if chain_only:
                 raise ValueError("chain_only exists only for the CUDA kernel")
             return self.plain(params, al_pad, Z, K, d, alpha, check_bounds=check_bounds)
+        args, outs, sig, lane_tab = self._rollout_args(params, al_pad, Z, K, d, alpha, check_bounds)
+        args.chain_only = int(bool(chain_only))
+        self._launch(args, sig, lane_tab, Z.X)
+        Xn, Ubar, J, valid, status = outs
+        return Xn, Ubar, J, valid != 0, status
+
+    def _rollout_args(self, params, al_pad: PaddedAL, Z, K, d, alpha, check_bounds):
+        """The launch's args struct for a try at `alpha` per lane, its
+        outputs (Xn, Ubar, J, valid, status) and the prepared signature and
+        lane table."""
         N, n, m = self.N, self.n, self.m
         B = Z.X.shape[-1]
         x0 = params.x0
@@ -120,11 +135,76 @@ class ForwardKernel(FusedKernel):
             lamT=_ptr(al_pad.lamT), lamT_rho=_ptr(al_pad.rhoT),
             Xn=_ptr(Xn), Ubar=_ptr(Ubar), J=_ptr(J), valid=_ptr(valid), status=_ptr(status),
             B=B, Ps=self.Ps, Fs=self.Fs, Pt=self.Pt, Ft=self.Ft,
-            check_bounds=int(bool(check_bounds)), chain_only=int(bool(chain_only)),
-            geo=self._geo[1],
+            check_bounds=int(bool(check_bounds)), geo=self._geo[1],
         )
+        # the struct holds raw pointers: keep what they point to alive
+        args._keep = (x0, alpha)
+        return args, (Xn, Ubar, J, valid, status), sig, lane_tab
+
+    def search(self, params, al_pad: PaddedAL, Z, K, d, J0, dV1, dV2, alpha, budget) -> dict:
+        """Every lane's backtracking line search in one launch, with no host
+        sync (csrc/altro_abi.h): from α = `alpha` [B], each lane tries α,
+        α/f, α/f², ... (f the options' `line_search_decrease_factor`) until
+        a try is accepted (valid, z in the options' bounds, J < J0) or it
+        has run `budget` [B] int32 tries, at most the options'
+        `line_search_max_iterations`.  The results are those the lockstep
+        search (`solver/batched.py:_line_search_sequential`) leaves, bit for
+        bit: dict(Xn, Ubar, status of the last try; J, its last valid cost,
+        J0 before any; z, its last ratio, -1 before any; alpha, divided once
+        more after a last rejection; success [B] bool; tries [B] int32).
+        A lane with budget 0 runs no try, and its Xn, Ubar are not
+        written.  The tries, the lanes with a budget and the lane tries the
+        blocks of LANES lanes ran are added to
+        `utils/timer.py:search_counts`; a launch is one `launches`."""
+        if self._use_plain(Z.X):
+            return self.plain_search(params, al_pad, Z, K, d, J0, dV1, dV2, alpha, budget)
+        B = Z.X.shape[-1]
+        J0, dV1, dV2 = (v.contiguous() for v in (J0, dV1, dV2))
+        for name, v in (("J0", J0), ("dV1", dV1), ("dV2", dV2)):
+            self._check(name, v, (B,))
+        if budget.dtype != torch.int32 or tuple(budget.shape) != (B,) or budget.device != Z.X.device:
+            raise ValueError(f"budget must be int32 [{B}] on {Z.X.device}")
+        budget = budget.contiguous()
+        o = self.opts
+        args, (Xn, Ubar, J, valid, status), sig, lane_tab = self._rollout_args(
+            params, al_pad, Z, K, d, alpha, o.check_forwardpass_bounds)
+        z, alpha_out = Z.X.new_empty((B,)), Z.X.new_empty((B,))
+        success = torch.empty((B,), dtype=torch.int32, device=Z.X.device)
+        tries = torch.empty((B,), dtype=torch.int32, device=Z.X.device)
+        for name, v in (("J0", J0), ("dV1", dV1), ("dV2", dV2), ("budget", budget), ("alpha_out", alpha_out),
+                        ("z", z), ("success", success), ("tries", tries),
+                        ("counts", search_counts(Z.X.device))):
+            setattr(args, name, _ptr(v))
+        args.lower, args.upper = o.line_search_lower_bound, o.line_search_upper_bound
+        args.factor = o.line_search_decrease_factor
+        args.search = 1
         self._launch(args, sig, lane_tab, Z.X)
-        return Xn, Ubar, J, valid != 0, status
+        return dict(Xn=Xn, Ubar=Ubar, J=J, z=z, alpha=alpha_out, success=success != 0, status=status, tries=tries)
+
+    def plain_search(self, params, al_pad: PaddedAL, Z, K, d, J0, dV1, dV2, alpha, budget) -> dict:
+        """The plain version of `search`: the lockstep search's rounds
+        (`solver/batched.py:search_round`) over the lanes that still search,
+        until none does.  Its one host read a round, the stop test, is at
+        the uncounted site `PLAIN_SEARCH`: it stands in for the kernel,
+        which reads nothing."""
+        from ..solver.batched import search_round
+
+        ev = self._eager_solver(self.opts.check_forwardpass_bounds)
+        c = dict(ev._search_init(Z, J0), alpha=alpha)
+        while True:
+            active = (~c["success"]) & (c["it"] < budget)
+            if not host_read(PLAIN_SEARCH, lambda: bool(active.any())):
+                break
+            Zbar, valid, status = ev.closed_loop_rollout(params, Z, K, d, alpha=c["alpha"])
+            J_try = ev.total_cost(params, al_pad.al, Zbar)
+            c = search_round(self.opts, c, active, J0, dV1, dV2, Zbar, valid, status, J_try)
+        B = budget.shape[0]
+        slowest = torch.nn.functional.pad(c["it"], (0, -B % LANES)).view(-1, LANES).amax(dim=1)
+        block = torch.full_like(slowest, LANES)
+        block[-1] = B - LANES * (slowest.numel() - 1)
+        search_counts(Z.X.device).add_(torch.stack([c["it"].sum(), (budget > 0).sum(), (slowest * block).sum()]))
+        return dict(Xn=c["Zbar"].X[1:], Ubar=c["Zbar"].U, J=c["J"], z=c["z"], alpha=c["alpha"],
+                    success=c["success"], status=c["status"], tries=c["it"])
 
 
 def build_forward_kernel(prob, opts, *, dtype=torch.float32, device="cuda"):

@@ -12,7 +12,10 @@ device masks here, so every exit test is one host synchronisation, read
 through `utils/timer.py:host_read` at its site (`inner_exit`, `outer_exit`,
 `line_search`, `bp_retry`; the live fleet rows of `verbose` > SILENT,
 `fleet_row`); `ALSolverBatched.host_syncs` counts them per solve, the
-kernels' (`kernel_prep`) included.  The loops' phases are tracer spans:
+kernels' (`kernel_prep`) included.  The line search is the exception where
+the forward kernel runs: the kernel searches each lane on the device, in
+one launch with no exit test (`line_search` syncs remain on the eager path
+and with `line_search_parallel` S > 1).  The loops' phases are tracer spans:
 `al.solve`, `al.outer`, `al.duals`, `ilqr.rollout`, `ilqr.iter`,
 `ilqr.backward`, `ilqr.forward`.
 
@@ -44,7 +47,9 @@ from ..problem.constraints import Cone, dual_cone
 from ..problem.costs import _quadcost_eval, ad_expansion
 from ..problem.problem import CompiledProblem, ProblemParams, param_row
 from ..types import SolverStatus, Trajectory
-from ..utils.timer import host_read, host_reads, root_span, span
+from ..utils.timer import host_read, host_reads, root_span, search_counts, span
+from ..utils.timer import ls_block_tries as _ls_block_tries
+from ..utils.timer import ls_tries as _ls_tries
 
 # SolverOptions.matmul_precision="highest": float32 matrix products stay in
 # full float32 on CUDA, so TF32 is off for matmuls and for cuDNN alike.
@@ -463,6 +468,9 @@ class ALSolverBatched:
         # host synchronisations of the last `solve` (`host_read`s: one per
         # loop exit test, live row and read of the kernels' preparation)
         self.host_syncs = 0
+        # the last solve's growth of `utils/timer.py:search_counts` (None
+        # without the forward kernel)
+        self.ls_counts = None
         # the speculative search's params and AL state widened to S·B lanes:
         # (params, S, widened params), (padded AL, S, widened padded AL)
         self._spec_params = None
@@ -993,21 +1001,29 @@ class ALSolverBatched:
         Zbar = Z.replace(X=torch.cat([x0[None], Xn], dim=0), U=Ubar)
         return Zbar, valid, status, J
 
-    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None, fwd_kern=None):
+    def forward_pass(self, params, al, Z, bp, J0, rho=None, drho=None, al_pad=None, fwd_kern=None,
+                     active=None):
         """Per-instance backtracking line search (`ilqr.hpp:512-558`).
 
         `rho`/`drho` are the post-decrease regularization; a failed search
         increases them from there.  With the forward kernel `fwd_kern` and
-        `al_pad` (the padded AL state of the inner solve) each try runs the
-        kernel, and with `line_search_parallel` S > 1, S tries run in one
-        launch (`_line_search_speculative`); without them, the eager
-        rollout + cost, one try at a time (the JAX package's scan path
-        ignores S too).
+        `al_pad` (the padded AL state of the inner solve) the kernel runs
+        every lane's whole search in one launch (`_line_search_device`),
+        searching only the lanes of `active` [B] (None: every lane; the
+        inner loop passes its own, and never reads the others' results),
+        and with `line_search_parallel` S > 1, S tries of every lane run in
+        one launch a round (`_line_search_speculative`); without the
+        kernel, the eager rollout + cost, one try at a time (the JAX
+        package's scan path ignores S too).  The kernel's two searches
+        accept what the lockstep search over the kernel accepts, bit for
+        bit.
         """
         opts = self.opts
         S = int(opts.line_search_parallel)
         if fwd_kern is not None and S > 1:
             c = self._line_search_speculative(fwd_kern, params, al_pad, Z, bp, J0, S)
+        elif fwd_kern is not None:
+            c = self._line_search_device(fwd_kern, params, al_pad, Z, bp, J0, active)
         else:
             c = self._line_search_sequential(fwd_kern, params, al, al_pad, Z, bp, J0)
         rho = bp["rho"] if rho is None else rho
@@ -1059,28 +1075,31 @@ class ALSolverBatched:
                     params, Z, bp["K"], bp["d"], c["alpha"]
                 )
                 J_try = self.total_cost(params, al, Zbar)
-            J = torch.where(valid, J_try, c["J"])
-            expected = -c["alpha"] * (bp["dV1"] + c["alpha"] * bp["dV2"])
-            z = torch.where(expected > 0.0, (J0 - J_try) / expected, -torch.ones_like(J0))
-            ok = (
-                valid
-                & (opts.line_search_lower_bound <= z)
-                & (z <= opts.line_search_upper_bound)
-                & (J_try < J0)
-            )
-            c = dict(
-                it=c["it"] + active.to(torch.int32),
-                success=torch.where(active, ok, c["success"]),
-                alpha=torch.where(
-                    active & ~ok, c["alpha"] / opts.line_search_decrease_factor, c["alpha"]
-                ),
-                J=torch.where(active, J, c["J"]),
-                z=torch.where(active, z, c["z"]),
-                status=torch.where(active, status, c["status"]),
-                Zbar=zselect(active, Zbar, c["Zbar"]),
-            )
+            c = search_round(opts, c, active, J0, bp["dV1"], bp["dV2"], Zbar, valid, status, J_try)
             more = self._any((~c["success"]) & (c["it"] < max_it), "line_search")
         return c
+
+    def _line_search_device(self, fwd, params, al_pad, Z, bp, J0, active) -> dict:
+        """The whole search of every lane of `active` (None: every lane) in
+        one forward-kernel launch (`ForwardKernel.search`), with no host
+        sync: each lane stops at its own accepted try or at the search's
+        budget, and a lane outside `active` runs no try (its results are
+        the search's starting values, with an unwritten trajectory).  On
+        the lanes it searches it leaves what `_line_search_sequential`
+        leaves, bit for bit."""
+        Bsz = Z.X.shape[-1]
+        max_it = self.opts.line_search_max_iterations
+        if active is None:
+            budget = torch.full((Bsz,), max_it, dtype=torch.int32, device=Z.X.device)
+        else:
+            budget = torch.where(active, max_it, 0).to(torch.int32)
+        out = fwd.search(params, al_pad, Z, bp["K"], bp["d"], J0, bp["dV1"], bp["dV2"], Z.X.new_ones((Bsz,)),
+                         budget)
+        x0 = self._x0(params, Bsz, Z.X.dtype)
+        return dict(
+            it=out["tries"], success=out["success"], alpha=out["alpha"], J=out["J"], z=out["z"],
+            status=out["status"], Zbar=Z.replace(X=torch.cat([x0[None], out["Xn"]], dim=0), U=out["Ubar"]),
+        )
 
     def _widened(self, params, al_pad, S: int):
         """`params` and `al_pad` at S·B lanes, candidate-major (lane j·B + b
@@ -1241,7 +1260,7 @@ class ALSolverBatched:
                         bp = self.backward_pass(exp, c["rho"], c["drho"])
                 rho_d, drho_d = _decrease_reg(bp["rho"], bp["drho"], opts)
                 with span("ilqr.forward"):
-                    fp = self.forward_pass(params, al, c["Z"], bp, J0, rho_d, drho_d, al_pad, fwd)
+                    fp = self.forward_pass(params, al, c["Z"], bp, J0, rho_d, drho_d, al_pad, fwd, active=active)
                 status = torch.where(
                     bp["failed"], int(SolverStatus.BACKWARD_PASS_REGULARIZATION_FAILED),
                     fp["status"],
@@ -1382,11 +1401,29 @@ class ALSolverBatched:
         (`solver/compaction.py`) runs its variants with them.
         """
         reads = host_reads()
+        counts = search_counts(Z.X.device) if self._fwd is not None else None
+        start = None if counts is None else counts.clone()
         try:
             with root_span("al.solve"):
                 return self._solve(params, Z, al, active, lane_opts)
         finally:
             self.host_syncs = host_reads() - reads
+            self.ls_counts = None if counts is None else counts - start
+
+    @property
+    def ls_tries(self) -> float | None:
+        """Tries per searched lane of the last solve's forward-kernel line
+        searches (None where none ran): a host read of `ls_counts`, the
+        solve's (tries, searched lanes, lane tries run) on the device, so
+        ask for it outside the timed path."""
+        return None if self.ls_counts is None else _ls_tries(self.ls_counts.tolist())
+
+    @property
+    def ls_block_tries(self) -> float | None:
+        """Lane tries the forward kernel's blocks ran per searched lane in
+        the last solve (`utils/timer.py:ls_block_tries`), read as
+        `ls_tries` is."""
+        return None if self.ls_counts is None else _ls_block_tries(self.ls_counts.tolist())
 
     def _solve(self, params, Z, al, active, lane_opts):
         opts = self.opts
@@ -1518,6 +1555,31 @@ class ALSolverBatched:
         return dict(
             Z=c["Z"], al=c["al"], status=c["status"], stats=c["stats"], K=c["K"], d=c["d"],
         )
+
+
+def search_round(opts: SolverOptions, c: dict, active, J0, dV1, dV2, Zbar, valid, status, J_try) -> dict:
+    """One round of the lockstep line search: the lanes of `active` test
+    their try (`Zbar`, `valid`, `status`, its cost `J_try`) against J0 and
+    the expected decrease −α(ΔV1 + αΔV2); a rejection divides α by the
+    decrease factor.  The search's carry `c` as `_search_init` makes it."""
+    J = torch.where(valid, J_try, c["J"])
+    expected = -c["alpha"] * (dV1 + c["alpha"] * dV2)
+    z = torch.where(expected > 0.0, (J0 - J_try) / expected, -torch.ones_like(J0))
+    ok = (
+        valid
+        & (opts.line_search_lower_bound <= z)
+        & (z <= opts.line_search_upper_bound)
+        & (J_try < J0)
+    )
+    return dict(
+        it=c["it"] + active.to(torch.int32),
+        success=torch.where(active, ok, c["success"]),
+        alpha=torch.where(active & ~ok, c["alpha"] / opts.line_search_decrease_factor, c["alpha"]),
+        J=torch.where(active, J, c["J"]),
+        z=torch.where(active, z, c["z"]),
+        status=torch.where(active, status, c["status"]),
+        Zbar=zselect(active, Zbar, c["Zbar"]),
+    )
 
 
 def _knot_slice(knots):

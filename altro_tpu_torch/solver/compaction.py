@@ -57,7 +57,9 @@ from ..options import SolverOptions
 from ..problem.infeasibility import goal_obstacle_certificates
 from ..problem.problem import CompiledProblem
 from ..types import SolverStatus
-from ..utils.timer import FINAL_READBACK, host_read, host_reads, root_span, span
+from ..utils.timer import (
+    FINAL_READBACK, host_read, host_reads, ls_block_tries, ls_tries, root_span, search_counts, span,
+)
 from .batched import ALSolverBatched, BatchedTrajectory, gather_params
 
 # statuses that mean "ran out of a phase budget, still making progress";
@@ -121,11 +123,14 @@ class CompactedALSolver:
 
     After each `solve`, `host_syncs` holds the solve's host
     synchronisations (`utils/timer.py:host_read`) but its final read-back
-    of statuses and iterations, and `telemetry` the iteration distribution
-    and, when the polish ran, its lanes, stages and wall time; on the
-    device path the number of tail rounds, the lanes each restart variant
-    took and the host syncs of the cascade; on the host path phase 1's
-    wall time and, per tail round, its stragglers and wall time.
+    of statuses and iterations, and `telemetry` the iteration distribution,
+    `ls_tries` and `ls_block_tries` (the forward kernel's line-search
+    tries, and the lane tries its blocks ran, per searched lane, read with
+    the statuses; None without the kernel) and, when the polish
+    ran, its lanes, stages and wall time; on the device path the number
+    of tail rounds, the lanes each restart variant took and the host syncs
+    of the cascade; on the host path phase 1's wall time and, per tail
+    round, its stragglers and wall time.
 
     Tracer spans (`utils/timer.py`): `compaction.solve` around a solve,
     `compaction.phase1`, one `compaction.tail_round` per round (host path:
@@ -424,14 +429,21 @@ class CompactedALSolver:
             return gather_params(self.prob.params, params, idx), Z, al
 
     @staticmethod
-    def _readback(site: str, res):
-        """Statuses and total iterations of every lane, on the host."""
-        return host_read(site, lambda: torch.stack([res["status"], res["stats"].iterations_total]).cpu().numpy())
+    def _readback(site: str, res, searched):
+        """Statuses and total iterations of every lane, and `searched`, the
+        solve's (tries, searched lanes, lane tries run) of the forward
+        kernel's line searches so far, on the host in one read."""
+        B = res["status"].shape[-1]
+        rows = torch.cat([res["status"].long(), res["stats"].iterations_total.long(), searched])
+        host = host_read(site, lambda: rows.cpu().numpy())
+        return host[:B], host[B:2 * B], host[2 * B:]
 
     def solve(self, params, Z: BatchedTrajectory, al=None):
         """Same contract as `ALSolverBatched.solve` (batch-last dict)."""
         t0 = time.perf_counter()
         reads = host_reads()
+        counts = search_counts(Z.X.device)
+        start = counts.clone()
         with root_span("compaction.solve"):
             if self.device_tail:
                 if self.tail_iters > 0:
@@ -441,7 +453,7 @@ class CompactedALSolver:
                 res, tel = self._solve_host(params, Z, al, t0)
             # the final read-back, which every solve makes for its telemetry,
             # also decides the polish; each polish stage reads the statuses again
-            status, it = self._readback(FINAL_READBACK, res)
+            status, it, searched = self._readback(FINAL_READBACK, res, counts - start)
             polish = []
             for stage, (solver, (codes, _)) in enumerate(zip(self._polish, _POLISH_STAGES)):
                 bad = np.nonzero(np.isin(status, codes))[0]
@@ -449,7 +461,7 @@ class CompactedALSolver:
                     continue
                 t_p = time.perf_counter()
                 res = self._run_polish(solver, params, Z, res, bad)
-                status, it = self._readback("polish_readback", res)
+                status, it, searched = self._readback("polish_readback", res, counts - start)
                 polish.append(dict(stage=stage, instances=int(bad.size), wall_s=time.perf_counter() - t_p))
             self.telemetry = dict(
                 tel,
@@ -457,6 +469,8 @@ class CompactedALSolver:
                 iters_p95=float(np.percentile(it, 95)),
                 iters_p99=float(np.percentile(it, 99)),
                 iters_max=int(it.max()),
+                ls_tries=ls_tries(searched),
+                ls_block_tries=ls_block_tries(searched),
                 total_s=time.perf_counter() - t0,
             )
             if polish:

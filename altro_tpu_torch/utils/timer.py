@@ -31,10 +31,23 @@ device's idle gaps.
 the host (or otherwise block on the device's queue): it counts the read
 (`host_reads`; the solvers' `host_syncs` are its growth over a solve or
 tick) and, when tracing, holds it in a `sync.<site>` span, so the span is
-the host's blocked time.  The compaction driver's final read-back of
-statuses and iterations (`FINAL_READBACK`) is traced but not counted.
+the host's blocked time.  Two sites are traced but not counted
+(`UNCOUNTED`): the compaction driver's final read-back of statuses and
+iterations (`FINAL_READBACK`), and the stop test of the forward kernel's
+plain search (`PLAIN_SEARCH`), which stands in on the CPU for the kernel's
+search on the card, where nothing is read.
 
-The tracer and the count belong to the process, and assume that one
+The forward kernel's line search (`ops/forward.py:ForwardKernel.search`)
+adds its tries, the lanes it searched and the lane tries its blocks ran
+to a device-side triple per device (`search_counts`); the solvers keep a
+solve's or a tick's growth of it on the device
+(`ALSolverBatched.ls_counts`), read only where the caller asks or in a
+read-back the solve makes anyway (`CompactedALSolver.telemetry`).
+`ls_tries` turns it into tries per searched lane, and `ls_block_tries`
+into lane tries run per searched lane: a block of the kernel runs each of
+its lanes for as many tries as its slowest lane takes.
+
+The tracer and the counts belong to the process, and assume that one
 thread drives the solvers.
 """
 from __future__ import annotations
@@ -50,7 +63,9 @@ import torch
 now_ns = time.time_ns
 
 CAPACITY = 1 << 18  # the records kept; older ones drop
-FINAL_READBACK = "final_readback"  # the one host read `host_reads` leaves out
+FINAL_READBACK = "final_readback"
+PLAIN_SEARCH = "plain_search"
+UNCOUNTED = frozenset({FINAL_READBACK, PLAIN_SEARCH})  # the sites `host_reads` leaves out
 
 
 class Timer:
@@ -229,10 +244,10 @@ def root_span(name: str):
 
 def host_read(site: str, fn):
     """`fn()`, a read of device data on the host, counted in `host_reads`
-    (but for `FINAL_READBACK`) and, when tracing, held in the span
+    (but for the `UNCOUNTED` sites) and, when tracing, held in the span
     `sync.<site>`."""
     global _reads
-    if site != FINAL_READBACK:
+    if site not in UNCOUNTED:
         _reads += 1
     if not _on:
         return fn()
@@ -243,6 +258,38 @@ def host_read(site: str, fn):
 def host_reads() -> int:
     """The process's counted host reads so far."""
     return _reads
+
+
+_searches: dict = {}  # device -> int64 [3]: line-search tries, searched lanes, lane tries run
+
+
+def search_counts(device) -> torch.Tensor:
+    """The process's device-side sums on `device` of the forward kernel's
+    line-search tries, of the lanes it searched (those with a budget) and
+    of the lane tries its blocks ran (each block's slowest lane's tries
+    times its lanes), int64 [3], which each search adds to on the
+    device."""
+    dev = torch.device(device)
+    counts = _searches.get(dev)
+    if counts is None:
+        counts = _searches[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
+    return counts
+
+
+def ls_tries(counts) -> float | None:
+    """Tries per searched lane of (tries, searched lanes, lane tries run),
+    host values of a growth of `search_counts`; None where no lane was
+    searched."""
+    tries, lanes, _ = (int(v) for v in counts)
+    return tries / lanes if lanes else None
+
+
+def ls_block_tries(counts) -> float | None:
+    """Lane tries the kernel's blocks ran per searched lane, of the same
+    counts as `ls_tries`: at least `ls_tries`, by the tries a lane sits
+    out while the slowest lane of its block still searches."""
+    _, lanes, run = (int(v) for v in counts)
+    return run / lanes if lanes else None
 
 
 def records() -> list:

@@ -8,7 +8,11 @@ in parallel), then:
   1. checks the fused backward and forward kernels against their plain
      PyTorch versions at the main path's shapes (turn-90 parking problem,
      N=100, B=4096, warm random AL state) in float64 and float32, and times
-     both;
+     both; then the forward kernel's search mode (each lane's whole line
+     search in one launch) on the fused backward's gains and terms, with
+     budgets 0 to 6 mixed within each block, against the lockstep search
+     over the kernel's tries (bit for bit) and against its plain version,
+     timed with a bound scaled by the lane tries its blocks ran;
   2. drives the main path, `bench.make_solver`'s program — `CompactedALSolver`
      with the fused backward and forward kernels and the float64 polish over
      a B=4096 perturbed parking fleet in float32 — after one instrumented
@@ -492,6 +496,104 @@ def f32_vs_f64(name, got, want, truth, mask) -> dict:
     return dict(kernel=ek, plain=ep, max_abs_truth=float(t.abs().max()) if t.numel() else 0.0)
 
 
+def search_vs_lockstep_and_plain(fk, ev, params, ap, Zb, bw, dtype) -> dict:
+    """The forward kernel's search mode (`ForwardKernel.search`, each
+    lane's whole line search in one launch) from α = 1 with per-lane
+    budgets 0 to the main path's 6 tries, mixed within every block of 8
+    lanes so that its lanes stop at different tries (0 also for lanes
+    whose backward pass failed), on the gains,
+    J0, ΔV1 and ΔV2 of the fused backward `bw`, held
+      1. against the lockstep search over the kernel's single tries (the
+         rounds of `solver/batched.py:search_round`): tries, success, α,
+         J, z and status equal, and X̄, Ū bit for bit on every lane that
+         tried;
+      2. against its plain version (`plain_search`: the same rounds over
+         eager tries): tries, success, α and status equal on every lane,
+         but where the two searches part because a try's kernel and eager
+         values straddle one of the search's tests (valid, a bound of z,
+         J < J0), which the two tries at the parting α show; J, X̄, Ū to
+         the forward kernel's tolerances and z beside them (reported) on
+         the lanes that did not part.
+    Returns the counts, the largest differences and the launch's ms (CUDA
+    events), device ms (torch.profiler) and bound, the last scaled by the
+    lane tries the launch's blocks ran."""
+    import torch
+
+    from altro_tpu_torch.solver.batched import search_round
+    from altro_tpu_torch.utils.timer import search_counts
+
+    o = fk.opts
+    B = Zb.X.shape[-1]
+    dev = Zb.X.device
+    K, d, dV1, dV2, failed, J0 = bw
+    budget = (torch.arange(B, device=dev) * 5 % (o.line_search_max_iterations + 1)).to(torch.int32)
+    budget = torch.where(failed, 0, budget).to(torch.int32)
+    a1 = torch.ones((B,), dtype=dtype, device=dev)
+    search = lambda: fk.search(params, ap, Zb, K, d, J0, dV1, dV2, a1, budget)  # noqa: E731
+    before = search_counts(dev).clone()
+    got = search()
+    tries, lanes, run = (search_counts(dev) - before).tolist()
+    x0 = params.x0.to(dtype)
+
+    def try_at(alpha, plain=False):
+        out = (fk.plain if plain else fk)(params, ap, Zb, K, d, alpha, check_bounds=o.check_forwardpass_bounds)
+        return Zb.replace(X=torch.cat([x0[None], out[0]], dim=0), U=out[1]), out[3], out[4], out[2]
+
+    c = dict(ev._search_init(Zb, J0), alpha=a1)
+    while True:
+        active = (~c["success"]) & (c["it"] < budget)
+        if not bool(active.any()):
+            break
+        c = search_round(o, c, active, J0, dV1, dV2, *try_at(c["alpha"]))
+    tried = got["tries"] > 0
+    same = {key: bitwise([got[key]], [c[want]]) for key, want in (
+        ("tries", "it"), ("success", "success"), ("alpha", "alpha"), ("J", "J"), ("z", "z"), ("status", "status"))}
+    same["Xn"] = bitwise([got["Xn"][..., tried]], [c["Zbar"].X[1:, :, tried]])
+    same["Ubar"] = bitwise([got["Ubar"][..., tried]], [c["Zbar"].U[..., tried]])
+    assert all(same.values()), f"search against the lockstep search over the kernel: {same}"
+
+    p = fk.plain_search(params, ap, Zb, K, d, J0, dV1, dV2, a1, budget)
+    parted = (got["tries"] != p["tries"]) | (got["success"] != p["success"])
+    straddle = []
+    if bool(parted.any()):
+        # both sides try α, α/f, ... rounded alike: they part at the first
+        # try at which one stops
+        t0 = torch.minimum(got["tries"], p["tries"])
+        alpha = a1.clone()
+        for _ in range(int(t0.max()) - 1):
+            alpha = torch.where(t0 > 1, alpha / o.line_search_decrease_factor, alpha)
+            t0 = t0 - 1
+        tests = []
+        for plain in (False, True):
+            _, valid, _, Jt = try_at(alpha, plain)
+            expected = -alpha * (dV1 + alpha * dV2)
+            z = torch.where(expected > 0.0, (J0 - Jt) / expected, -torch.ones_like(J0))
+            tests.append((valid, z, Jt))
+        (vk, zk, Jk), (vp, zp, Jp) = tests
+        lo, hi = o.line_search_lower_bound, o.line_search_upper_bound
+        sides = ((vk != vp) | ((zk - lo) * (zp - lo) <= 0) | ((zk - hi) * (zp - hi) <= 0)
+                 | ((Jk - J0) * (Jp - J0) <= 0))
+        straddle = sides[parted]
+        assert bool(straddle.all()), f"{int((~straddle).sum())} lanes part with no test between their tries"
+    keep = ~parted
+    for key in ("tries", "success", "alpha", "status"):
+        assert torch.equal(got[key][keep], p[key][keep]), f"search against its plain version: {key} differs"
+    live = keep & tried
+    errs = {name: compare(name, g, w, dtype, mask=live)
+            for name, g, w in (("J", got["J"], p["J"]), ("Xn", got["Xn"], p["Xn"]), ("Ubar", got["Ubar"], p["Ubar"]))}
+    errs["z"] = dict(max_abs=float((got["z"][live] - p["z"][live]).abs().max()) if bool(live.any()) else 0.0)
+    item = torch.finfo(dtype).bits // 8
+    nbytes, flops = forward_work(fk, B, item)
+    tag = "f64" if dtype == torch.float64 else "f32"
+    bound_ms, bound_by = bound(nbytes * run / B, flops * run / B, tag)
+    return dict(lanes=B, searched=int(lanes), tries=int(tries), lane_tries_run=int(run),
+                tries_hist={int(t): int((got["tries"] == t).sum()) for t in range(o.line_search_max_iterations + 1)},
+                success=int(got["success"].sum()), lockstep_bitwise=same, lanes_parted=int(parted.sum()),
+                vs_plain=errs, ms=cuda_ms(search, 20), device_ms=device_ms(search, 20, "forward_kernel"),
+                plain_ms=cuda_ms(lambda: fk.plain_search(params, ap, Zb, K, d, J0, dV1, dV2, a1, budget), 3),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernels(dev) -> dict:
     """Each kernel against its plain version, N=100, B=4096, warm AL state
     (as perf/verify_kernels.py builds it)."""
@@ -503,7 +605,7 @@ def phase_kernels(dev) -> dict:
     from altro_tpu_torch.ops.forward import ForwardKernel
     from altro_tpu_torch.solver.batched import ALSolverBatched
 
-    summary = {"backward_fused": {}, "forward": {}}
+    summary = {"backward_fused": {}, "forward": {}, "search": {}}
     for dtype in (torch.float64, torch.float32):
         tag = "f64" if dtype == torch.float64 else "f32"
         defn = UnicycleProblem(dtype=dtype, device=dev, N=N)
@@ -533,6 +635,7 @@ def phase_kernels(dev) -> dict:
                 case[name] = compare(name, gk, gp, dtype, mask=None if name == "J0" else ok)
             case["n_failed"] = int(out_p[4].sum())
             errs_b[f"rho={r}"] = case
+            bw = out_k
             # the forward checks roll out the regularized gains: the ρ=0
             # gains of this random AL state make every lane's closed loop
             # unstable (|x| in the thousands), where rounding differences
@@ -564,6 +667,10 @@ def phase_kernels(dev) -> dict:
         )
         emit({"phase": "kernel_vs_plain", "dtype": tag, "N": N, "B": B,
               "backward_fused": errs_b, "forward": errs_f, **times})
+        fks = ForwardKernel(prob, SolverOptions(line_search_max_iterations=BENCH_OPT_KW["line_search_max_iterations"]),
+                            dtype=dtype, device=dev)
+        summary["search"][tag] = search_vs_lockstep_and_plain(fks, ev, params, ap, Zb, bw, dtype)
+        emit({"phase": "search_vs_plain", "dtype": tag, "N": N, **summary["search"][tag]})
         item = torch.finfo(dtype).bits // 8
         summary["backward_fused"][tag] = dict(
             max_abs_err=max(c[k]["max_abs"] for c in errs_b.values() for k in ("K", "d")),
@@ -636,6 +743,10 @@ def phase_main_path(dev) -> dict:
     res = solver.solve(params, Zb)  # warm-up: builds nothing further, fills caches
     _sync()
     warm_s = time.perf_counter() - t0
+    # a solver's first solve also reads the params' shared leaves for its
+    # kernels' preparation (`sync.kernel_prep`), which a later solve of the
+    # same params object does not: the history solve is held to this one
+    first_syncs = solver.host_syncs
     same_status = bool(torch.equal(res_hist["status"], res["status"]))
     same_U = bitwise([res_hist["Z"].U], [res["Z"].U])
     rows = res_hist["stats"].rows  # [HISTORY_CAPACITY, 8, B]
@@ -668,6 +779,7 @@ def phase_main_path(dev) -> dict:
         iters_p50=float(np.percentile(it, 50)), iters_p99=float(np.percentile(it, 99)),
         iters_max=int(it.max()), host_syncs_per_solve=syncs, tail_rounds=solver.telemetry["tail_rounds"],
         polish=solver.telemetry.get("polish"),
+        first_solve_host_syncs=first_syncs,
         history=dict(capacity=HISTORY_CAPACITY, wall_s=hist_s, host_syncs=instrumented.host_syncs,
                      statuses_equal=same_status, U_bitwise=same_U, rows_equal_iterations=rows_ok,
                      iters_p50=float(np.percentile(it_rows, 50)), iters_p95=float(np.percentile(it_rows, 95)),
@@ -682,10 +794,11 @@ def phase_main_path(dev) -> dict:
     assert launches["backward_fused"] > 0 and launches["forward"] > 0, launches
     assert same_status and same_U, "the instrumented solve diverged from the production solve"
     assert rows_ok, "a lane's history rows differ from its iteration count"
-    assert instrumented.host_syncs == syncs[0], "the history added host syncs"
+    assert instrumented.host_syncs == first_syncs, "the history added host syncs"
     assert int(status[0]) == int(SolverStatus.SOLVED), "lane 0 not SOLVED"
     assert solved >= 0.99 * B_FLEET, f"only {solved}/{B_FLEET} SOLVED"
-    _MAIN_REF.update(res=res, wall_s=wall, host_syncs=syncs[-1], forward_launches=launches["forward"] / 5)
+    _MAIN_REF.update(res=res, wall_s=wall, host_syncs=syncs[-1], first_host_syncs=first_syncs,
+                     forward_launches=launches["forward"] / 5)
     return launches
 
 
@@ -2213,12 +2326,14 @@ def _main_reference(dev) -> dict:
         defn, prob, params, Zb = _main_fleet(dev)
         solver = bench_solver(prob)
         solver.solve(params, Zb)
+        first_syncs = solver.host_syncs
         for k in (solver._p1._fwd, solver._tail._fwd):
             k.launches = 0
         t0 = time.perf_counter()
         res = solver.solve(params, Zb)
         _sync()
         _MAIN_REF.update(res=res, wall_s=time.perf_counter() - t0, host_syncs=solver.host_syncs,
+                         first_host_syncs=first_syncs,
                          forward_launches=solver._p1._fwd.launches + solver._tail._fwd.launches)
     return _MAIN_REF
 
@@ -2406,8 +2521,9 @@ def phase_live_rows(dev) -> None:
     """The main path (bench.make_solver's program, B=4096, f32) at
     `verbose=OUTER`: one fleet row per lockstep outer iteration of every
     solve inside it, each one more host sync, so the solve's syncs exceed
-    the SILENT solve's (phase_main_path's) by exactly the rows; its
-    statuses and U equal the SILENT solve's bit for bit."""
+    the SILENT solver's first solve's (phase_main_path's; a first solve
+    also reads the params for its kernels' preparation) by exactly the
+    rows; its statuses and U equal the SILENT solve's bit for bit."""
     import contextlib
     import io
 
@@ -2425,10 +2541,12 @@ def phase_live_rows(dev) -> None:
     lines = buf.getvalue().splitlines()
     rows = [ln for ln in lines if ln.strip() and ln.strip()[0].isdigit()]
     same = _same_solve(res, ref["res"])
-    emit(dict(phase="live_rows", rows=len(rows), host_syncs=solver.host_syncs, silent_host_syncs=ref["host_syncs"],
+    emit(dict(phase="live_rows", rows=len(rows), host_syncs=solver.host_syncs,
+              silent_host_syncs=ref["first_host_syncs"],
               wall_s=wall, silent_wall_s=ref["wall_s"], first=lines[:4], last=rows[-1:] if rows else None, **same))
     assert rows, "no row printed"
-    assert solver.host_syncs == ref["host_syncs"] + len(rows), (solver.host_syncs, ref["host_syncs"], len(rows))
+    assert solver.host_syncs == ref["first_host_syncs"] + len(rows), (
+        solver.host_syncs, ref["first_host_syncs"], len(rows))
     assert same["statuses"] and same["U_bitwise"], same
 
 
@@ -3628,6 +3746,12 @@ def main(argv) -> int:
                                           plain_ms=o["plain_ms"], bound_ms=rb_ms, bound_by=rb_by)
         if name == "forward":  # at the speculative search's S·B lanes on the main path
             rows[-1]["speculative"] = {f"S{S}": t for S, t in spec_fwd.items()}
+            # its search mode, one launch a line search (phase_kernels)
+            rows[-1]["search"] = {
+                tag: {key: c[key] for key in ("lanes", "searched", "tries", "lane_tries_run", "lanes_parted", "ms",
+                                              "device_ms", "plain_ms", "bound_ms", "bound_by")}
+                for tag, c in kern["search"].items()
+            }
         if name in tri:  # its (6, 2) triple-integrator instantiation, B=2048
             o = tri[name]
             tb_ms, tb_by = o["bound"]

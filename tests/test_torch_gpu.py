@@ -760,11 +760,13 @@ def test_certificates_on_the_card_equal_the_cpu():
             assert sorted(torch.nonzero(cpu).flatten().tolist()) == sorted(lanes.tolist())
 
 
-def _spec_solution(problem, dtype, dev, Bz, S):
+def _spec_solution(problem, dtype, dev, Bz, S, lockstep=False):
     """A solve on both fused kernels at line_search_parallel S: the parking
     problem (N=100, x0 in ±0.1 from seed 0) with the bench's line search
     (6 tries), or the randomized fleet (N=100, its per-lane leaves, the
-    obstacle fleet's options) capped at 30 total iterations."""
+    obstacle fleet's options) capped at 30 total iterations.  `lockstep`:
+    at S = 1, the lockstep search over the kernel (one launch and one host
+    sync a try) in the place of the kernel's own search."""
     from altro_tpu_torch.models.problems import randomized_fleet
 
     if problem == "parking":
@@ -782,6 +784,11 @@ def _spec_solution(problem, dtype, dev, Bz, S):
                              outer_constraints_f64=True, max_iterations_total=30)
     solver = ALSolverBatched(prob, opts.replace(line_search_parallel=S))
     assert solver._fwd is not None and solver._bwd is not None
+    if lockstep:
+        def search(self, fwd, params, al_pad, Z, bp, J0, active):
+            return ALSolverBatched._line_search_sequential(self, fwd, params, None, al_pad, Z, bp, J0)
+
+        solver._line_search_device = search.__get__(solver)
     res = solver.solve(params, _fleet_Z(defn, Bz))
     return res, solver
 
@@ -798,14 +805,20 @@ def _equal_solves(a, b):
 @pytest.mark.parametrize("Bz", [1001, 4096])
 def test_speculative_line_search_equals_sequential_on_the_kernels(Bz, dtype, S):
     """S step sizes in one forward launch at S·B lanes accept what the
-    sequential search accepts: statuses, iterations, α, cost, U and X bit
-    for bit, with fewer forward launches and host syncs."""
+    sequential (lockstep) search accepts: statuses, iterations, α, cost, U
+    and X bit for bit, with fewer forward launches and host syncs; and so
+    does the kernel's own search at S = 1, with fewer host syncs than
+    either and no more launches."""
     dev = _device()
-    base, s1 = _spec_solution("parking", dtype, dev, Bz, 1)
+    base, s1 = _spec_solution("parking", dtype, dev, Bz, 1, lockstep=True)
     res, sS = _spec_solution("parking", dtype, dev, Bz, S)
+    own, sd = _spec_solution("parking", dtype, dev, Bz, 1)
     _equal_solves(res, base)
+    _equal_solves(own, base)
     assert sS._fwd.launches < s1._fwd.launches and sS.host_syncs < s1.host_syncs
-    assert sS._bwd.launches == s1._bwd.launches
+    # at S = 8 over 6 tries a speculative search is one launch too
+    assert sd._fwd.launches <= sS._fwd.launches and sd.host_syncs < sS.host_syncs
+    assert sS._bwd.launches == s1._bwd.launches == sd._bwd.launches
 
 
 def test_speculative_line_search_on_the_lane_params_kernels():

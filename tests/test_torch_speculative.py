@@ -4,8 +4,8 @@ version at S·B lanes.
 
 The search must accept what the sequential search accepts: on the parking
 problem (tests/test_forward_pallas.py:249-312's configuration, N=12, at
-B=256 rather than its kernel tile of 1024) S = 2 and 8 against S = 1 give the same statuses, iterations, α,
-U and cost bit for bit, with fewer host syncs; per-instance params
+B=256 rather than its kernel tile of 1024) S = 2 and 8 against the lockstep search at S = 1 give the same
+statuses, iterations, α, U and cost bit for bit, with fewer host syncs; per-instance params
 (x0, obstacle layouts) widen with the lanes, once per solve; and at the JAX
 test's own three-obstacle configuration (tests/test_forward_pallas.py:
 314-371: N=12, B=1024, per-lane circles, initial penalty 10) the port's
@@ -44,13 +44,20 @@ def _fleet_Z(defn, Bz):
                              Z0.U[..., None].expand(-1, -1, Bz).contiguous(), Z0.t, Z0.h)
 
 
-def _parking(S, seed, forward_pass="cuda"):
+def _parking(S, seed, forward_pass="cuda", lockstep=False):
     """tests/test_forward_pallas.py:_solve_with_spec_width in the port: the
-    parking problem at N=12, x0 uniform in ±0.2 over PARKING_B lanes."""
+    parking problem at N=12, x0 uniform in ±0.2 over PARKING_B lanes.
+    `lockstep`: at S = 1, the lockstep search over the kernel, one try and
+    one host sync a round, in the place of the kernel's own search."""
     defn = UnicycleProblem(dtype=F64, N=N, device="cpu")
     prob = defn.make_problem().compile()
     x0 = torch.as_tensor(np.random.default_rng(seed).uniform(-0.2, 0.2, (3, PARKING_B)))
     solver = ALSolverBatched(prob, SolverOptions(forward_pass=forward_pass, line_search_parallel=S))
+    if lockstep:
+        def search(self, fwd, params, al_pad, Z, bp, J0, active):
+            return ALSolverBatched._line_search_sequential(self, fwd, params, None, al_pad, Z, bp, J0)
+
+        solver._line_search_device = search.__get__(solver)
     res = solver.solve(prob.params.replace(x0=x0), _fleet_Z(defn, PARKING_B))
     return res, solver.host_syncs
 
@@ -66,13 +73,16 @@ def _bitwise(a, b):
 @pytest.mark.parametrize("seed", [11, 3])
 def test_speculative_equals_sequential_bitwise(seed):
     """S = 2 (several rounds where a lane backtracks more than twice) and
-    S = 8 against S = 1: every decision and value bit for bit; fewer host
-    syncs (one per round of S tries instead of one per try)."""
-    base, syncs1 = _parking(1, seed)
+    S = 8 against the lockstep search at S = 1: every decision and value
+    bit for bit; fewer host syncs (one per round of S tries instead of one
+    per try).  The kernel's own search at S = 1 makes fewer than both."""
+    base, syncs1 = _parking(1, seed, lockstep=True)
+    own, syncs_own = _parking(1, seed)
+    _bitwise(own, base)
     for S in (2, 8):
         res, syncs = _parking(S, seed)
         _bitwise(res, base)
-        assert syncs < syncs1, (S, syncs, syncs1)
+        assert syncs_own < syncs < syncs1, (S, syncs_own, syncs, syncs1)
 
 
 def test_eager_forward_ignores_S():

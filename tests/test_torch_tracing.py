@@ -129,6 +129,7 @@ PARENTS = {
     "sync.inner_exit": {"al.outer"},
     "sync.outer_exit": {"al.solve"},
     "sync.line_search": {"ilqr.forward"},
+    "sync.plain_search": {"ilqr.forward"},
     "sync.bp_retry": {"ilqr.backward"},
     "sync.tail_round": {"compaction.solve", "compaction.tail_round"},
     "sync.restart": {"compaction.restart"},
@@ -157,8 +158,10 @@ def test_traced_solve_gives_the_span_tree(kind, parking):
     assert not timer._on and timer.open_span() is None
     names = {r.name for r in spans}
     loops = {"al.solve", "al.outer", "al.duals", "ilqr.rollout", "ilqr.iter", "ilqr.backward", "ilqr.forward",
-             "sync.inner_exit", "sync.outer_exit", "sync.line_search"}
+             "sync.inner_exit", "sync.outer_exit"}
     assert loops | MUST[kind] <= names, sorted(loops | MUST[kind] - names)
+    # the forward kernel searches each lane on the device: no line-search sync
+    assert "sync.line_search" not in names
     by, up = _tree(spans)
     (root,) = [r for r in spans if r.parent < 0]
     assert root.name == ROOTS[kind] and spans[0] is root
@@ -170,7 +173,7 @@ def test_traced_solve_gives_the_span_tree(kind, parking):
             assert p.index < r.index and p.start_ns <= r.start_ns and r.end_ns <= p.end_ns
         if r is not root:
             assert up(r) in PARENTS[r.name], (r.name, up(r))
-    syncs = [r for r in spans if r.name.startswith("sync.") and r.name != "sync.final_readback"]
+    syncs = [r for r in spans if r.name.startswith("sync.") and r.name[5:] not in timer.UNCOUNTED]
     assert len(syncs) == solver.host_syncs > 0
     assert sum(r.name == "sync.final_readback" for r in spans) == (1 if kind.startswith("compaction") else 0)
     # one span a sync site: nothing under a host read
@@ -233,7 +236,9 @@ def counted_reads(where: list):
 def test_host_syncs_counts_every_host_read(kind, parking):
     """With every read of tensor values counted, a solve or a tick reads
     the host only inside `host_read`'s spans, and in as many of them as
-    `host_syncs`, plus the compaction driver's final read-back."""
+    `host_syncs`, plus the uncounted sites: the compaction driver's final
+    read-back and the stop tests of the forward kernel's plain search,
+    which stands in on the CPU for the kernel's search."""
     solver, call = _runner(kind, parking)
     where = []
     with timer.tracing() as spans, counted_reads(where):
@@ -243,11 +248,12 @@ def test_host_syncs_counts_every_host_read(kind, parking):
     assert not outside, f"host reads outside host_read: {sorted(set(map(str, outside)))}"
     read_in = {r.index for r in where}
     syncs = [r for r in spans if r.name.startswith("sync.")]
-    final = [r for r in syncs if r.name == "sync.final_readback"]
+    uncounted = [r for r in syncs if r.name[5:] in timer.UNCOUNTED]
     # an upload waits for the device but reads no value
     assert all(r.index in read_in for r in syncs if r.name != "sync.upload")
-    assert len(syncs) - len(final) == solver.host_syncs
-    assert len(final) == (1 if kind.startswith("compaction") else 0)
+    assert len(syncs) - len(uncounted) == solver.host_syncs
+    assert sum(r.name == "sync.final_readback" for r in uncounted) == (1 if kind.startswith("compaction") else 0)
+    assert any(r.name == "sync.plain_search" for r in uncounted)
 
 
 def test_kernel_preparation_counts_its_reads(parking):

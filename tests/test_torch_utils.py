@@ -187,9 +187,11 @@ PORT_NAME = {"riccati_pallas": "riccati_cuda"}
 # the port's extra trailing keywords: where its tensors live and of what
 # type, the kernels' device functor, compensated circle rows, the backward
 # pass's count of host synchronisations, the forward kernel's timing mode
-# (`chain_only`), and (`Timer.trace_context`) the wait for the card that the
-# JAX package's instrumented solve does apart
-EXTRA_KEYWORDS = {"dtype", "device", "cuda_model", "compensated_circles", "attempts", "chain_only", "block"}
+# (`chain_only`), (`Timer.trace_context`) the wait for the card that the
+# JAX package's instrumented solve does apart, and the inner loop's lanes
+# that the forward kernel's line search searches (`forward_pass`'s `active`)
+EXTRA_KEYWORDS = {"dtype", "device", "cuda_model", "compensated_circles", "attempts", "chain_only", "block",
+                  "active"}
 # ROADMAP.md's "Not ported" entries, the only exceptions, each with its reason
 NOT_PORTED_MODULES = {
     "_pytree": "JAX pytree registration: utils/tree.py walks the port's dataclasses in the same order, "
