@@ -135,6 +135,8 @@ class CompactedALSolver:
     Tracer spans (`utils/timer.py`): `compaction.solve` around a solve,
     `compaction.phase1`, one `compaction.tail_round` per round (host path:
     per round of chunks), one `compaction.restart` per variant, one
+    `compaction.polish_stage` per f64 polish stage that takes lanes (its
+    chunks, their merges and its `polish_readback`), inside it one
     `compaction.polish` per polish chunk, `compaction.gather` and
     `compaction.merge` around each sub-solve's gather and merge; host reads
     at `tail_round`, `restart`, `polish_readback` and `final_readback`, and
@@ -460,8 +462,9 @@ class CompactedALSolver:
                 if bad.size == 0:
                     continue
                 t_p = time.perf_counter()
-                res = self._run_polish(solver, params, Z, res, bad)
-                status, it, searched = self._readback("polish_readback", res, counts - start)
+                with span("compaction.polish_stage"):
+                    res = self._run_polish(solver, params, Z, res, bad)
+                    status, it, searched = self._readback("polish_readback", res, counts - start)
                 polish.append(dict(stage=stage, instances=int(bad.size), wall_s=time.perf_counter() - t_p))
             self.telemetry = dict(
                 tel,

@@ -114,7 +114,8 @@ PARENTS = {
     "compaction.phase1": {"compaction.solve"},
     "compaction.tail_round": {"compaction.solve"},
     "compaction.restart": {"compaction.solve"},
-    "compaction.polish": {"compaction.solve"},
+    "compaction.polish_stage": {"compaction.solve"},
+    "compaction.polish": {"compaction.polish_stage"},
     "compaction.gather": {"compaction.tail_round", "compaction.restart", "compaction.polish"},
     "compaction.merge": {"compaction.tail_round", "compaction.restart", "compaction.polish"},
     "al.solve": {None, "compaction.phase1", "compaction.tail_round", "compaction.restart", "compaction.polish",
@@ -134,17 +135,17 @@ PARENTS = {
     "sync.tail_round": {"compaction.solve", "compaction.tail_round"},
     "sync.restart": {"compaction.restart"},
     "sync.upload": {"compaction.gather", "compaction.tail_round"},
-    "sync.polish_readback": {"compaction.solve"},
+    "sync.polish_readback": {"compaction.polish_stage"},
     "sync.final_readback": {"compaction.solve"},
 }
 ROOTS = dict(compaction_device="compaction.solve", compaction_host="compaction.solve", batched="al.solve",
              mpc="mpc.step")
 MUST = dict(
     compaction_device={"compaction.phase1", "compaction.tail_round", "compaction.restart", "compaction.polish",
-                       "compaction.gather", "compaction.merge", "sync.tail_round", "sync.restart",
-                       "sync.polish_readback", "sync.final_readback", "sync.upload"},
-    compaction_host={"compaction.phase1", "compaction.tail_round", "compaction.polish", "sync.tail_round",
-                     "sync.polish_readback", "sync.final_readback", "sync.upload"},
+                       "compaction.polish_stage", "compaction.gather", "compaction.merge", "sync.tail_round",
+                       "sync.restart", "sync.polish_readback", "sync.final_readback", "sync.upload"},
+    compaction_host={"compaction.phase1", "compaction.tail_round", "compaction.polish", "compaction.polish_stage",
+                     "sync.tail_round", "sync.polish_readback", "sync.final_readback", "sync.upload"},
     batched={"sync.bp_retry"},
     mpc={"mpc.shift"},
 )
@@ -178,6 +179,30 @@ def test_traced_solve_gives_the_span_tree(kind, parking):
     assert sum(r.name == "sync.final_readback" for r in spans) == (1 if kind.startswith("compaction") else 0)
     # one span a sync site: nothing under a host read
     assert not any(by[r.parent].name.startswith("sync.") for r in spans if r.parent >= 0)
+
+
+@pytest.mark.parametrize("kind", ["compaction_device", "compaction_host"])
+def test_polish_stage_spans_enclose_their_chunks(kind, parking):
+    """A polish that takes lanes records one `compaction.polish_stage` per
+    stage that ran, in order, each holding its own chunks'
+    `compaction.polish` spans (one per `polish_batch` lanes) and its one
+    `sync.polish_readback`, and no other stage's."""
+    solver, call = _runner(kind, parking)
+    with timer.tracing() as spans:
+        call()
+    stages = solver.telemetry["polish"]["stages"]
+    assert [s["stage"] for s in stages] == [0, 1]
+    by = {r.index: r for r in spans}
+    got = [r for r in spans if r.name == "compaction.polish_stage"]
+    assert len(got) == len(stages)
+    for stage, tel in zip(got, stages):
+        kids = [r for r in spans if r.parent == stage.index]
+        chunks = [r for r in kids if r.name == "compaction.polish"]
+        assert len(chunks) == -(-tel["instances"] // solver.polish_batch)
+        assert [r.name for r in kids if r.name.startswith("sync.")] == ["sync.polish_readback"]
+        for r in chunks:
+            assert stage.start_ns <= r.start_ns and r.end_ns <= stage.end_ns
+    assert all(by[r.parent].name == "compaction.polish_stage" for r in spans if r.name == "compaction.polish")
 
 
 @pytest.mark.parametrize("kind", ["compaction_device", "mpc"])
